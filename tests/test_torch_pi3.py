@@ -1,0 +1,140 @@
+"""The port's Pi3 model against the JAX package's ``pi3_forward`` on the CPU.
+
+A tiny config whose attention head dim is 64 everywhere (the GPU kernels'
+contract): C=128, 2 heads, 2 encoder blocks, 4 decoder blocks, head depth 1.
+Both sides get the same JAX-layout parameter tree (every leaf perturbed, so
+norms, biases and LayerScales all matter) and the same images, and run in
+fp32; the JAX side takes its XLA path (``on_tpu_platform()`` is false on the
+CPU). Tolerances are fp32 ones through ~10 blocks.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pi3_slam_tpu.models import dinov2 as jax_dinov2
+from pi3_slam_tpu.models import pi3 as jax_pi3
+
+from pi3_slam_tpu_torch.models.convert import (
+    build_pi3,
+    init_pi3_params,
+    load_pi3_checkpoint,
+    pi3_state_from_jax,
+)
+from pi3_slam_tpu_torch.models.dinov2 import DinoV2Config
+from pi3_slam_tpu_torch.models.pi3 import Pi3, Pi3Config
+
+CFG = Pi3Config(
+    encoder=DinoV2Config(embed_dim=128, depth=2, num_heads=2, pos_embed_size=6),
+    dec_embed_dim=128, dec_num_heads=2, dec_depth=4, head_dim=128, head_depth=1,
+    head_num_heads=2, camera_dim=32,
+)
+JAX_CFG = jax_pi3.Pi3Config.from_json(CFG.to_json())
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _perturbed_tree(seed):
+    rng = np.random.default_rng(seed)
+    tree = init_pi3_params(seed, CFG)
+    return jax.tree.map(
+        lambda a: (a + 0.02 * rng.standard_normal(a.shape)).astype(np.float32), tree
+    )
+
+
+def test_numpy_init_matches_jax_init():
+    ours = jax.tree.leaves(init_pi3_params(3, CFG))
+    ref = jax.tree.leaves(jax_pi3.init_pi3_params(3, JAX_CFG))
+    assert len(ours) == len(ref)
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_state_dict_covers_every_parameter():
+    state = pi3_state_from_jax(init_pi3_params(0, CFG))
+    model = Pi3(CFG, device="meta")
+    assert set(state) == set(model.state_dict())
+    for name, p in model.state_dict().items():
+        assert tuple(state[name].shape) == tuple(p.shape), name
+
+
+@pytest.mark.parametrize("n_frames,hw", [(3, (42, 56)), (2, (28, 70))])
+def test_pi3_forward_matches_jax(n_frames, hw):
+    tree = _perturbed_tree(1)
+    imgs = np.random.default_rng(2).random((1, n_frames, 3) + hw, dtype=np.float32)
+    want = jax_pi3.pi3_forward(jax.tree.map(jnp.asarray, tree), jnp.asarray(imgs), JAX_CFG)
+    model = build_pi3(CFG, pi3_state_from_jax(tree), torch.device("cpu"), torch.float32)
+    with torch.no_grad():
+        got = model(torch.from_numpy(imgs))
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].shape == want[key].shape, key
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=2e-5, rtol=1e-4,
+                                   err_msg=key)
+
+
+def test_encoder_matches_jax():
+    """DINOv2 patchify, pos-embed interpolation, register tokens, blocks."""
+    tree = _perturbed_tree(4)
+    imgs = np.random.default_rng(5).standard_normal((2, 3, 42, 70)).astype(np.float32)
+    jcfg = jax_dinov2.DinoV2Config(**CFG.encoder.__dict__)
+    want = jax_dinov2.dinov2_forward(
+        jax.tree.map(jnp.asarray, tree["encoder"]), jnp.asarray(imgs), jcfg
+    )
+    model = build_pi3(CFG, pi3_state_from_jax(tree), torch.device("cpu"), torch.float32)
+    with torch.no_grad():
+        got = model.encoder(torch.from_numpy(imgs))
+    for key in ("cls_token", "register_tokens", "patch_tokens"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=2e-5, err_msg=key)
+
+
+def test_checkpoint_round_trip(tmp_path):
+    from pi3_slam_tpu.models.convert import save_pi3_checkpoint
+
+    tree = _perturbed_tree(6)
+    path = str(tmp_path / "pi3.npz")
+    save_pi3_checkpoint(path, tree, JAX_CFG)
+    loaded, cfg = load_pi3_checkpoint(path)
+    assert cfg == CFG
+    for a, b in zip(jax.tree.leaves(loaded), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_port_imports_and_runs_without_jax():
+    """The port never imports JAX nor the JAX package: a fresh interpreter
+    imports every module, runs a tiny forward and finds neither 'jax' nor
+    'pi3_slam_tpu' in sys.modules."""
+    code = textwrap.dedent(
+        """
+        import sys, pkgutil, importlib, torch
+        import pi3_slam_tpu_torch
+        for m in pkgutil.walk_packages(pi3_slam_tpu_torch.__path__, "pi3_slam_tpu_torch."):
+            importlib.import_module(m.name)
+        from pi3_slam_tpu_torch.models.convert import build_pi3, init_pi3_params, pi3_state_from_jax
+        from pi3_slam_tpu_torch.models.dinov2 import DinoV2Config
+        from pi3_slam_tpu_torch.models.pi3 import Pi3Config
+        cfg = Pi3Config(encoder=DinoV2Config(embed_dim=128, depth=1, num_heads=2, pos_embed_size=4),
+                        dec_embed_dim=128, dec_num_heads=2, dec_depth=2, head_dim=128,
+                        head_depth=1, head_num_heads=2, camera_dim=16)
+        model = build_pi3(cfg, pi3_state_from_jax(init_pi3_params(0, cfg)), torch.device("cpu"),
+                          torch.float32)
+        with torch.no_grad():
+            out = model(torch.rand(1, 2, 3, 28, 28))
+        assert out["points"].shape == (1, 2, 28, 28, 3)
+        assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        assert "pi3_slam_tpu" not in sys.modules, sorted(
+            m for m in sys.modules if m.split(".")[0] == "pi3_slam_tpu")
+        print("ok")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                          cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("ok")
