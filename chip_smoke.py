@@ -6,18 +6,21 @@
 Phases, each of which raises (exit code 1) on failure:
 
 1. Print the card's name and power limit, build the hand-written kernels
-   from the sources in this checkout and print the build time.
+   from the sources in this checkout (one nvcc per source, all at once) and
+   print the build time.
 2. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, in bf16: max error against the stated tolerance, and the
-   kernel's and the plain version's time (CUDA events).
-3. The full-width Pi3 forward (random weights, seed 0) on a 4-frame chunk at
-   308x406: the kernel path (bf16 on the card) against the plain path (fp32
-   on the host CPU).
-4. The main path through the port's CLI: 130 synthetic 640x480 frames,
-   chunks of 100 with overlap 20, 400 grid keypoints, no metric depth (the
-   7-Scenes evaluation protocol without MoGe): two chunk files and a
-   manifest with the JAX creator's keys and finite values, and the kernel
-   launch counts of the run.
+   paths' shapes (Pi3 and MoGe-2), in bf16: max error against the stated
+   tolerance, and the kernel's and the plain version's time (CUDA events).
+3. Full-width forwards with random weights (seed 0): Pi3 on a 4-frame chunk
+   at 308x406, exact and with global_kv_merge=2, and MoGe-2 (ViT-S backbone)
+   on one 308x406 frame; the kernel path (bf16 on the card) against the
+   plain path (fp32 on the host CPU).
+4. The main paths through the port's CLI over 130 synthetic 640x480 frames,
+   chunks of 100 with overlap 20, 400 grid keypoints: with MoGe-2 metric
+   scale from a random-weight MoGe npz (the 7-Scenes evaluation protocol),
+   and with --global-kv-merge 2 --no-metric-depth. Each: two chunk files and
+   a manifest with the JAX creator's keys and finite values, and the kernel
+   launch counts of the run (counts set to 0 just before it).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -43,19 +46,33 @@ KERNELS = {
         "cuda", "pi3_slam_tpu_torch/csrc/packed_attention.cu", "pi3_slam_tpu/ops/pallas_attention.py:636"),
     "flash_attention_packed": (
         "cuda", "pi3_slam_tpu_torch/csrc/packed_attention.cu", "pi3_slam_tpu/ops/pallas_attention.py:504"),
+    "flash_attention_partial": (
+        "cuda", "pi3_slam_tpu_torch/csrc/partial_attention.cu", "pi3_slam_tpu/ops/pallas_attention.py:235"),
     "block_mlp": (
         "cuda", "pi3_slam_tpu_torch/csrc/block_mlp.cu", "pi3_slam_tpu/ops/pallas_mlp.py:343"),
 }
-# launches per 100-frame chunk: 36 decoder + 15 head producer passes;
-# 24 encoder + 18 frame + 15 head single-pass; 18 global; 75 block MLPs
-LAUNCHES_PER_CHUNK = {
+# launches of one Pi3 forward over a chunk: 36 decoder + 15 head producer
+# passes; 24 encoder + 18 frame + 15 head single-pass; 18 global; 75 block MLPs
+PI3_LAUNCHES = {
     "qkv_rope_producer": 51,
     "attention_single_pass_packed": 57,
     "flash_attention_packed": 18,
+    "flash_attention_partial": 0,
     "block_mlp": 75,
+}
+# with global_kv_merge > 1 the 18 global blocks do qk-norm and RoPE in plain
+# torch (no producer pass) and run the partial kernel
+PI3_KV_MERGE_LAUNCHES = dict(PI3_LAUNCHES, qkv_rope_producer=33, flash_attention_packed=0,
+                             flash_attention_partial=18)
+# MoGe-2's 12 ViT-S encoder blocks on the chunk's first frame
+MOGE_LAUNCHES = {"attention_single_pass_packed": 12, "block_mlp": 12}
+PATH_LAUNCHES = {  # launches per chunk of each main path through the CLI
+    "metric_depth": {k: v + MOGE_LAUNCHES.get(k, 0) for k, v in PI3_LAUNCHES.items()},
+    "kv_merge": PI3_KV_MERGE_LAUNCHES,
 }
 FRAME_T = 643  # 638 patches (22 x 29 at 308x406) + 5 register tokens
 N_FRAMES = 100
+MOGE_T = 3537  # 52 x 68 patches of a 308x406 frame at 3600 tokens + cls
 
 
 def log(msg: str) -> None:
@@ -97,10 +114,14 @@ def check(name: str, shape: str, got, ref, why: str, **bounds):
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from pi3_slam_tpu_torch.ops._build import build
 
-    for name in ("packed_attention", "block_mlp"):
-        so, seconds = build(name)
+    names = ("packed_attention", "partial_attention", "block_mlp")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(build, names))
+    for name, (so, seconds) in zip(names, built):
         log(f"  built {name}.cu in {seconds:.1f}s -> {os.path.relpath(so, REPO)}")
         report = so.with_suffix(".so.log").read_text() if seconds else ""
         for line in report.splitlines():
@@ -118,13 +139,15 @@ def rope_for(b: int, frames_per_row: int):
 
 
 def phase_kernels() -> dict:
-    """Each kernel vs its plain version at the main path's shapes (bf16)."""
+    """Each kernel vs its plain version at the main paths' shapes (bf16)."""
     import torch
 
     from pi3_slam_tpu_torch.ops.block_mlp import block_mlp, block_mlp_plain
-    from pi3_slam_tpu_torch.ops.compare import ATTENTION, PRODUCER, block_mlp_bounds
+    from pi3_slam_tpu_torch.ops.compare import ATTENTION, PARTIAL_L, PRODUCER, block_mlp_bounds
     from pi3_slam_tpu_torch.ops.packed_attention import (
         attention_single_pass_packed, flash_attention_packed, packed_attention_plain)
+    from pi3_slam_tpu_torch.ops.partial_attention import (
+        flash_attention_partial, partial_attention_plain)
     from pi3_slam_tpu_torch.ops.qkv_producer import qkv_rope_producer, qkv_rope_producer_plain
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -212,48 +235,140 @@ def phase_kernels() -> dict:
         c = check("block_mlp branch", shape_name, run(), ref, "bf16 fc outputs, bf16 out",
                   **block_mlp_bounds(x, ref))
         record("block_mlp", shape_name, [c], time_ms(run, 5), time_ms(plain, 5))
+
+    # kv-merge global blocks: 64,300 queries against the 32,150 keys of 50
+    # merged frame pairs (q after qk-norm and RoPE, unit-variance entries)
+    tq, tk = N_FRAMES * FRAME_T, N_FRAMES // 2 * FRAME_T
+    q, k, v = randn(1, tq, H, 64), randn(1, tk, H, 64), randn(1, tk, H, 64)
+    kn = k.float().square().sum(-1).amax(1).sqrt()
+    shape_name = f"(1, {tq}, 16, 64) x (1, {tk}, 16, 64)"
+    run = lambda: flash_attention_partial(q, k, v, kn)
+    plain = lambda: partial_attention_plain(q, k, v, kn)
+    (acc, l), (acc_ref, l_ref) = run(), plain()
+    checks = [check("flash_attention_partial acc", shape_name, acc, acc_ref, "bf16 P", **ATTENTION),
+              check("flash_attention_partial l", shape_name, l, l_ref, "fp32 sums", **PARTIAL_L),
+              check("flash_attention_partial acc/l", shape_name, acc / l[..., None],
+                    acc_ref / l_ref[..., None], "bf16 P", **ATTENTION)]
+    half = tk // 2  # two key shards with the shared global kn sum to the whole
+    (a0, l0), (a1, l1) = (flash_attention_partial(q, k[:, s], v[:, s], kn)
+                          for s in (slice(0, half), slice(half, tk)))
+    checks += [check("flash_attention_partial 2 shards acc", shape_name, a0 + a1, acc_ref,
+                     "bf16 P", **ATTENTION),
+               check("flash_attention_partial 2 shards l", shape_name, l0 + l1, l_ref,
+                     "fp32 sums", **PARTIAL_L)]
+    del acc, l, acc_ref, l_ref, a0, a1, l0, l1
+    record("flash_attention_partial", shape_name, checks, time_ms(run, 3), time_ms(plain, 1))
+
+    # MoGe-2's ViT-S encoder at 3,537 tokens: raw qkv (6 heads of 64) with the
+    # softmax scale on the logits, and the 384 / 1536 block MLP
+    c_s = 384
+    qkv = randn(1, MOGE_T, 3 * c_s)
+    shape_name = f"(1, {MOGE_T}, {3 * c_s}) q_scale"
+    run = lambda: attention_single_pass_packed(qkv, 6, q_scale=scale)
+    plain = lambda: packed_attention_plain(qkv, 6, q_scale=scale)
+    c = check("attention_single_pass_packed", shape_name, run(), plain(), **attn)
+    record("attention_single_pass_packed", shape_name, [c], time_ms(run, 10), time_ms(plain, 3))
+    x = randn(1, MOGE_T, c_s)
+    mlp_params = (
+        1 + 0.1 * torch.randn(c_s, generator=g, device="cuda"),
+        0.1 * torch.randn(c_s, generator=g, device="cuda"),
+        randn(4 * c_s, c_s, scale=0.05), randn(4 * c_s, scale=0.1),
+        randn(c_s, 4 * c_s, scale=0.05), randn(c_s, scale=0.1),
+        1 + 0.1 * torch.randn(c_s, generator=g, device="cuda"),
+    )
+    shape_name = f"(1, {MOGE_T}, {c_s})"
+    run = lambda: block_mlp(x, *mlp_params[:6], ls=mlp_params[6])
+    plain = lambda: block_mlp_plain(x, *mlp_params[:6], ls=mlp_params[6])
+    ref = plain()
+    c = check("block_mlp branch", shape_name, run(), ref, "bf16 fc outputs, bf16 out",
+              **block_mlp_bounds(x, ref))
+    record("block_mlp", shape_name, [c], time_ms(run, 10), time_ms(plain, 10))
     return results
 
 
+def compare_outputs(what: str, got: dict, want: dict, keys, tol: float) -> None:
+    """Relative L2 of card outputs against host ones, each within tol."""
+    import torch
+
+    for key in keys:
+        a, b = got[key].double(), want[key].double()
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f"{what} {key}: not finite")
+        rel = ((a - b).norm() / b.norm()).item()
+        ok = rel <= tol
+        log(f"  {what} {key:14s} {tuple(a.shape)} rel L2 (bf16 kernels vs fp32 plain) = {rel:.3e}  "
+            f"max abs {(a - b).abs().max().item():.3e}  tol {tol:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{what} {key}: relative error {rel} exceeds {tol}")
+
+
 def phase_model() -> None:
-    """Full-width Pi3 forward: kernel path (bf16, card) vs plain path (fp32, CPU)."""
+    """Full-width forwards: kernel path (bf16, card) vs plain path (fp32, CPU)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
-    from pi3_slam_tpu_torch.models.convert import build_pi3, init_pi3_params, pi3_state_from_jax
+    from pi3_slam_tpu_torch.models.convert import (
+        build_moge, build_pi3, init_moge_params, init_pi3_params, moge_state_from_jax,
+        moge_vits_config, pi3_state_from_jax)
     from pi3_slam_tpu_torch.models.pi3 import Pi3Config
     from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    cfg = Pi3Config()
     t0 = time.perf_counter()
-    state = pi3_state_from_jax(init_pi3_params(0, cfg))
-    log(f"  random full-width weights (seed 0) in {time.perf_counter() - t0:.1f}s")
+    state = pi3_state_from_jax(init_pi3_params(0, Pi3Config()))
+    log(f"  random full-width Pi3 weights (seed 0) in {time.perf_counter() - t0:.1f}s")
     imgs = np.random.default_rng(0).random((1, 4, 3, 308, 406), dtype=np.float32)
-    gpu = build_pi3(cfg, state, torch.device("cuda"), torch.bfloat16)
+    # a bf16 trunk of 75 blocks against an fp32 one: relative L2 error 5e-2
+    for merge, want_counts in ((1, PI3_LAUNCHES), (2, PI3_KV_MERGE_LAUNCHES)):
+        cfg = Pi3Config(global_kv_merge=merge)
+        gpu = build_pi3(cfg, state, torch.device("cuda"), torch.bfloat16)
+        reset_launch_counts()
+        with torch.no_grad():
+            out_gpu = {k: v.cpu() for k, v in gpu(torch.from_numpy(imgs).cuda()).items()}
+        counts = launch_counts()
+        del gpu
+        torch.cuda.empty_cache()
+        if counts != want_counts:
+            raise RuntimeError(f"global_kv_merge={merge}: launch counts {counts} != {want_counts}")
+        cpu = build_pi3(cfg, state, torch.device("cpu"), torch.float32)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out_cpu = cpu(torch.from_numpy(imgs))
+        log(f"  global_kv_merge={merge}: launches {counts}; plain fp32 forward on the CPU in "
+            f"{time.perf_counter() - t0:.1f}s")
+        compare_outputs(f"pi3 merge={merge}", out_gpu, out_cpu,
+                        ("points", "local_points", "conf", "camera_poses"), 5e-2)
+        del cpu, out_cpu
+    del state
+
+    # full-width ViT-S backbone, 1200-3600 tokens; the neck and head widths
+    # are a reduction (the published ones are not in the repository)
+    cfg = moge_vits_config()
+    state = moge_state_from_jax(init_moge_params(0, cfg))
+    image = torch.from_numpy(np.random.default_rng(1).random((1, 3, 308, 406), dtype=np.float32))
+    tokens = cfg.num_tokens_range[1]
+    gpu = build_moge(cfg, state, torch.device("cuda"), torch.bfloat16)
     reset_launch_counts()
     with torch.no_grad():
-        out_gpu = {k: v.cpu() for k, v in gpu(torch.from_numpy(imgs).cuda()).items()}
-    counts = launch_counts()
+        out_gpu = {k: v.cpu() for k, v in gpu(image.cuda(), tokens).items()}
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if counts != MOGE_LAUNCHES:
+        raise RuntimeError(f"MoGe launch counts {counts} != {MOGE_LAUNCHES}")
+    image_gpu = image.cuda()
+    with torch.no_grad():
+        ms = time_ms(lambda: gpu(image_gpu, tokens), 5)
+    log(f"  MoGe-2 forward on the card: {ms:.3f} ms")
     del gpu
-    torch.cuda.empty_cache()
-    if counts != LAUNCHES_PER_CHUNK:
-        raise RuntimeError(f"model forward launch counts {counts} != {LAUNCHES_PER_CHUNK}")
-    cpu = build_pi3(cfg, state, torch.device("cpu"), torch.float32)
+    cpu = build_moge(cfg, state, torch.device("cpu"))
     t0 = time.perf_counter()
     with torch.no_grad():
-        out_cpu = cpu(torch.from_numpy(imgs))
-    log(f"  plain fp32 forward on the CPU in {time.perf_counter() - t0:.1f}s")
-    # a bf16 trunk of 75 blocks against an fp32 one: relative L2 error 5e-2
-    for key in ("points", "local_points", "conf", "camera_poses"):
-        a, b = out_gpu[key].double(), out_cpu[key].double()
-        if not torch.isfinite(a).all():
-            raise RuntimeError(f"model {key}: not finite")
-        rel = ((a - b).norm() / b.norm()).item()
-        ok = rel <= 5e-2
-        log(f"  pi3 {key:14s} {tuple(a.shape)} rel L2 (bf16 kernels vs fp32 plain) = {rel:.3e}  "
-            f"max abs {(a - b).abs().max().item():.3e}  tol 5e-2 {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError(f"model {key}: relative error {rel} exceeds 5e-2")
+        out_cpu = cpu(image, tokens)
+    log(f"  MoGe-2 ViT-S at {tokens} tokens: launches {counts}; plain fp32 forward on the CPU in "
+        f"{time.perf_counter() - t0:.1f}s")
+    # a bf16 encoder of 12 blocks (the neck and heads fp32 on both sides); a
+    # CPU simulation with bf16 plain blocks gave 8.9e-3 / 6.9e-3 / 3.7e-3
+    compare_outputs("moge", out_gpu, out_cpu, ("points", "mask", "metric_scale"), 5e-2)
 
 
 def write_frames(folder: str, n: int = 130) -> None:
@@ -270,58 +385,84 @@ def write_frames(folder: str, n: int = 130) -> None:
         Image.fromarray(img).save(os.path.join(folder, f"frame_{i:04d}.png"))
 
 
-def phase_cli() -> dict:
-    """Drive the CLI python -m pi3_slam_tpu_torch.create_offline_chunks."""
+def run_cli(name: str, frames: str, out: str, extra: list) -> tuple[dict, list]:
+    """One CLI run of python -m pi3_slam_tpu_torch.create_offline_chunks over
+    the 130 frames; checks its chunk files and its launch counts per chunk.
+    Returns (launch counts of the run, per-chunk records)."""
     import numpy as np
 
     from pi3_slam_tpu_torch.create_offline_chunks import create_chunks
     from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
     from pi3_slam_tpu_torch.utils.keypoints import grid_keypoints
 
+    per_chunk_want = PATH_LAUNCHES[name]
+    argv = ["--images", frames, "--output", out, "--chunk-length", "100", "--overlap", "20",
+            "--max-kp", "400"] + extra
+    log("  python -m pi3_slam_tpu_torch.create_offline_chunks " + " ".join(argv))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    records = create_chunks(argv)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    with open(os.path.join(out, "chunks_manifest.json")) as f:
+        manifest = json.load(f)
+    if [m["num_frames"] for m in manifest] != [100, 50]:
+        raise RuntimeError(f"unexpected chunks {manifest}")
+    k = len(grid_keypoints(308, 406, 400))
+    keys = {"points", "local_points", "conf", "masks", "keypoints", "colors", "camera_poses",
+            "camera_poses_cw", "image_paths", "original_height", "original_width",
+            "intrinsics", "chunk_index", "start_idx", "end_idx"}
+    for entry, record in zip(manifest, records):
+        with np.load(os.path.join(out, "chunks", entry["file"])) as z:
+            scaled = record["metric_scale"] is not None
+            want = keys | {"metric_scale"} if scaled else keys
+            if set(z.files) != want:
+                raise RuntimeError(f"{entry['file']} keys {sorted(z.files)} != {sorted(want)}")
+            n = entry["num_frames"]
+            if z["points"].shape != (n, k, 3) or z["camera_poses"].shape != (n, 4, 4):
+                raise RuntimeError(f"{entry['file']}: shapes {z['points'].shape}")
+            for key in ("points", "local_points", "conf", "camera_poses", "camera_poses_cw",
+                        "intrinsics") + (("metric_scale",) if scaled else ()):
+                if not np.isfinite(z[key].astype(np.float64)).all():
+                    raise RuntimeError(f"{entry['file']}: {key} not finite")
+            if scaled and float(z["metric_scale"]) != np.float32(record["metric_scale"]):
+                raise RuntimeError(f"{entry['file']}: metric_scale differs from its record")
+            if (int(z["original_height"]), int(z["original_width"])) != (308, 406):
+                raise RuntimeError("unexpected target size")
+    fps = [r["fps"] for r in records]
+    per_chunk = [r["launches"] for r in records]
+    want = {kernel: per * len(manifest) for kernel, per in per_chunk_want.items()}
+    log(f"  {name}: chunks {[m['file'] for m in manifest]}, frames/s per chunk {fps}, "
+        f"CLI wall {wall:.1f}s")
+    log(f"  {name}: launch counts {counts} (expected {want}); per chunk {per_chunk}")
+    if counts != want or per_chunk != [per_chunk_want] * len(manifest):
+        raise RuntimeError(f"{name}: launch counts {counts}, per chunk {per_chunk}: expected "
+                           f"{per_chunk_want} per chunk")
+    return counts, records
+
+
+def phase_cli() -> dict:
+    """Both main paths through the CLI; returns each path's launch counts."""
+    from pi3_slam_tpu_torch.models.convert import init_moge_params, moge_vits_config, save_params_npz
+
     with tempfile.TemporaryDirectory() as tmp:
         frames = os.path.join(tmp, "frames")
-        out = os.path.join(tmp, "out")
         os.makedirs(frames)
         write_frames(frames)
-        argv = ["--images", frames, "--output", out, "--chunk-length", "100", "--overlap", "20",
-                "--max-kp", "400", "--no-metric-depth"]
-        log("  python -m pi3_slam_tpu_torch.create_offline_chunks " + " ".join(argv))
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        records = create_chunks(argv)
-        wall = time.perf_counter() - t0
-        counts = launch_counts()
-        fps = [r["fps"] for r in records]
-        per_chunk = [r["launches"] for r in records]
-        with open(os.path.join(out, "chunks_manifest.json")) as f:
-            manifest = json.load(f)
-        if [m["num_frames"] for m in manifest] != [100, 50]:
-            raise RuntimeError(f"unexpected chunks {manifest}")
-        k = len(grid_keypoints(308, 406, 400))
-        keys = {"points", "local_points", "conf", "masks", "keypoints", "colors", "camera_poses",
-                "camera_poses_cw", "image_paths", "original_height", "original_width",
-                "intrinsics", "chunk_index", "start_idx", "end_idx"}
-        for entry in manifest:
-            with np.load(os.path.join(out, "chunks", entry["file"])) as z:
-                if set(z.files) != keys:
-                    raise RuntimeError(f"{entry['file']} keys {sorted(z.files)} != {sorted(keys)}")
-                n = entry["num_frames"]
-                if z["points"].shape != (n, k, 3) or z["camera_poses"].shape != (n, 4, 4):
-                    raise RuntimeError(f"{entry['file']}: shapes {z['points'].shape}")
-                for key in ("points", "local_points", "conf", "camera_poses", "camera_poses_cw",
-                            "intrinsics"):
-                    if not np.isfinite(z[key].astype(np.float64)).all():
-                        raise RuntimeError(f"{entry['file']}: {key} not finite")
-                if (int(z["original_height"]), int(z["original_width"])) != (308, 406):
-                    raise RuntimeError("unexpected target size")
-        want = {name: per * len(manifest) for name, per in LAUNCHES_PER_CHUNK.items()}
-        log(f"  chunks: {[m['file'] for m in manifest]}, frames/s per chunk {fps}, "
-            f"CLI wall {wall:.1f}s")
-        log(f"  launch counts {counts} (expected {want}); per chunk {per_chunk}")
-        if counts != want or per_chunk != [LAUNCHES_PER_CHUNK] * len(manifest):
-            raise RuntimeError(f"launch counts {counts}, per chunk {per_chunk}: expected "
-                               f"{LAUNCHES_PER_CHUNK} per chunk")
-        return counts
+        moge = os.path.join(tmp, "moge_random.npz")
+        save_params_npz(moge, init_moge_params(0, moge_vits_config()))
+        counts, records = run_cli("metric_depth", frames, os.path.join(tmp, "metric"),
+                                  ["--moge-path", moge])
+        scales = [r["metric_scale"] for r in records]
+        if all(sc is not None for sc in scales):
+            log(f"  metric_depth: every chunk holds metric_scale: {scales}")
+        else:  # the creator printed "metric scale skipped: too few valid ..." for these
+            log(f"  metric_depth: metric_scale per chunk {scales}; None = the JAX message "
+                "'metric scale skipped: too few valid MoGe/Pi3 depth pairs' (random weights)")
+        by_path = {"metric_depth": counts}
+        by_path["kv_merge"], _ = run_cli("kv_merge", frames, os.path.join(tmp, "kv_merge"),
+                                         ["--global-kv-merge", "2", "--no-metric-depth"])
+        return by_path
 
 
 def main() -> int:
@@ -349,17 +490,18 @@ def main() -> int:
     log(f"  kernels built in {time.perf_counter() - t0:.1f}s")
     log("[2] kernels vs plain, bf16, main-path shapes")
     results = phase_kernels()
-    log("[3] full-width Pi3 forward, 4 frames at 308x406")
+    log("[3] full-width forwards: Pi3 (4 frames, exact and kv-merge 2), MoGe-2 (1 frame)")
     phase_model()
-    log("[4] main path: port CLI over 130 frames")
-    counts = phase_cli()
+    log("[4] main paths: port CLI over 130 frames, with metric depth and with kv-merge 2")
+    by_path = phase_cli()
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]
+        launches = {path: counts[name] for path, counts in by_path.items()}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": counts[name], "max_abs_err": r["max_abs_err"],
-                        "rel_l2": r["rel_l2"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                        "shape": r["shape"]})
+                        "launches": sum(launches.values()), "launches_by_path": launches,
+                        "max_abs_err": r["max_abs_err"], "rel_l2": r["rel_l2"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

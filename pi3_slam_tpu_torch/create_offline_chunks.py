@@ -1,8 +1,8 @@
 """CLI: create offline chunks with the PyTorch port (Pi3 inference + grid
-keypoints + intrinsics), on the GPU by default.
+keypoints + intrinsics + MoGe-2 metric scale), on the GPU by default.
 
     python -m pi3_slam_tpu_torch.create_offline_chunks --images <dir> \\
-        --output <out> --chunk-length 100 --overlap 20 --max-kp 400 --no-metric-depth
+        --output <out> --chunk-length 100 --overlap 20 --max-kp 400 --moge-path moge.npz
 
 Same flags as the JAX package's ``create_offline_chunks.py``. Flags that
 name parts not ported yet exit non-zero with a message naming their
@@ -52,9 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cam-dist-path", type=str, default=None,
                         help="Camera calibration JSON for undistortion")
     parser.add_argument("--metric-depth", action="store_true", default=True,
-                        help="MoGe metric scaling (not yet ported: pass --no-metric-depth)")
+                        help="MoGe-2 metric scaling (without --moge-path: a message, no scaling)")
     parser.add_argument("--no-metric-depth", dest="metric_depth", action="store_false")
-    parser.add_argument("--moge-path", default=None, help="MoGe weights (.npz), for --metric-depth")
+    parser.add_argument("--moge-path", default=None,
+                        help="Converted MoGe-2 weights (.npz, the JAX package's format)")
     parser.add_argument("--keypoints", default="grid", choices=["aliked", "grid", "none"])
     parser.add_argument("--aliked-path", default=None, help="ALIKED weights, for --keypoints aliked")
     parser.add_argument("--max-kp", type=int, default=200)
@@ -82,7 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--refine-max-observations", type=int, default=10,
                         help="Observation-fan width, for --refine-observations")
     parser.add_argument("--global-kv-merge", type=int, default=1,
-                        help="Global-attention k/v merge factor (only 1, exact, is ported)")
+                        help="Average global-attention keys/values over this many consecutive "
+                             "frames (1 = exact; chunks whose frame count it does not divide "
+                             "run exact)")
     parser.add_argument("--no-pad-tail", dest="pad_tail_chunks", action="store_false",
                         help="Accepted for compatibility: the port always runs the short "
                              "tail chunk unpadded (eager PyTorch has no recompile cost)")
@@ -97,16 +100,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def unported(args) -> str | None:
     """The message for the first requested feature this port lacks, or None."""
-    if args.metric_depth:
-        return ("MoGe-2 metric scale is not yet ported (ROADMAP.md Queue 1: MoGe-2); "
-                "pass --no-metric-depth")
     if args.keypoints == "aliked":
         return "--keypoints aliked is not yet ported (ROADMAP.md Queue 1: off the main path, ALIKED)"
     if args.refine_observations:
         return ("--refine-observations is not yet ported (ROADMAP.md Queue 1: off the main "
                 "path, ops/correlation.py ZNCC refinement)")
-    if args.global_kv_merge > 1:
-        return "--global-kv-merge > 1 is not yet ported (ROADMAP.md Queue 1: off the main path, kv-merge)"
     for flag, value in (("--data-parallel-chunks", args.data_parallel_chunks),
                         ("--tensor-parallel", args.tensor_parallel),
                         ("--sequence-parallel", args.sequence_parallel)):
@@ -141,6 +139,9 @@ def create_chunks(argv=None) -> list[dict]:
         device=args.device,
         checkpoint_path=args.model_path,
         compute_dtype=args.compute_dtype,
+        global_kv_merge=args.global_kv_merge,
+        use_metric_depth=args.metric_depth,
+        moge_checkpoint_path=args.moge_path,
         keypoint_type=args.keypoints,
         max_keypoints=args.max_kp,
         estimate_camera_params=args.estimate_intrinsics,

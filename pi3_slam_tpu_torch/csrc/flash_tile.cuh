@@ -1,0 +1,158 @@
+// The online-softmax attention loop shared by packed_attention.cu and
+// partial_attention.cu: one block of 4 warps owns 64 query rows of one head,
+// each warp 16 rows, and walks the keys in 64-key tiles held in shared memory.
+// Per tile: S = Q K^T (32 mma.sync), base-2 online softmax on the S fragments
+// (exact running max per row), P rounded to bf16 in registers as the A
+// operand, O += P V (32 mma.sync). Head dim 64.
+#pragma once
+
+#include <math.h>
+
+#include "mma.cuh"
+
+namespace pi3 {
+
+constexpr int kD = 64;        // head dim
+constexpr int kTile = 64;     // query rows per block, keys per tile
+constexpr int kThreads = 128; // 4 warps x 16 query rows
+constexpr int kLd = kD + 8;   // padded shared-memory row (bf16), 144 bytes
+
+using Tile = __nv_bfloat16[kTile][kLd];
+
+// rows [row0, row0+64) x 64 columns of a bf16 matrix whose rows start ld
+// elements apart (16-byte aligned) -> smem; rows >= n_rows are zero-filled.
+__device__ __forceinline__ void load_tile(Tile& dst, const __nv_bfloat16* src, long long ld,
+                                          int row0, int n_rows) {
+  for (int i = threadIdx.x; i < kTile * 8; i += kThreads) {
+    const int r = i >> 3;
+    const int c = (i & 7) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_rows) {
+      v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * ld + c);
+    }
+    *reinterpret_cast<uint4*>(&dst[r][c]) = v;
+  }
+}
+
+// Per-thread state of the loop: this thread's rows are r0 = warp*16 + lane/4
+// and r0 + 8 of the block's query tile.
+struct FlashRows {
+  uint32_t qf[4][4];  // the A fragments of Q (16 rows x 64)
+  float o[8][4];      // O accumulator fragments (16 rows x 64, fp32)
+  float m0, m1;       // running max of the base-2 logits, rows r0 / r0+8
+  float l0, l1;       // this thread's partial row sums of 2^(s - m)
+};
+
+__device__ __forceinline__ void init_rows(FlashRows& st, const Tile& Qs) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c = kk * 16 + 2 * t4;
+    st.qf[kk][0] = ld_pair(&Qs[r0][c]);
+    st.qf[kk][1] = ld_pair(&Qs[r0 + 8][c]);
+    st.qf[kk][2] = ld_pair(&Qs[r0][c + 8]);
+    st.qf[kk][3] = ld_pair(&Qs[r0 + 8][c + 8]);
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n) st.o[n][0] = st.o[n][1] = st.o[n][2] = st.o[n][3] = 0.f;
+  st.m0 = st.m1 = -INFINITY;
+  st.l0 = st.l1 = 0.f;
+}
+
+// One 64-key tile (keys k0 .. k0+63 in Ks / Vs; keys >= n_keys masked).
+// scale_log2 multiplies the fp32 logits. Key k0 < n_keys is in every visited
+// tile, so the running max stays finite.
+__device__ __forceinline__ void attend_tile(FlashRows& st, const Tile& Ks, const Tile& Vs, int k0,
+                                            int n_keys, float scale_log2) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+
+  float s[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    const int key = n * 8 + g;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int c = kk * 16 + 2 * t4;
+      mma_bf16_16816(s[n], st.qf[kk], ld_pair(&Ks[key][c]), ld_pair(&Ks[key][c + 8]));
+    }
+  }
+
+  // scale to base-2 logits, mask keys >= n_keys, tile row max
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bool ok = k0 + n * 8 + 2 * t4 + j < n_keys;
+      s[n][j] = ok ? s[n][j] * scale_log2 : -INFINITY;
+      s[n][2 + j] = ok ? s[n][2 + j] * scale_log2 : -INFINITY;
+      mx0 = fmaxf(mx0, s[n][j]);
+      mx1 = fmaxf(mx1, s[n][2 + j]);
+    }
+  }
+  // the four threads of a quad hold one row's 64 columns
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(st.m0, mx0);
+  const float mn1 = fmaxf(st.m1, mx1);
+  const float a0 = exp2f(st.m0 - mn0);  // 0 on the first tile (m = -inf)
+  const float a1 = exp2f(st.m1 - mn1);
+  st.m0 = mn0;
+  st.m1 = mn1;
+
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    s[n][0] = exp2f(s[n][0] - mn0);
+    s[n][1] = exp2f(s[n][1] - mn0);
+    s[n][2] = exp2f(s[n][2] - mn1);
+    s[n][3] = exp2f(s[n][3] - mn1);
+    rs0 += s[n][0] + s[n][1];
+    rs1 += s[n][2] + s[n][3];
+  }
+  st.l0 = st.l0 * a0 + rs0;
+  st.l1 = st.l1 * a1 + rs1;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    st.o[n][0] *= a0;
+    st.o[n][1] *= a0;
+    st.o[n][2] *= a1;
+    st.o[n][3] *= a1;
+  }
+
+  // O += P V: the S accumulator layout of key tiles (2kk, 2kk+1) is the A
+  // operand layout of a 16-key step
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t pa[4];
+    pa[0] = pack_float2(s[2 * kk][0], s[2 * kk][1]);
+    pa[1] = pack_float2(s[2 * kk][2], s[2 * kk][3]);
+    pa[2] = pack_float2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pa[3] = pack_float2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    const int key = kk * 16 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = n * 8 + g;
+      const uint32_t b0 = pack_pair(Vs[key][col], Vs[key + 1][col]);
+      const uint32_t b1 = pack_pair(Vs[key + 8][col], Vs[key + 9][col]);
+      mma_bf16_16816(st.o[n], pa, b0, b1);
+    }
+  }
+}
+
+// Full row sums l0 / l1 (the quad's four partial sums added).
+__device__ __forceinline__ void reduce_row_sums(FlashRows& st) {
+  st.l0 += __shfl_xor_sync(0xffffffffu, st.l0, 1);
+  st.l0 += __shfl_xor_sync(0xffffffffu, st.l0, 2);
+  st.l1 += __shfl_xor_sync(0xffffffffu, st.l1, 1);
+  st.l1 += __shfl_xor_sync(0xffffffffu, st.l1, 2);
+}
+
+}  // namespace pi3

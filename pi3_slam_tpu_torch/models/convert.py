@@ -1,5 +1,5 @@
-"""Parameter conversion between the JAX package's Pi3 parameter tree and
-this port's ``Pi3`` module.
+"""Parameter conversion between the JAX package's Pi3 and MoGe-2 parameter
+trees and this port's ``Pi3`` and ``MoGe`` modules.
 
 * :func:`pi3_state_from_jax` turns the JAX tree (numpy leaves, as
   ``pi3_slam_tpu.models.init_pi3_params`` or ``load_params_npz`` give it;
@@ -11,16 +11,22 @@ this port's ``Pi3`` module.
 * :func:`init_pi3_params` is a numpy copy of the JAX random init (same
   values for the same integer seed), so a full-width model with random
   weights needs no JAX.
+* :func:`moge_state_from_jax`, :func:`load_moge_checkpoint` and
+  :func:`init_moge_params` do the same for MoGe-2 (conv kernels HWIO ->
+  OIHW); :func:`save_params_npz` writes either tree in the JAX package's
+  ``.npz`` format, and :func:`moge_vits_config` is the configuration of
+  random-weight MoGe-2 runs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from .dinov2 import DinoV2Config
+from .moge_model import ConvStackConfig, MoGe, MoGeConfig
 from .pi3 import Pi3, Pi3Config
 
 # JAX block leaf -> port parameter name (kernels are transposed)
@@ -64,17 +70,20 @@ def _blocks(sd: dict, prefix: str, stacked: Dict[str, Any], indices) -> None:
             sd[f"{prefix}.{idx}.{name}"] = _tensor(a.T if leaf.endswith("_kernel") else a)
 
 
+def _dinov2(sd: dict, prefix: str, enc: Dict[str, Any]) -> None:
+    _linear(sd, f"{prefix}.patch_embed", enc["patch_embed_kernel"], enc["patch_embed_bias"])
+    for leaf in ("cls_token", "pos_embed", "register_tokens"):
+        sd[f"{prefix}.{leaf}"] = _tensor(enc[leaf])
+    sd[f"{prefix}.norm.weight"] = _tensor(enc["norm_scale"])
+    sd[f"{prefix}.norm.bias"] = _tensor(enc["norm_bias"])
+    depth = len(enc["blocks"]["qkv_kernel"])
+    _blocks(sd, f"{prefix}.blocks", enc["blocks"], range(depth))
+
+
 def pi3_state_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX Pi3 parameter tree -> ``Pi3`` state_dict (fp32 CPU tensors)."""
     sd: Dict[str, torch.Tensor] = {}
-    enc = tree["encoder"]
-    _linear(sd, "encoder.patch_embed", enc["patch_embed_kernel"], enc["patch_embed_bias"])
-    for leaf in ("cls_token", "pos_embed", "register_tokens"):
-        sd[f"encoder.{leaf}"] = _tensor(enc[leaf])
-    sd["encoder.norm.weight"] = _tensor(enc["norm_scale"])
-    sd["encoder.norm.bias"] = _tensor(enc["norm_bias"])
-    depth = len(enc["blocks"]["qkv_kernel"])
-    _blocks(sd, "encoder.blocks", enc["blocks"], range(depth))
+    _dinov2(sd, "encoder", tree["encoder"])
 
     dec = tree["decoder"]
     sd["register_token"] = _tensor(dec["register_token"])
@@ -110,6 +119,85 @@ def build_pi3(
     return model.to(device=device, dtype=dtype).eval()
 
 
+def _conv(sd: dict, name: str, p: Dict[str, Any], leaf: str = "") -> None:
+    """A JAX HWIO conv kernel (kh, kw, in, out) -> torch OIHW, and its bias."""
+    kernel = np.asarray(p[f"{leaf}kernel"], dtype=np.float32)
+    sd[f"{name}.weight"] = _tensor(kernel.transpose(3, 2, 0, 1))
+    sd[f"{name}.bias"] = _tensor(p[f"{leaf}bias"])
+
+
+def _conv_stack(sd: dict, prefix: str, p: Dict[str, Any]) -> None:
+    for kind in ("input_blocks", "output_blocks"):
+        for i, conv in enumerate(p[kind]):
+            if conv is not None:
+                _conv(sd, f"{prefix}.{kind}.{i}", conv)
+    for i, level in enumerate(p["res_blocks"]):
+        for j, blk in enumerate(level):
+            name = f"{prefix}.res_blocks.{i}.{j}"
+            _conv(sd, f"{name}.conv1", blk, "conv1_")
+            _conv(sd, f"{name}.conv2", blk, "conv2_")
+            for norm in ("norm1", "norm2"):
+                if f"{norm}_scale" in blk:
+                    sd[f"{name}.{norm}.weight"] = _tensor(blk[f"{norm}_scale"])
+                    sd[f"{name}.{norm}.bias"] = _tensor(blk[f"{norm}_bias"])
+    for i, res in enumerate(p["resamplers"]):
+        _conv(sd, f"{prefix}.resamplers.{i}.conv1", res, "conv1_")
+        _conv(sd, f"{prefix}.resamplers.{i}.conv2", res, "conv2_")
+
+
+def moge_state_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX MoGe-2 parameter tree (``convert_moge_state_dict``'s layout:
+    HWIO conv kernels, (in, out) linears, stacked backbone blocks) -> ``MoGe``
+    state_dict (fp32 CPU tensors). ``_config_json`` is ignored."""
+    sd: Dict[str, torch.Tensor] = {}
+    _dinov2(sd, "backbone", tree["backbone"])
+    for i, proj in enumerate(tree["output_projections"]):
+        _conv(sd, f"output_projections.{i}", proj)
+    for stack in ("neck", "points_head", "mask_head", "normal_head"):
+        if tree.get(stack) is not None:
+            _conv_stack(sd, stack, tree[stack])
+    for i, lin in enumerate(tree.get("scale_head") or []):
+        _linear(sd, f"scale_head.{i}", lin["kernel"], lin["bias"])
+    return sd
+
+
+def build_moge(
+    cfg: MoGeConfig,
+    state: Dict[str, torch.Tensor],
+    device: torch.device,
+    trunk_dtype: torch.dtype = torch.float32,
+) -> MoGe:
+    """A ``MoGe`` holding ``state`` on ``device``: everything in fp32 but the
+    encoder blocks, which are held in ``trunk_dtype`` (bf16 on the GPU, where
+    they run through the hand-written kernels)."""
+    model = MoGe(cfg, device="meta")
+    model.load_state_dict(state, strict=True, assign=True)
+    model = model.to(device=device, dtype=torch.float32).eval()
+    model.backbone.blocks.to(trunk_dtype)
+    return model
+
+
+def save_params_npz(path: str, tree: Dict[str, Any]) -> None:
+    """Write a parameter tree in the JAX package's ``save_params_npz`` format
+    ('/'-joined keys, '#<i>' list segments, '__none__' markers)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}" if prefix else k)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}/#{i}")
+        elif node is None:
+            flat[f"{prefix}/__none__"] = np.int8(1)
+        else:
+            flat[prefix] = np.asarray(node)
+
+    walk(tree, "")
+    np.savez(path, **flat)
+
+
 def load_params_npz(path: str) -> Dict[str, Any]:
     """Read a flattened '/'-keyed param tree (the JAX package's
     ``save_params_npz`` format: '#<i>' list segments, '__none__' markers)."""
@@ -142,6 +230,15 @@ def load_pi3_checkpoint(path: str):
     params = load_params_npz(path)
     cfg_json = params.pop("_pi3_config_json", None)
     cfg = Pi3Config.from_json(str(cfg_json)) if cfg_json is not None else None
+    return params, cfg
+
+
+def load_moge_checkpoint(path: str):
+    """Load a MoGe-2 ``.npz`` (as ``tools/convert_checkpoint.py --model moge``
+    writes it) -> (JAX-layout param tree, MoGeConfig from its '_config_json')."""
+    params = load_params_npz(path)
+    cfg = MoGeConfig.from_params(params)
+    params.pop("_config_json")
     return params, cfg
 
 
@@ -291,3 +388,79 @@ def init_pi3_params(seed: int, cfg: Pi3Config = Pi3Config()) -> Dict[str, Any]:
         },
         "camera_head": _init_camera_head(keys[7], cfg.camera_dim),
     }
+
+
+def moge_vits_config(num_tokens_range: Tuple[int, int] = (1200, 3600)) -> MoGeConfig:
+    """MoGe-2 with the full-width ViT-S/14 backbone, for random-weight runs.
+
+    The published ``moge-2-vits-normal`` neck and head widths are not in the
+    repository, so the neck and heads take those of the JAX package's
+    ``tests/test_moge_parity.py`` (encoder ``dim_out`` 64, no normal head).
+    A converted checkpoint carries its own config instead."""
+
+    def stack(dim_in, dims, dim_out):
+        return ConvStackConfig(dim_in=dim_in, dim_res_blocks=dims, dim_out=dim_out,
+                               resamplers=("pixel_shuffle",) * (len(dims) - 1))
+
+    return MoGeConfig(
+        backbone="dinov2_vits14", intermediate_layers=4, encoder_dim_out=64,
+        neck=stack((66, 2, 2, 2, 2), (64, 64, 32, 32, 32), (None,) * 5),
+        points_head=stack((64, 64, 32, 32, 32), (64, 32, 32, 32, 32), (None,) * 4 + (3,)),
+        mask_head=stack((64, 64, 32, 32, 32), (32, 32, 32, 32, 32), (None,) * 4 + (1,)),
+        normal_head=None, scale_head_dims=(384, 64, 1), num_tokens_range=tuple(num_tokens_range),
+    )
+
+
+def _init_conv_stack(rng: np.random.Generator, cfg: ConvStackConfig) -> Dict[str, Any]:
+    def conv(k, c_in, c_out, prefix=""):
+        return {f"{prefix}kernel": _trunc(rng, (k, k, c_in, c_out), std=(k * k * c_in) ** -0.5),
+                f"{prefix}bias": np.zeros((c_out,), np.float32)}
+
+    def res_block(c):
+        hidden = cfg.dim_times_res_block_hidden * c
+        blk = {**conv(3, c, hidden, "conv1_"), **conv(3, hidden, c, "conv2_")}
+        for norm, kind, width in (("norm1", cfg.res_block_in_norm, c),
+                                  ("norm2", cfg.res_block_hidden_norm, hidden)):
+            if kind != "none":
+                blk[f"{norm}_scale"] = np.ones((width,), np.float32)
+                blk[f"{norm}_bias"] = np.zeros((width,), np.float32)
+        return blk
+
+    dims = cfg.dim_res_blocks
+    return {
+        "input_blocks": [None if c_in is None else conv(1, c_in, c) for c_in, c in zip(cfg.dim_in, dims)],
+        "res_blocks": [[res_block(c) for _ in range(cfg.num_blocks_at(i))] for i, c in enumerate(dims)],
+        "resamplers": [{**conv(3, a, 4 * b, "conv1_"), **conv(3, b, b, "conv2_")}
+                       for a, b in zip(dims[:-1], dims[1:])],
+        "output_blocks": [None if c_out is None else conv(1, c, c_out)
+                          for c_out, c in zip(cfg.dim_out, dims)],
+    }
+
+
+def init_moge_params(seed: int, cfg: MoGeConfig) -> Dict[str, Any]:
+    """Random MoGe-2 parameter tree in the JAX layout, with its
+    '_config_json', from a numpy seed (no MoGe checkpoint is in the
+    repository; values only matter for tests and smoke runs).
+    ``save_params_npz`` of it is a checkpoint that both packages load."""
+    rng = np.random.default_rng(seed)
+    enc = cfg.encoder_cfg
+    params: Dict[str, Any] = {
+        "backbone": _init_dinov2(seed + 1, enc),
+        "output_projections": [
+            {"kernel": _trunc(rng, (1, 1, enc.embed_dim, cfg.encoder_dim_out), std=enc.embed_dim**-0.5),
+             "bias": np.zeros((cfg.encoder_dim_out,), np.float32)}
+            for _ in range(cfg.num_projections)
+        ],
+        "neck": _init_conv_stack(rng, cfg.neck),
+        "_config_json": np.asarray(cfg.to_json()),
+    }
+    for head in ("points_head", "mask_head", "normal_head"):
+        if getattr(cfg, head) is not None:
+            params[head] = _init_conv_stack(rng, getattr(cfg, head))
+    if cfg.scale_head_dims is not None:
+        dims = cfg.scale_head_dims
+        params["scale_head"] = [
+            {"kernel": _trunc(rng, (a, b), std=a**-0.5), "bias": np.zeros((b,), np.float32)}
+            for a, b in zip(dims[:-1], dims[1:])
+        ]
+    return params

@@ -3,7 +3,8 @@
 Port of ``pi3_slam_tpu/models/dinov2.py``: patch embedding as patchify +
 linear (the stride-14 convolution's math), cls + register tokens, the
 antialiased bicubic position-embedding interpolation, the block stack as an
-``nn.ModuleList``, and the final LayerNorm.
+``nn.ModuleList``, and the final LayerNorm; ``intermediate_layers`` serves
+MoGe-2 (plain ``dinov2_vits14``: no registers, offset 0.1, no antialias).
 """
 
 from __future__ import annotations
@@ -59,12 +60,10 @@ class DinoVisionTransformer(nn.Module):
         )
         self.norm = nn.LayerNorm(c, eps=cfg.norm_eps, **kw)
 
-    def forward(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Encode (B, 3, H, W) model-normalised images in the module's dtype.
-
-        Returns 'cls_token' (B, C), 'register_tokens' (B, R, C) and
-        'patch_tokens' (B, h*w, C), all after the final norm.
-        """
+    def _embed(self, images: torch.Tensor) -> torch.Tensor:
+        """Patch tokens, cls, position embedding and registers, computed in the
+        patch embedding's dtype and handed to the blocks in theirs (MoGe-2 on
+        the GPU keeps its patch embedding in fp32 and its blocks in bf16)."""
         cfg = self.cfg
         dtype = self.patch_embed.weight.dtype
         p = cfg.patch_size
@@ -81,11 +80,36 @@ class DinoVisionTransformer(nn.Module):
         if r:
             reg = self.register_tokens.to(dtype).expand(b, r, cfg.embed_dim)
             x = torch.cat([x[:, :1], reg, x[:, 1:]], dim=1)
+        return x.to(self.blocks[0].qkv.weight.dtype)
+
+    def forward(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Encode (B, 3, H, W) model-normalised images.
+
+        Returns 'cls_token' (B, C), 'register_tokens' (B, R, C) and
+        'patch_tokens' (B, h*w, C), all after the final norm.
+        """
+        x = self._embed(images)
         for blk in self.blocks:
             x = blk(x)
-        x = layer_norm(x, self.norm.weight, self.norm.bias, cfg.norm_eps)
+        x = layer_norm(x, self.norm.weight, self.norm.bias, self.cfg.norm_eps)
+        r = self.cfg.num_register_tokens
         return {
             "cls_token": x[:, 0],
             "register_tokens": x[:, 1 : r + 1],
             "patch_tokens": x[:, r + 1 :],
         }
+
+    def intermediate_layers(self, images: torch.Tensor, n) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """DINOv2 ``get_intermediate_layers``: the outputs of the selected
+        blocks, each through the final norm, as [(patch_tokens (B, h*w, C),
+        cls_token (B, C)), ...]. n: the last n blocks, or a list of indices."""
+        depth = len(self.blocks)
+        indices = list(range(depth - n, depth)) if isinstance(n, int) else list(n)
+        x = self._embed(images)
+        outs = {}
+        for i, blk in enumerate(self.blocks[: max(indices) + 1]):
+            x = blk(x)
+            if i in indices:
+                outs[i] = layer_norm(x, self.norm.weight, self.norm.bias, self.cfg.norm_eps)
+        r = self.cfg.num_register_tokens
+        return [(outs[i][:, r + 1 :], outs[i][:, 0]) for i in indices]

@@ -15,6 +15,9 @@ kernel, a CPU tensor runs its plain PyTorch version.
 * decoder / head blocks: the fused producer applies qk-norm, RoPE and the
   scale in one pass, then frame-local blocks run the single-pass entry point
   and the decoder's global blocks the flash entry point.
+* kv-merge global blocks (``Pi3Config.global_kv_merge`` > 1): qk-norm and RoPE
+  in plain torch, k and v averaged over groups of frames, then the partial
+  attention kernel with Tq != Tk (:func:`merged_kv_attention`).
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from torch import nn
 
 from ..ops.block_mlp import block_mlp
 from ..ops.packed_attention import attention_single_pass_packed, flash_attention_packed
+from ..ops.partial_attention import flash_attention_partial
 from ..ops.qkv_producer import qkv_rope_producer
+from ..ops.rope import apply_rope
 
 LOG2_E = math.log2(math.e)
 QK_NORM_EPS = 1e-5
@@ -77,11 +82,14 @@ class Block(nn.Module):
         x: torch.Tensor,
         rope: tuple[torch.Tensor, torch.Tensor] | None = None,
         is_global: bool = False,
+        kv_groups: tuple[int, int, int] | None = None,
     ) -> torch.Tensor:
         """x (B, T, C); rope: (cos, sin) tables (B, T, 64) from
         ``ops.rope.rope_tables``, or None; is_global: the decoder's
-        cross-frame block (flash entry point)."""
-        h = attention(layer_norm(x, self.norm1.weight, self.norm1.bias, self.eps), self, rope, is_global)
+        cross-frame block (flash entry point); kv_groups: see
+        :func:`attention`."""
+        xn = layer_norm(x, self.norm1.weight, self.norm1.bias, self.eps)
+        h = attention(xn, self, rope, is_global, kv_groups)
         if self.ls1 is not None:
             h = h * self.ls1.to(h.dtype)
         x = x + h
@@ -103,8 +111,15 @@ def attention(
     blk: Block,
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,
     is_global: bool = False,
+    kv_groups: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
-    """Self-attention of ``blk`` over x (B, T, C) -> (B, T, C)."""
+    """Self-attention of ``blk`` over x (B, T, C) -> (B, T, C).
+
+    kv_groups = (n_frames, tokens_per_frame, merge): the global blocks' k/v
+    merge; it applies when merge > 1 and merge divides n_frames, and the
+    block takes the exact path otherwise (a 50-frame tail with merge 4)."""
+    if kv_groups is not None and kv_groups[2] > 1 and kv_groups[0] % kv_groups[2] == 0:
+        return merged_kv_attention(x, blk, rope, kv_groups)
     b, t, c = x.shape
     h = blk.num_heads
     d = c // h
@@ -130,3 +145,40 @@ def attention(
         attn = flash_attention_packed if is_global else attention_single_pass_packed
         out = attn(packed, h)
     return linear(out, blk.proj.weight, blk.proj.bias)
+
+
+def merged_kv_attention(
+    x: torch.Tensor,
+    blk: Block,
+    rope: tuple[torch.Tensor, torch.Tensor] | None,
+    kv_groups: tuple[int, int, int],
+) -> torch.Tensor:
+    """Global attention with keys and values averaged over ``merge``
+    consecutive frames per spatial position (FastVGGT-style; the JAX
+    package's ``_merged_kv_attention``): queries keep full resolution, so
+    QK^T and PV work drop by the merge factor.
+
+    qk-norm and RoPE run here in plain torch on (B, T, H, D) (tokens of a
+    group share a position, so the rotation commutes with the mean); the
+    merged k and v are materialised once and the same tensors go to the
+    kernel, whose fixed shift uses their global per-head max |k|."""
+    b, t, c = x.shape
+    h = blk.num_heads
+    d = c // h
+    nf, tpf, m = kv_groups
+    q, k, v = linear(x, blk.qkv.weight, blk.qkv.bias).view(b, t, 3, h, d).unbind(2)
+    if blk.q_norm is not None:
+        q = layer_norm(q, blk.q_norm.weight, blk.q_norm.bias, blk.q_norm.eps)
+        k = layer_norm(k, blk.k_norm.weight, blk.k_norm.bias, blk.k_norm.eps)
+    if rope is not None:
+        q = apply_rope(q, *rope)
+        k = apply_rope(k, *rope)
+
+    def merge(a: torch.Tensor) -> torch.Tensor:
+        return a.reshape(b, nf // m, m, tpf, h, d).mean(dim=2).reshape(b, (nf // m) * tpf, h, d)
+
+    k, v = merge(k), merge(v)
+    kn = k.float().square().sum(-1).amax(dim=1).sqrt()  # (B, H)
+    acc, l = flash_attention_partial(q, k, v, kn)
+    out = (acc / l.clamp_min(1e-30)[..., None]).to(x.dtype)
+    return linear(out.reshape(b, t, c), blk.proj.weight, blk.proj.bias)

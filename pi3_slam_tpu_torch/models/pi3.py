@@ -45,7 +45,7 @@ class Pi3Config:
     head_depth: int = 5
     head_num_heads: int = 16
     camera_dim: int = 512
-    # global-attention kv merge of the JAX package; only 1 (exact) is ported
+    # frames per k/v group in the global blocks (1: exact attention)
     global_kv_merge: int = 1
 
     def to_json(self) -> str:
@@ -94,10 +94,6 @@ class CameraHead(nn.Module):
 class Pi3(nn.Module):
     def __init__(self, cfg: Pi3Config = Pi3Config(), device=None):
         super().__init__()
-        if cfg.global_kv_merge != 1:
-            raise NotImplementedError(
-                "global_kv_merge > 1 is not yet ported (ROADMAP Queue 1, off-main-path kv-merge)"
-            )
         self.cfg = cfg
         kw = dict(device=device)
         c = cfg.dec_embed_dim
@@ -138,11 +134,12 @@ class Pi3(nn.Module):
         cos, sin = rope_tables(pos_frame, c // cfg.dec_num_heads, cfg.rope_base)
         rope_frame = (cos, sin)
         rope_global = (cos.reshape(B, N * t, -1), sin.reshape(B, N * t, -1))
+        kv_groups = (N, t, cfg.global_kv_merge)
         x_frame = x
         for i in range(0, cfg.dec_depth, 2):
             x_frame = self.decoder[i](x, rope=rope_frame)
             x = self.decoder[i + 1](
-                x_frame.reshape(B, N * t, c), rope=rope_global, is_global=True
+                x_frame.reshape(B, N * t, c), rope=rope_global, is_global=True, kv_groups=kv_groups
             ).reshape(bn, t, c)
         return torch.cat([x_frame, x], dim=-1), pos_frame
 

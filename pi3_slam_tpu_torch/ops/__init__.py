@@ -7,12 +7,14 @@ else, so a run can show that the main path went through the kernels.
 
 from .block_mlp import block_mlp
 from .packed_attention import attention_single_pass_packed, flash_attention_packed
+from .partial_attention import flash_attention_partial
 from .qkv_producer import qkv_rope_producer
 
 KERNEL_WRAPPERS = {
     "qkv_rope_producer": qkv_rope_producer,
     "attention_single_pass_packed": attention_single_pass_packed,
     "flash_attention_packed": flash_attention_packed,
+    "flash_attention_partial": flash_attention_partial,
     "block_mlp": block_mlp,
 }
 

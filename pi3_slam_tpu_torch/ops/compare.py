@@ -77,6 +77,10 @@ PRODUCER = dict(max_rel=2.0**-7, l2_rel=1e-2)
 # Attention rounds P to bf16 for the PV product (2^-9 relative per term) and
 # both versions round the output to bf16.
 ATTENTION = dict(max_rel=2.0**-6, l2_rel=1e-2)
+# The partial attention's denominator l: fp32 sums of the same unrounded
+# terms in another order, with logits (and so exp2) that differ by fp32
+# rounding of the q.k products; its acc and normalised output take ATTENTION.
+PARTIAL_L = dict(max_rel=1e-3, l2_rel=1e-3)
 
 
 def block_mlp_bounds(x: torch.Tensor, out_ref: torch.Tensor) -> dict:

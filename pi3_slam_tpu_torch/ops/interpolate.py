@@ -1,10 +1,10 @@
-"""Resampling ops: DINOv2 position-embedding interpolation and the
-grid_sample-style keypoint sampling of the chunk step.
+"""Resampling ops: DINOv2 position-embedding interpolation, MoGe's bilinear
+map resizing, and the grid_sample-style keypoint sampling of the chunk step.
 
 Port of ``pi3_slam_tpu/ops/interpolate.py``. The JAX package rebuilt torch's
-bicubic (antialiased) ``F.interpolate`` as two interpolation-matrix matmuls;
-here torch's own operator is the reference semantics, so it is called
-directly (and held to the JAX matrices in the tests).
+bicubic and bilinear (antialiased) ``F.interpolate`` as interpolation-matrix
+matmuls; here torch's own operator is the reference semantics, so it is
+called directly (and held to the JAX matrices in the tests).
 """
 
 from __future__ import annotations
@@ -39,6 +39,19 @@ def interpolate_pos_embed(
     else:
         out = F.interpolate(grid, size=(h0, w0), mode="bicubic", antialias=antialias)
     return out.permute(0, 2, 3, 1).reshape(h0 * w0, c).to(pos_embed.dtype)
+
+
+def bilinear_resize(x: torch.Tensor, out_hw: tuple[int, int], antialias: bool = False) -> torch.Tensor:
+    """Resize (..., C, H, W) maps to (..., C, h, w) with torch's bilinear
+    ``F.interpolate`` (align_corners=False), optionally antialiased; computed
+    in fp32 and cast back. The JAX package's ``bilinear_resize_hw`` rebuilt
+    the same semantics on (..., H, W, C) as interpolation matrices."""
+    out_hw = tuple(out_hw)
+    if tuple(x.shape[-2:]) == out_hw:
+        return x
+    y = F.interpolate(x.reshape((-1,) + tuple(x.shape[-3:])).float(), size=out_hw,
+                      mode="bilinear", align_corners=False, antialias=antialias)
+    return y.reshape(tuple(x.shape[:-2]) + out_hw).to(x.dtype)
 
 
 def grid_sample_frames(

@@ -4,7 +4,7 @@ Port of ``pi3_slam_tpu/ops/rope.py``. The head dim D splits into a y half and
 an x half; within each half, GPT-NeoX style pairs (i, i + D/4) rotate by
 angle pos * base**(-2i/(D/2)). ``rope_tables`` gives the per-token cos/sin
 in head-dim lane order, which the fused qkv producer (ops/qkv_producer.py)
-consumes; ``rope_2d`` applies the same tables to a (B, T, H, D) tensor.
+consumes; ``apply_rope`` applies them to a (B, T, H, D) tensor.
 """
 
 from __future__ import annotations
@@ -37,12 +37,17 @@ def rotate_pairs(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([-x[..., 1, :], x[..., 0, :]], dim=-2).flatten(-3)
 
 
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate x (B, T, H, D) by the (cos, sin) tables (B, T, D) of
+    :func:`rope_tables`, in fp32, cast back to x's dtype."""
+    x32 = x.float()
+    return (x32 * cos[:, :, None] + rotate_pairs(x32) * sin[:, :, None]).to(x.dtype)
+
+
 def rope_2d(x: torch.Tensor, positions: torch.Tensor, base: float = 100.0) -> torch.Tensor:
     """Apply 2D RoPE to x (B, T, H, D) at positions (B, T, 2) (y, x), in fp32.
     Special tokens at position (0, 0) get the identity rotation."""
-    cos, sin = rope_tables(positions, x.shape[-1], base)
-    x32 = x.float()
-    return (x32 * cos[:, :, None] + rotate_pairs(x32) * sin[:, :, None]).to(x.dtype)
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], base))
 
 
 def make_patch_positions(

@@ -4,13 +4,16 @@ persist compact keypoint-sparse chunk files.
 Port of ``pi3_slam_tpu/slam/chunk_creator.py`` (the single-device path). Per
 chunk, :func:`make_chunk_step` runs the forward, the confidence and
 depth-edge masks, intrinsics estimation and the keypoint sampling on the
-device; the host decodes images (threaded prefetch) and writes the same
+device, and MoGe-2 depth on the chunk's first frame is queued right behind
+it; the host decodes images (threaded prefetch), scales the chunk to metric
+units by the median MoGe / Pi3 depth ratio, and writes the same
 ``chunk_*.npz`` keys and ``chunks_manifest.json`` as the JAX creator. Tail
 chunks run unpadded (the JAX ``--no-pad-tail`` output).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -27,6 +30,7 @@ from ..geometry.maps import depth_edge
 from ..geometry.transforms import se3_inverse
 from ..io.npz import save_npz
 from ..models.convert import build_pi3, init_pi3_params, load_pi3_checkpoint, pi3_state_from_jax
+from ..models.moge import MISSING_CHECKPOINT, MoGeRunner
 from ..models.pi3 import Pi3, Pi3Config
 from ..ops import launch_counts
 from ..ops.interpolate import grid_sample_frames
@@ -69,6 +73,9 @@ def make_chunk_step(
             > 0.5,
             "colors_kp": grid_sample_frames(images.permute(0, 2, 3, 1), keypoints, mode="bilinear"),
             "camera_poses": poses,
+            # frame 0's depth and mask, for the MoGe metric scale
+            "depth0": local[0, ..., 2],
+            "mask0": masks[0],
         }
         if estimate_intrinsics:
             result["intrinsics"] = estimate_camera_parameters(local, conf)["intrinsics"]
@@ -85,13 +92,19 @@ def make_chunk_step(
 _DENSE_KEYS = ("local_points_dense", "conf_dense", "masks_dense")
 
 
-def _store_dense_maps(result: Dict, host: Dict, stride: int, images: np.ndarray) -> None:
-    """Copy the strided dense maps into the chunk dict, plus the strided uint8
-    rgb of the input frames (recomputed on the host, which holds them)."""
+def _store_dense_maps(
+    result: Dict, host: Dict, scale_factor: float | None, stride: int, images: np.ndarray
+) -> None:
+    """Copy the strided dense maps into the chunk dict (the metric scale
+    applies to the local point map), plus the strided uint8 rgb of the input
+    frames (recomputed on the host, which holds them)."""
     if not any(k in host for k in _DENSE_KEYS):
         return
     for key in _DENSE_KEYS:
         result[key] = host[key]
+    if scale_factor is not None:
+        local = result["local_points_dense"].astype(np.float32) * scale_factor
+        result["local_points_dense"] = local.astype(np.float16)
     result["rgb_dense"] = np.ascontiguousarray(images.transpose(0, 2, 3, 1)[:, ::stride, ::stride])
     result["dense_stride"] = np.int16(stride)
 
@@ -111,11 +124,23 @@ class OfflineChunkCreator:
             print(f"Loading Pi3 weights: {config.checkpoint_path}")
             tree, ckpt_cfg = load_pi3_checkpoint(config.checkpoint_path)
         self.pi3_config = pi3_config or ckpt_cfg or Pi3Config()
+        if config.global_kv_merge > 1:
+            self.pi3_config = dataclasses.replace(
+                self.pi3_config, global_kv_merge=config.global_kv_merge
+            )
         if not config.checkpoint_path:
             print("No checkpoint given - random Pi3 weights (geometry will be noise)")
             tree = init_pi3_params(0, self.pi3_config)
         self.model = build_pi3(self.pi3_config, pi3_state_from_jax(tree), self.device, dtype)
         del tree
+        # only a checkpoint that was not given is skipped (the JAX creator's
+        # message); any other failure to load or run MoGe raises
+        self.moge = None
+        if config.use_metric_depth:
+            if config.moge_checkpoint_path is None:
+                print(f"MoGe unavailable ({MISSING_CHECKPOINT}); continuing without metric depth")
+            else:
+                self.moge = MoGeRunner(config.moge_checkpoint_path, self.device)
         self.undistorter = create_undistorter(config.cam_dist_path) if config.cam_dist_path else None
         self.target_size = None
         self.chunks_dir = os.path.join(config.output_dir, "chunks")
@@ -131,8 +156,9 @@ class OfflineChunkCreator:
         )
 
     def _dispatch_chunk(self, images: np.ndarray, paths: List[str]) -> Dict:
-        """Upload one chunk and enqueue its device step (asynchronous on the
-        GPU: nothing here waits for the device)."""
+        """Upload one chunk and enqueue its device step and the MoGe forward on
+        its first frame (asynchronous on the GPU: nothing here waits for the
+        device)."""
         N, _, H, W = images.shape
         if self.config.keypoint_type == "none":
             # a single centre point keeps the step's outputs well-formed; the
@@ -145,8 +171,11 @@ class OfflineChunkCreator:
         launches0 = launch_counts()
         imgs = torch.from_numpy(images).to(self.device, non_blocking=True)
         dev = self._step(imgs, torch.from_numpy(kps).to(self.device))
-        return {"dev": dev, "kps": kps, "t0": t0, "images": images, "paths": paths,
-                "launches0": launches0}
+        # queued behind the Pi3 step before the host sync; the first frame is
+        # sliced from the uploaded chunk
+        moge = self.moge.infer_depth_async(imgs[0]) if self.moge is not None else None
+        return {"dev": dev, "moge": moge, "kps": kps, "t0": t0, "images": images,
+                "paths": paths, "launches0": launches0}
 
     def _finish_chunk(self, pending: Dict) -> Dict:
         """Wait for a dispatched chunk and build its storage dict."""
@@ -154,6 +183,7 @@ class OfflineChunkCreator:
         kps = pending["kps"]
         N = images.shape[0]
         host = {k: v.cpu().numpy() for k, v in pending["dev"].items()}  # sync point
+        moge_depth = pending["moge"].cpu().numpy() if pending["moge"] is not None else None
         dt = max(1e-6, time.perf_counter() - pending["t0"])
         fps = N / dt
         print(f"   inference+interp: {dt:.3f}s for {N} frames -> {fps:.2f} FPS")
@@ -162,10 +192,26 @@ class OfflineChunkCreator:
             print(f"   kernel launches: {json.dumps(launches)}")
 
         poses = host["camera_poses"].astype(np.float64)
+        points_kp = host["points_kp"].astype(np.float64)
+        local_kp = host["local_points_kp"].astype(np.float64)
+        scale_factor = None
+        if moge_depth is not None:
+            mask0 = host["mask0"]
+            ratio = moge_depth[mask0] / np.maximum(host["depth0"][mask0], 1e-9)
+            # MoGe's depth is inf outside its validity mask: the median over
+            # finite ratios only, and no scaling when too few pixels agree
+            ratio = ratio[np.isfinite(ratio)]
+            if ratio.size >= 10:
+                scale_factor = float(np.median(ratio))
+                points_kp *= scale_factor
+                local_kp *= scale_factor
+                poses[:, :3, 3] *= scale_factor
+            else:
+                print("   metric scale skipped: too few valid MoGe/Pi3 depth pairs")
         poses_cw = se3_inverse(torch.from_numpy(poses)).numpy().astype(np.float32)
         result = {
-            "points": host["points_kp"].astype(np.float16),
-            "local_points": host["local_points_kp"].astype(np.float16),
+            "points": points_kp.astype(np.float16),
+            "local_points": local_kp.astype(np.float16),
             "conf": host["conf_kp"].astype(np.float16),
             "masks": host["masks_kp"],
             "keypoints": kps.astype(np.float16),
@@ -175,11 +221,14 @@ class OfflineChunkCreator:
             "image_paths": np.asarray(pending["paths"]),
             "original_height": self.target_size[0],
             "original_width": self.target_size[1],
-            "_metrics": {"infer_s": dt, "num_frames": N, "fps": fps, "launches": launches},
+            "_metrics": {"infer_s": dt, "num_frames": N, "fps": fps, "launches": launches,
+                         "metric_scale": scale_factor},
         }
+        if scale_factor is not None:
+            result["metric_scale"] = np.float32(scale_factor)
         if "intrinsics" in host:
             result["intrinsics"] = host["intrinsics"].astype(np.float32)
-        _store_dense_maps(result, host, self.config.dense_stride, images)
+        _store_dense_maps(result, host, scale_factor, self.config.dense_stride, images)
         if self.config.keypoint_type == "none":
             for key in ("points", "local_points", "conf", "masks", "keypoints", "colors"):
                 result.pop(key)
@@ -210,8 +259,9 @@ class OfflineChunkCreator:
 
         Returns one record per chunk: ``path`` and ``num_frames``, and for a
         chunk computed in this call (not skipped by ``resume``) also
-        ``infer_s`` (upload to host copy), ``fps`` and ``launches`` (kernel
-        launches of the chunk, by wrapper name; all 0 on the CPU).
+        ``infer_s`` (upload to host copy), ``fps``, ``launches`` (kernel
+        launches of the chunk, by wrapper name; all 0 on the CPU) and
+        ``metric_scale`` (None without MoGe or with too few valid depth pairs).
         """
         if not image_paths:
             raise ValueError("image_paths is empty")
@@ -239,7 +289,8 @@ class OfflineChunkCreator:
 
                 result = self._profiled(run) if cfg.profile_dir and idx == 1 else run()
                 m = result.pop("_metrics")
-                record.update(infer_s=m["infer_s"], fps=m["fps"], launches=m["launches"])
+                record.update(infer_s=m["infer_s"], fps=m["fps"], launches=m["launches"],
+                              metric_scale=m["metric_scale"])
                 total_frames += m["num_frames"]
                 total_s += m["infer_s"]
                 if m["num_frames"] == cfg.chunk_length:

@@ -20,6 +20,12 @@ class OfflineCreatorConfig:
     # model
     checkpoint_path: Optional[str] = None  # Pi3 .npz; None = random init (seed 0)
     compute_dtype: str = "bfloat16"
+    # global-attention k/v merge over groups of frames (Pi3Config.global_kv_merge;
+    # 1 = exact attention)
+    global_kv_merge: int = 1
+    # metric scale from MoGe-2 depth on each chunk's first frame
+    use_metric_depth: bool = True
+    moge_checkpoint_path: Optional[str] = None  # MoGe .npz; None = no metric scale
     # keypoints: 'grid', or 'none' (dense maps only)
     keypoint_type: str = "grid"
     max_keypoints: int = 1000

@@ -2,11 +2,13 @@
 
 Both CLIs run on the same 8 synthetic PNGs with one tiny Pi3 checkpoint
 written by the JAX package's ``save_pi3_checkpoint``, with
-``--no-metric-depth --no-pad-tail --device cpu --compute-dtype float32``.
-Windows of 5 with overlap 2 give chunks of 5, 5 and 2 frames; the 2-frame
-tail runs unpadded on both sides. Their ``chunk_*.npz`` files are compared
-key by key, for grid keypoints, grid keypoints with ``--save-dense``, and
-dense-only ``--keypoints none`` chunks.
+``--no-pad-tail --device cpu --compute-dtype float32``. Windows of 5 with
+overlap 2 give chunks of 5, 5 and 2 frames; the 2-frame tail runs unpadded
+on both sides. Their ``chunk_*.npz`` files are compared key by key, for grid
+keypoints, grid keypoints with ``--save-dense``, and dense-only
+``--keypoints none`` chunks (all ``--no-metric-depth``), and for grid
+keypoints with MoGe-2 metric scale from one tiny random MoGe npz (written by
+the port's ``save_params_npz``, read by both).
 """
 
 import json
@@ -33,10 +35,20 @@ CFG = Pi3Config(
 
 
 MODES = {
-    "grid": [],
-    "grid+dense": ["--save-dense"],  # strided dense maps beside the sparse tracks
-    "dense": ["--keypoints", "none"],  # full-resolution dense maps only
+    "grid": ["--no-metric-depth"],
+    "grid+dense": ["--no-metric-depth", "--save-dense"],  # strided dense maps beside the sparse tracks
+    "dense": ["--no-metric-depth", "--keypoints", "none"],  # full-resolution dense maps only
+    "grid+metric": ["--moge-path"],  # MoGe-2 metric scale (the npz path is appended)
 }
+
+
+def _tiny_moge_npz(path):
+    """MoGe-2 with the ViT-S backbone, the widths of tests/test_moge_parity.py
+    and 100 tokens (an 8 x 11 token grid at 42 x 56)."""
+    from pi3_slam_tpu_torch.models.convert import init_moge_params, moge_vits_config, save_params_npz
+
+    save_params_npz(path, init_moge_params(3, moge_vits_config(num_tokens_range=(100, 100))))
+    return path
 
 
 @pytest.fixture(scope="module", params=sorted(MODES))
@@ -53,12 +65,23 @@ def runs(request, tmp_path_factory):
     tree = jax_pi3.jax.tree.map(
         lambda a: (a + 0.02 * rng.standard_normal(a.shape)).astype(np.float32), tree
     )
+    mode = MODES[request.param]
+    if mode[-1] == "--moge-path":
+        mode = mode + [_tiny_moge_npz(str(root / "moge_tiny.npz"))]
+        # a random Pi3 depth map is all depth edges, and then no pixel of frame
+        # 0 is valid: a constant depth exp(0.5) and a high confidence leave
+        # every pixel valid, so the metric scale is the median of MoGe's depth
+        # over exp(0.5) (the channel-major z columns of the point head)
+        p2 = CFG.patch_size**2
+        tree["point_head"]["kernel"][:, 2 * p2:] = 0.0
+        tree["point_head"]["bias"][2 * p2:] = 0.5
+        tree["conf_head"]["bias"][:] += 4.0
     ckpt = str(root / "pi3_tiny.npz")
     save_pi3_checkpoint(ckpt, tree, jax_pi3.Pi3Config.from_json(CFG.to_json()))
     common = ["--images", str(frames), "--model-path", ckpt, "--chunk-length", "5",
               "--overlap", "2", "--max-kp", "20", "--pixel-limit", "2000",
-              "--no-metric-depth", "--no-pad-tail", "--device", "cpu",
-              "--compute-dtype", "float32", "--num-workers", "1"] + MODES[request.param]
+              "--no-pad-tail", "--device", "cpu", "--compute-dtype", "float32",
+              "--num-workers", "1"] + mode
     out_j, out_t = str(root / "jax"), str(root / "torch")
     assert jax_cli.main(common + ["--output", out_j]) == 0
     assert torch_cli.main(common + ["--output", out_t]) == 0
@@ -91,6 +114,9 @@ FLOAT_TOL = {
     "points": dict(rtol=2e-3, atol=1e-3),
     "local_points": dict(rtol=2e-3, atol=1e-3),
     "conf": dict(rtol=2e-3, atol=1e-3),
+    # the metric scale moves points and translations (fp32 MoGe on both sides,
+    # median of per-pixel depth ratios)
+    "metric_scale": dict(rtol=1e-4, atol=0),
     "camera_poses": dict(rtol=1e-5, atol=1e-5),
     "camera_poses_cw": dict(rtol=1e-5, atol=1e-5),
     "local_points_dense": dict(rtol=2e-3, atol=1e-3),
@@ -130,3 +156,15 @@ def test_chunk_files_match_key_by_key(runs, chunk):
             assert np.abs(b.astype(int) - a.astype(int)).max() <= 1
         else:  # masks, keypoints, paths, sizes, indices, rgb, strides
             np.testing.assert_array_equal(b, a, err_msg=key)
+
+
+def test_metric_scale_stored_exactly_with_moge(runs, request):
+    """With --moge-path every chunk of both CLIs carries a finite
+    metric_scale (the key-by-key comparison holds the values to each other);
+    with --no-metric-depth none does."""
+    metric = "--moge-path" in MODES[request.node.callspec.params["runs"]]
+    for out in runs:
+        for chunk in _load(out)[1]:
+            assert ("metric_scale" in chunk) == metric
+            if metric:
+                assert np.isfinite(chunk["metric_scale"]) and chunk["metric_scale"] > 0

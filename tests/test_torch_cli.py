@@ -1,6 +1,8 @@
 """The port's chunk-creation CLI: the same options as the JAX package's
 ``create_offline_chunks.py``, a clear non-zero exit for every flag that
-names a part not ported yet, and no quiet CPU fallback for ``--device cuda``.
+names a part not ported yet, no quiet CPU fallback for ``--device cuda``,
+the JAX creator's contract for a missing MoGe checkpoint (a message, no
+metric scale) and an error for a bad one, and ``--global-kv-merge``.
 """
 
 import os
@@ -34,11 +36,8 @@ def test_defaults_match_except_device():
 @pytest.mark.parametrize(
     "flags,entry",
     [
-        ([], "MoGe-2"),  # --metric-depth is the default
-        (["--metric-depth"], "MoGe-2"),
         (["--no-metric-depth", "--keypoints", "aliked"], "ALIKED"),
         (["--no-metric-depth", "--refine-observations"], "ZNCC"),
-        (["--no-metric-depth", "--global-kv-merge", "2"], "kv-merge"),
         (["--no-metric-depth", "--data-parallel-chunks", "2"], "multi-device"),
         (["--no-metric-depth", "--tensor-parallel", "2"], "multi-device"),
         (["--no-metric-depth", "--sequence-parallel", "2"], "multi-device"),
@@ -62,8 +61,9 @@ def test_cuda_without_a_device_raises(monkeypatch):
     assert not torch.backends.cudnn.allow_tf32
 
 
-def _tiny_checkpoint_and_frames(tmp_path):
-    """A tiny random Pi3 checkpoint and six 28x28 frames."""
+def _tiny_checkpoint_and_frames(tmp_path, metric_depth=False):
+    """A tiny random Pi3 checkpoint and six 28x28 frames (CLI arguments with
+    --no-metric-depth unless ``metric_depth``)."""
     import numpy as np
     from PIL import Image
 
@@ -86,8 +86,8 @@ def _tiny_checkpoint_and_frames(tmp_path):
     for i in range(6):
         Image.fromarray(rng.integers(0, 256, (28, 28, 3), dtype=np.uint8)).save(frames / f"{i}.png")
     return ["--images", str(frames), "--model-path", ckpt, "--output", str(tmp_path / "out"),
-            "--chunk-length", "3", "--overlap", "1", "--pixel-limit", "800", "--no-metric-depth",
-            "--device", "cpu"]
+            "--chunk-length", "3", "--overlap", "1", "--pixel-limit", "800", "--device", "cpu"
+            ] + ([] if metric_depth else ["--no-metric-depth"])
 
 
 def test_profile_dir_traces_chunk_one_on_cpu(tmp_path):
@@ -110,6 +110,7 @@ def test_create_chunks_returns_per_chunk_records(tmp_path):
         assert r["path"].endswith(".npz") and os.path.exists(r["path"])
         assert r["fps"] == pytest.approx(r["num_frames"] / r["infer_s"])
         assert set(r["launches"].values()) == {0}
+        assert r["metric_scale"] is None  # --no-metric-depth
     resumed = torch_cli.create_chunks(argv + ["--resume"])
     assert [set(r) for r in resumed] == [{"path", "num_frames"}] * 3
 
@@ -120,3 +121,53 @@ def test_no_images_exits_2(tmp_path, capsys):
                         "--no-metric-depth", "--device", "cpu"])
     assert exc.value.code == 2
     assert "no images found" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [[], ["--metric-depth"]])  # --metric-depth is the default
+def test_metric_depth_without_moge_path_continues(tmp_path, capsys, flags):
+    """The JAX creator's contract for a checkpoint that was not given: its
+    message, then chunks without metric_scale."""
+    import numpy as np
+
+    records = torch_cli.create_chunks(_tiny_checkpoint_and_frames(tmp_path, True) + flags)
+    out = capsys.readouterr().out
+    assert ("MoGe unavailable (MoGe checkpoint not provided (convert with "
+            "tools/convert_checkpoint.py --model moge); pipeline continues without metric "
+            "depth); continuing without metric depth") in out
+    assert len(records) == 3
+    for r in records:
+        assert r["metric_scale"] is None
+        with np.load(r["path"]) as z:
+            assert "metric_scale" not in z.files and "points" in z.files
+
+
+@pytest.mark.parametrize("kind", ["corrupt", "absent"])
+def test_bad_moge_path_raises(tmp_path, kind):
+    """A given --moge-path that cannot be read raises: only a checkpoint
+    that was not given is skipped."""
+    moge = tmp_path / "moge.npz"
+    if kind == "corrupt":
+        moge.write_bytes(b"not an npz file")
+    argv = _tiny_checkpoint_and_frames(tmp_path, True) + ["--moge-path", str(moge)]
+    with pytest.raises((OSError, ValueError)):
+        torch_cli.create_chunks(argv)
+    assert not list((tmp_path / "out" / "chunks").glob("chunk_*.npz"))
+
+
+def test_global_kv_merge_writes_chunks(tmp_path, monkeypatch):
+    """--global-kv-merge 2 reaches the model (Pi3Config.global_kv_merge):
+    3-frame chunks run exact, the 2-frame tail merged."""
+    from pi3_slam_tpu_torch.slam.chunk_creator import OfflineChunkCreator
+
+    seen = []
+    orig = OfflineChunkCreator.__init__
+
+    def init(self, *a, **kw):
+        orig(self, *a, **kw)
+        seen.append(self.model.cfg.global_kv_merge)
+
+    monkeypatch.setattr(OfflineChunkCreator, "__init__", init)
+    records = torch_cli.create_chunks(_tiny_checkpoint_and_frames(tmp_path) + ["--global-kv-merge", "2"])
+    assert seen == [2]
+    assert [r["num_frames"] for r in records] == [3, 3, 2]
+    assert all(os.path.exists(r["path"]) for r in records)

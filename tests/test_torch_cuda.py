@@ -17,11 +17,21 @@ import torch
 
 from pi3_slam_tpu_torch.ops import launch_counts
 from pi3_slam_tpu_torch.ops.block_mlp import block_mlp, block_mlp_plain
-from pi3_slam_tpu_torch.ops.compare import ATTENTION, PRODUCER, block_mlp_bounds, compare
+from pi3_slam_tpu_torch.ops.compare import (
+    ATTENTION,
+    PARTIAL_L,
+    PRODUCER,
+    block_mlp_bounds,
+    compare,
+)
 from pi3_slam_tpu_torch.ops.packed_attention import (
     attention_single_pass_packed,
     flash_attention_packed,
     packed_attention_plain,
+)
+from pi3_slam_tpu_torch.ops.partial_attention import (
+    flash_attention_partial,
+    partial_attention_plain,
 )
 from pi3_slam_tpu_torch.ops.qkv_producer import qkv_rope_producer, qkv_rope_producer_plain
 from pi3_slam_tpu_torch.ops.rope import make_patch_positions, rope_tables
@@ -128,3 +138,61 @@ def test_wrappers_count_launches_and_refuse_fp32(gen):
         attention_single_pass_packed(packed.float(), 2)
     with pytest.raises(TypeError):
         qkv_rope_producer(qkv.float(), cos, sin, 2, 70)
+
+
+def _qkv_views(gen, b, tq, tk, h):
+    """q as a strided view of a packed projection (row stride 3*H*D), k and v
+    contiguous (B, Tk, H, D) like the merged keys, kn their global max |k|."""
+    q = _randn(gen, b, tq, 3, h, D)[:, :, 0]
+    k = _randn(gen, b, tk, h, D)
+    v = _randn(gen, b, tk, h, D)
+    return q, k, v, k.float().square().sum(-1).amax(1).sqrt()
+
+
+def _check_partial(got, ref):
+    (acc, l), (acc_ref, l_ref) = got, ref
+    _assert_close(acc, acc_ref, **ATTENTION)
+    _assert_close(l, l_ref, **PARTIAL_L)
+    _assert_close(acc / l[..., None], acc_ref / l_ref[..., None], **ATTENTION)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk", [(301, 150), (64, 64), (130, 1)])
+def test_partial_attention_matches_plain(gen, tq, tk):
+    q, k, v, kn = _qkv_views(gen, 2, tq, tk, 4)
+    assert not q.is_contiguous()
+    _check_partial(flash_attention_partial(q, k, v, kn), partial_attention_plain(q, k, v, kn))
+
+
+@pytest.mark.cuda
+def test_partial_attention_shards_sum_to_one_shard(gen):
+    """Partials over two key shards with the shared global kn sum to the
+    one-shard result (the fixed shift's contract)."""
+    q, k, v, kn = _qkv_views(gen, 1, 200, 300, 2)
+    parts = [flash_attention_partial(q, k[:, s], v[:, s], kn)
+             for s in (slice(0, 170), slice(170, 300))]
+    summed = (parts[0][0] + parts[1][0], parts[0][1] + parts[1][1])
+    _check_partial(summed, partial_attention_plain(q, k, v, kn))
+
+
+@pytest.mark.cuda
+def test_partial_attention_loose_bound_keeps_l_positive(gen):
+    """A kn far above the keys' own max pushes the shift to its clamp at 120:
+    every term is below 2^-100, and l stays > 0 where the plain version's is."""
+    q, k, v, kn = _qkv_views(gen, 1, 100, 80, 2)
+    acc, l = flash_attention_partial(q, k, v, kn * 50)
+    acc_ref, l_ref = partial_attention_plain(q, k, v, kn * 50)
+    assert (l_ref > 0).all() and (l_ref < 2.0**-100).all()
+    assert (l > 0).all()
+    up = 2.0**100  # exact; keeps the squares in compare's L2 norms from underflowing
+    _check_partial((acc * up, l * up), (acc_ref * up, l_ref * up))
+
+
+@pytest.mark.cuda
+def test_partial_wrapper_counts_launches_and_refuses_fp32(gen):
+    q, k, v, kn = _qkv_views(gen, 1, 70, 40, 2)
+    before = launch_counts()["flash_attention_partial"]
+    flash_attention_partial(q, k, v, kn)
+    assert launch_counts()["flash_attention_partial"] == before + 1
+    with pytest.raises(TypeError):
+        flash_attention_partial(q.float(), k, v, kn)
