@@ -1,12 +1,17 @@
 // Pre-norm block MLP half for Hopper (sm_90a):
 //   out = x + ls * (fc2(GELU_erf(fc1(LN(x)))))
+// and the bare MLP out = fc2(GELU_erf(fc1(x))).
 //
-// Replaces the Pallas TPU kernel pi3_slam_tpu/ops/pallas_mlp.py::
-// block_mlp_fused_tpu (_block_mlp_body via _block_mlp_kernel3 /
-// _block_mlp_kernel). Same numerics: LayerNorm statistics in fp32, the
-// normalised row cast back to bf16 before fc1; fc1 and fc2 accumulate in
-// fp32; bias + exact-erf GELU in fp32, cast to bf16 before fc2; bias, layer
-// scale and the residual added in fp32.
+// Replaces the Pallas TPU kernels of pi3_slam_tpu/ops/pallas_mlp.py:
+//   block_mlp_fused_tpu (_block_mlp_body via _block_mlp_kernel3 /
+//                        _block_mlp_kernel): entry pi3_block_mlp;
+//   mlp_fused_tpu       (_mlp_core via _mlp_kernel3 / _mlp_kernel): entry
+//                        pi3_mlp, the same two GEMMs without the LayerNorm
+//                        pass and with a bias-only fc2 epilogue.
+// Same numerics: LayerNorm statistics in fp32, the normalised row cast back
+// to bf16 before fc1; fc1 and fc2 accumulate in fp32; bias + exact-erf GELU
+// in fp32, cast to bf16 before fc2; bias, layer scale and the residual added
+// in fp32.
 //
 // Bound on the H100: FLOPs. At the global shape (64300 x 1024, hidden 4096)
 // the two products are 1.08 TFLOP against ~1.3 GB of traffic, well above
@@ -16,7 +21,8 @@
 //   1. layernorm_kernel: x -> LN(x) in bf16, one warp per row;
 //   2. gemm_kernel<kGelu>: hidden = GELU(xn W1^T + b1) in bf16;
 //   3. gemm_kernel<kResidual>: out = x + ls * (hidden W2^T + b2).
-// The hidden round trip costs ~1.05 GB per call (~0.3 ms at 3.35 TB/s);
+// pi3_mlp runs 2. on x itself and then gemm_kernel<kBias>: out = hidden
+// W2^T + b2 (two launches). The hidden round trip costs ~1.05 GB per call (~0.3 ms at 3.35 TB/s);
 // fusing it away is later work. The GEMMs are hand-written: 128x128 block
 // tiles, 32-deep k steps double-buffered in shared memory with cp.async,
 // 8 warps of 64x32 each on mma.sync m16n8k16 (bf16 in, fp32 accumulate).
@@ -35,7 +41,7 @@ constexpr int kBK = 32;
 constexpr int kLdk = kBK + 8;  // padded smem row (bf16): 80 bytes, conflict-free fragments
 constexpr int kGemmThreads = 256;
 
-enum Epilogue { kGelu = 0, kResidual = 1 };
+enum Epilogue { kGelu = 0, kResidual = 1, kBias = 2 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -101,6 +107,7 @@ layernorm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ 
 // C[M, N] = A[M, K] . W[N, K]^T with a fused epilogue.
 //   kGelu:     out = bf16(GELU_erf(acc + bias))
 //   kResidual: out = bf16(resid + ls * (acc + bias))
+//   kBias:     out = bf16(acc + bias)
 // Requires N % 128 == 0 and K % 32 == 0; rows >= M are masked.
 template <int EPI>
 __global__ void __launch_bounds__(kGemmThreads)
@@ -194,7 +201,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict
         if (EPI == kGelu) {
           v0 = 0.5f * v0 * (1.f + erff(v0 * 0.70710678118654752f));
           v1 = 0.5f * v1 * (1.f + erff(v1 * 0.70710678118654752f));
-        } else {
+        } else if (EPI == kResidual) {
           const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(resid + off);
           v0 = __bfloat162float(r.x) + ls[col] * v0;
           v1 = __bfloat162float(r.y) + ls[col + 1] * v1;
@@ -233,5 +240,27 @@ extern "C" int pi3_block_mlp(const void* x, const void* gamma, const void* beta,
   gemm_kernel<kResidual><<<dim3(C / kBN, mtiles), kGemmThreads, 0, s>>>(
       hb, static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2),
       static_cast<const float*>(ls), xb, static_cast<__nv_bfloat16*>(out), M, C, hidden);
+  return (int)cudaGetLastError();
+}
+
+// x: (M, C) bf16; w1: (hidden, C) bf16; b1: (hidden,) fp32; w2: (C, hidden)
+// bf16; b2: (C,) fp32; hid: (M, hidden) bf16 scratch; out: (M, C) bf16.
+// C and hidden must be multiples of 128.
+extern "C" int pi3_mlp(const void* x, const void* w1, const void* b1, const void* w2,
+                       const void* b2, void* hid, void* out, int M, int C, int hidden, int device,
+                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  auto* hb = static_cast<__nv_bfloat16*>(hid);
+  const int mtiles = (M + kBM - 1) / kBM;
+  gemm_kernel<kGelu><<<dim3(hidden / kBN, mtiles), kGemmThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w1),
+      static_cast<const float*>(b1), nullptr, nullptr, hb, M, hidden, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gemm_kernel<kBias><<<dim3(C / kBN, mtiles), kGemmThreads, 0, s>>>(
+      hb, static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2), nullptr, nullptr,
+      static_cast<__nv_bfloat16*>(out), M, C, hidden);
   return (int)cudaGetLastError();
 }

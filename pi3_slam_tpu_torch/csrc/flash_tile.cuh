@@ -1,9 +1,11 @@
-// The online-softmax attention loop shared by packed_attention.cu and
-// partial_attention.cu: one block of 4 warps owns 64 query rows of one head,
-// each warp 16 rows, and walks the keys in 64-key tiles held in shared memory.
-// Per tile: S = Q K^T (32 mma.sync), base-2 online softmax on the S fragments
-// (exact running max per row), P rounded to bf16 in registers as the A
-// operand, O += P V (32 mma.sync). Head dim 64.
+// The online-softmax attention loop shared by packed_attention.cu,
+// partial_attention.cu and attention.cu: one block of 4 warps owns 64 query
+// rows of one head, each warp 16 rows, and walks the keys in 64-key tiles
+// held in shared memory. Per tile: S = Q K^T (8 * D/16 mma.sync), base-2
+// online softmax on the S fragments (exact running max per row), P rounded to
+// bf16 in registers as the A operand, O += P V (4 * D/8 mma.sync). The head
+// dim D is a template parameter, 64 or 128; the packed and partial kernels
+// take D = 64 (kD).
 #pragma once
 
 #include <math.h>
@@ -12,20 +14,30 @@
 
 namespace pi3 {
 
-constexpr int kD = 64;        // head dim
+constexpr int kD = 64;        // head dim of the packed and partial kernels
 constexpr int kTile = 64;     // query rows per block, keys per tile
 constexpr int kThreads = 128; // 4 warps x 16 query rows
-constexpr int kLd = kD + 8;   // padded shared-memory row (bf16), 144 bytes
 
-using Tile = __nv_bfloat16[kTile][kLd];
+// 64 rows of head dim D in shared memory, each row padded by 8 bf16
+// (16 bytes) so that the fragment loads of neighbouring rows miss each
+// other's banks: 144 bytes a row at D = 64, 272 at D = 128.
+template <int D>
+using TileD = __nv_bfloat16[kTile][D + 8];
+using Tile = TileD<kD>;
 
-// rows [row0, row0+64) x 64 columns of a bf16 matrix whose rows start ld
+// rows [row0, row0+64) x D columns of a bf16 matrix whose rows start ld
 // elements apart (16-byte aligned) -> smem; rows >= n_rows are zero-filled.
-__device__ __forceinline__ void load_tile(Tile& dst, const __nv_bfloat16* src, long long ld,
-                                          int row0, int n_rows) {
-  for (int i = threadIdx.x; i < kTile * 8; i += kThreads) {
-    const int r = i >> 3;
-    const int c = (i & 7) * 8;
+// LD = D + 8, the padded row of the tile.
+template <int LD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16 (&dst)[kTile][LD],
+                                          const __nv_bfloat16* src, long long ld, int row0,
+                                          int n_rows) {
+  constexpr int D = LD - 8;
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  constexpr int kShift = D == 64 ? 3 : 4;  // log2 of the 16-byte chunks per row
+  for (int i = threadIdx.x; i < kTile << kShift; i += kThreads) {
+    const int r = i >> kShift;
+    const int c = (i & ((1 << kShift) - 1)) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n_rows) {
       v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * ld + c);
@@ -36,19 +48,21 @@ __device__ __forceinline__ void load_tile(Tile& dst, const __nv_bfloat16* src, l
 
 // Per-thread state of the loop: this thread's rows are r0 = warp*16 + lane/4
 // and r0 + 8 of the block's query tile.
+template <int D>
 struct FlashRows {
-  uint32_t qf[4][4];  // the A fragments of Q (16 rows x 64)
-  float o[8][4];      // O accumulator fragments (16 rows x 64, fp32)
-  float m0, m1;       // running max of the base-2 logits, rows r0 / r0+8
-  float l0, l1;       // this thread's partial row sums of 2^(s - m)
+  uint32_t qf[D / 16][4];  // the A fragments of Q (16 rows x D)
+  float o[D / 8][4];       // O accumulator fragments (16 rows x D, fp32)
+  float m0, m1;            // running max of the base-2 logits, rows r0 / r0+8
+  float l0, l1;            // this thread's partial row sums of 2^(s - m)
 };
 
-__device__ __forceinline__ void init_rows(FlashRows& st, const Tile& Qs) {
+template <int D>
+__device__ __forceinline__ void init_rows(FlashRows<D>& st, const TileD<D>& Qs) {
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
   const int t4 = lane & 3;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     const int c = kk * 16 + 2 * t4;
     st.qf[kk][0] = ld_pair(&Qs[r0][c]);
     st.qf[kk][1] = ld_pair(&Qs[r0 + 8][c]);
@@ -56,7 +70,7 @@ __device__ __forceinline__ void init_rows(FlashRows& st, const Tile& Qs) {
     st.qf[kk][3] = ld_pair(&Qs[r0 + 8][c + 8]);
   }
 #pragma unroll
-  for (int n = 0; n < 8; ++n) st.o[n][0] = st.o[n][1] = st.o[n][2] = st.o[n][3] = 0.f;
+  for (int n = 0; n < D / 8; ++n) st.o[n][0] = st.o[n][1] = st.o[n][2] = st.o[n][3] = 0.f;
   st.m0 = st.m1 = -INFINITY;
   st.l0 = st.l1 = 0.f;
 }
@@ -64,8 +78,10 @@ __device__ __forceinline__ void init_rows(FlashRows& st, const Tile& Qs) {
 // One 64-key tile (keys k0 .. k0+63 in Ks / Vs; keys >= n_keys masked).
 // scale_log2 multiplies the fp32 logits. Key k0 < n_keys is in every visited
 // tile, so the running max stays finite.
-__device__ __forceinline__ void attend_tile(FlashRows& st, const Tile& Ks, const Tile& Vs, int k0,
-                                            int n_keys, float scale_log2) {
+template <int D>
+__device__ __forceinline__ void attend_tile(FlashRows<D>& st, const TileD<D>& Ks,
+                                            const TileD<D>& Vs, int k0, int n_keys,
+                                            float scale_log2) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
@@ -76,7 +92,7 @@ __device__ __forceinline__ void attend_tile(FlashRows& st, const Tile& Ks, const
     s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
     const int key = n * 8 + g;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
       const int c = kk * 16 + 2 * t4;
       mma_bf16_16816(s[n], st.qf[kk], ld_pair(&Ks[key][c]), ld_pair(&Ks[key][c + 8]));
     }
@@ -120,7 +136,7 @@ __device__ __forceinline__ void attend_tile(FlashRows& st, const Tile& Ks, const
   st.l0 = st.l0 * a0 + rs0;
   st.l1 = st.l1 * a1 + rs1;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     st.o[n][0] *= a0;
     st.o[n][1] *= a0;
     st.o[n][2] *= a1;
@@ -138,7 +154,7 @@ __device__ __forceinline__ void attend_tile(FlashRows& st, const Tile& Ks, const
     pa[3] = pack_float2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
     const int key = kk * 16 + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       const int col = n * 8 + g;
       const uint32_t b0 = pack_pair(Vs[key][col], Vs[key + 1][col]);
       const uint32_t b1 = pack_pair(Vs[key + 8][col], Vs[key + 9][col]);
@@ -148,7 +164,8 @@ __device__ __forceinline__ void attend_tile(FlashRows& st, const Tile& Ks, const
 }
 
 // Full row sums l0 / l1 (the quad's four partial sums added).
-__device__ __forceinline__ void reduce_row_sums(FlashRows& st) {
+template <int D>
+__device__ __forceinline__ void reduce_row_sums(FlashRows<D>& st) {
   st.l0 += __shfl_xor_sync(0xffffffffu, st.l0, 1);
   st.l0 += __shfl_xor_sync(0xffffffffu, st.l0, 2);
   st.l1 += __shfl_xor_sync(0xffffffffu, st.l1, 1);

@@ -49,7 +49,7 @@ packed_attention_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __
 
   load_tile(Qs, qp, ld, q0, t_valid);
   __syncthreads();
-  FlashRows st;
+  FlashRows<kD> st;
   init_rows(st, Qs);
   for (int k0 = 0; k0 < t_valid; k0 += kTile) {
     __syncthreads();  // previous tile fully consumed

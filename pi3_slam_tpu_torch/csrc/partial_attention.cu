@@ -53,7 +53,7 @@ partial_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 
   load_tile(Qs, qp, qs.t, q0, Tq);
   __syncthreads();
-  FlashRows st;
+  FlashRows<kD> st;
   init_rows(st, Qs);
 
   // |q|^2 per row from the fragments: the quad's four threads hold the row's

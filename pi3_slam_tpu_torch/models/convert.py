@@ -16,6 +16,10 @@ trees and this port's ``Pi3`` and ``MoGe`` modules.
   OIHW); :func:`save_params_npz` writes either tree in the JAX package's
   ``.npz`` format, and :func:`moge_vits_config` is the configuration of
   random-weight MoGe-2 runs.
+* :func:`cross_block_state_from_jax` and :func:`init_cross_block_params` do
+  the same for the cross-attention block (``models/cross_attention.py``);
+  no cross-block checkpoint is in the repository, so runs use the random
+  tree, and :func:`build_cross_block` makes the module from a state dict.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from .cross_attention import CrossBlock
 from .dinov2 import DinoV2Config
 from .moge_model import ConvStackConfig, MoGe, MoGeConfig
 from .pi3 import Pi3, Pi3Config
@@ -464,3 +469,91 @@ def init_moge_params(seed: int, cfg: MoGeConfig) -> Dict[str, Any]:
             for a, b in zip(dims[:-1], dims[1:])
         ]
     return params
+
+
+def _norm(sd: dict, name: str, p: Dict[str, Any], leaf: str) -> None:
+    sd[f"{name}.weight"] = _tensor(p[f"{leaf}_scale"])
+    sd[f"{name}.bias"] = _tensor(p[f"{leaf}_bias"])
+
+
+def cross_block_state_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX cross-block parameter tree (``pi3_slam_tpu.models.cross_attention``
+    layout: top-level norms and LayerScales, ``self_attn``, ``cross_attn``
+    and ``mlp`` sub-trees, (in, out) kernels) -> ``CrossBlock`` state_dict
+    (fp32 CPU tensors)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for norm in ("norm1", "norm2", "norm_y", "norm3"):
+        _norm(sd, norm, tree, norm)
+    for prefix, sub, projections in (("attn", "self_attn", ("qkv", "proj")),
+                                     ("cross_attn", "cross_attn", ("q", "k", "v", "proj"))):
+        p = tree[sub]
+        for proj in projections:
+            name = f"{prefix}.{proj}" if proj in ("qkv", "proj") else f"{prefix}.{proj}_proj"
+            _linear(sd, name, p[f"{proj}_kernel"], p[f"{proj}_bias"])
+        if "q_norm_scale" in p:
+            _norm(sd, f"{prefix}.q_norm", p, "q_norm")
+            _norm(sd, f"{prefix}.k_norm", p, "k_norm")
+    for fc in ("fc1", "fc2"):
+        _linear(sd, f"mlp.{fc}", tree["mlp"][f"{fc}_kernel"], tree["mlp"][f"{fc}_bias"])
+    for ls in ("ls1", "ls_y", "ls2"):
+        if ls in tree:
+            sd[ls] = _tensor(tree[ls])
+    return sd
+
+
+def build_cross_block(
+    state: Dict[str, torch.Tensor], num_heads: int, device: torch.device, dtype: torch.dtype
+) -> CrossBlock:
+    """A ``CrossBlock`` holding ``state`` on ``device`` in ``dtype``; its
+    width, MLP ratio, qk-norm and LayerScale are read from the state."""
+    dim = state["norm1.weight"].shape[0]
+    block = CrossBlock(dim, num_heads, state["mlp.fc1.weight"].shape[0] // dim,
+                       qk_norm="attn.q_norm.weight" in state, layerscale="ls1" in state,
+                       device="meta")
+    block.load_state_dict(state, strict=True, assign=True)
+    return block.to(device=device, dtype=dtype).eval()
+
+
+def init_cross_block_params(
+    seed: int,
+    dim: int,
+    num_heads: int,
+    mlp_ratio: int = 4,
+    qk_norm: bool = True,
+    layerscale: float | None = 0.01,
+) -> Dict[str, Any]:
+    """Random cross-block parameter tree in the JAX layout (numpy float32
+    leaves) from a numpy seed: kernels of std 0.02, zero biases, unit
+    norms, LayerScale ``layerscale`` (None: no LayerScale)."""
+    rng = np.random.default_rng(seed)
+    hidden = dim * mlp_ratio
+    hd = dim // num_heads
+
+    def linears(names, widths):
+        out = {}
+        for name, (a, b) in zip(names, widths):
+            out[f"{name}_kernel"] = _trunc(rng, (a, b))
+            out[f"{name}_bias"] = np.zeros((b,), np.float32)
+        if qk_norm:
+            for n in ("q_norm", "k_norm"):
+                out[f"{n}_scale"] = np.ones((hd,), np.float32)
+                out[f"{n}_bias"] = np.zeros((hd,), np.float32)
+        return out
+
+    tree: Dict[str, Any] = {
+        "self_attn": linears(("qkv", "proj"), ((dim, 3 * dim), (dim, dim))),
+        "cross_attn": linears(("q", "k", "v", "proj"), ((dim, dim),) * 4),
+        "mlp": {
+            "fc1_kernel": _trunc(rng, (dim, hidden)),
+            "fc1_bias": np.zeros((hidden,), np.float32),
+            "fc2_kernel": _trunc(rng, (hidden, dim)),
+            "fc2_bias": np.zeros((dim,), np.float32),
+        },
+    }
+    for norm in ("norm1", "norm2", "norm_y", "norm3"):
+        tree[f"{norm}_scale"] = np.ones((dim,), np.float32)
+        tree[f"{norm}_bias"] = np.zeros((dim,), np.float32)
+    if layerscale is not None:
+        for ls in ("ls1", "ls_y", "ls2"):
+            tree[ls] = np.full((dim,), layerscale, np.float32)
+    return tree

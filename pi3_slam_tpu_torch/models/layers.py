@@ -5,19 +5,25 @@ DINOv2 encoder block and Pi3's decoder / head blocks: optional LayerScale,
 optional per-head qk LayerNorm (eps 1e-5), optional RoPE2D. Weights are
 torch ``nn.Linear`` (out, in).
 
-The attention and MLP halves go through the kernel wrappers of ``ops/``,
-which dispatch by device only: a CUDA tensor launches the hand-written
-kernel, a CPU tensor runs its plain PyTorch version.
+The attention and MLP halves go through the kernel wrappers of ``ops/``: a
+CUDA tensor launches the hand-written kernel, a CPU tensor runs its plain
+PyTorch version. Which kernel a block takes is decided by shape alone.
 
-* encoder blocks (no qk-norm, no RoPE): the qkv projection is the packed
-  attention input as it stands; the softmax scale rides the fp32 logits
-  (``q_scale``).
-* decoder / head blocks: the fused producer applies qk-norm, RoPE and the
-  scale in one pass, then frame-local blocks run the single-pass entry point
-  and the decoder's global blocks the flash entry point.
+* head dim 64, the packed route:
+  * encoder blocks (no qk-norm, no RoPE): the qkv projection is the packed
+    attention input as it stands; the softmax scale rides the fp32 logits
+    (``q_scale``).
+  * decoder / head blocks: the fused producer applies qk-norm, RoPE and the
+    scale in one pass, then T <= 1280 runs the single-pass entry point and
+    longer sequences (the decoder's global blocks) the flash entry point.
+* any other head dim, the unpacked route (the JAX package's route off the
+  TPU's packed path): the qkv projection viewed as (B, T, 3, H, D), qk-norm
+  and RoPE in plain torch, then ``ops.attention.sdpa``.
 * kv-merge global blocks (``Pi3Config.global_kv_merge`` > 1): qk-norm and RoPE
   in plain torch, k and v averaged over groups of frames, then the partial
   attention kernel with Tq != Tk (:func:`merged_kv_attention`).
+* the MLP half: the fused block-MLP kernel where C and hidden are multiples
+  of 128, else LayerNorm, :func:`mlp`, LayerScale and the residual.
 """
 
 from __future__ import annotations
@@ -28,7 +34,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import SINGLE_PASS_MAX_T, sdpa, sdpa_reference
 from ..ops.block_mlp import block_mlp
+from ..ops.mlp import mlp as fused_mlp
+from ..ops.mlp import mlp_kernel_supported
 from ..ops.packed_attention import attention_single_pass_packed, flash_attention_packed
 from ..ops.partial_attention import flash_attention_partial
 from ..ops.qkv_producer import qkv_rope_producer
@@ -36,6 +45,7 @@ from ..ops.rope import apply_rope
 
 LOG2_E = math.log2(math.e)
 QK_NORM_EPS = 1e-5
+PACKED_HEAD_DIM = 64  # the head dim of the packed kernels and the producer
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
@@ -46,6 +56,28 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: f
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
     """x @ weight^T + bias in x's dtype (weights cast like the JAX path)."""
     return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+
+
+def mlp(x: torch.Tensor, m: nn.Module) -> torch.Tensor:
+    """fc2(GELU_erf(fc1(x))) with the ``fc1`` / ``fc2`` of ``m`` (a ``Block``
+    or an ``Mlp``), through ``ops.mlp``."""
+    return fused_mlp(x, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
+
+
+class Attention(nn.Module):
+    """Self-attention weights: the qkv and output projections and the
+    optional per-head qk LayerNorm (a ``Block`` holds the same attributes
+    itself); run by :func:`attention`."""
+
+    def __init__(self, dim: int, num_heads: int, qk_norm: bool = False, device=None):
+        super().__init__()
+        kw = dict(device=device)
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim, **kw)
+        self.proj = nn.Linear(dim, dim, **kw)
+        head_dim = dim // num_heads
+        self.q_norm = nn.LayerNorm(head_dim, eps=QK_NORM_EPS, **kw) if qk_norm else None
+        self.k_norm = nn.LayerNorm(head_dim, eps=QK_NORM_EPS, **kw) if qk_norm else None
 
 
 class Block(nn.Module):
@@ -81,50 +113,55 @@ class Block(nn.Module):
         self,
         x: torch.Tensor,
         rope: tuple[torch.Tensor, torch.Tensor] | None = None,
-        is_global: bool = False,
         kv_groups: tuple[int, int, int] | None = None,
     ) -> torch.Tensor:
-        """x (B, T, C); rope: (cos, sin) tables (B, T, 64) from
-        ``ops.rope.rope_tables``, or None; is_global: the decoder's
-        cross-frame block (flash entry point); kv_groups: see
-        :func:`attention`."""
+        """x (B, T, C); rope: (cos, sin) tables (B, T, head dim) from
+        ``ops.rope.rope_tables``, or None; kv_groups: see :func:`attention`."""
         xn = layer_norm(x, self.norm1.weight, self.norm1.bias, self.eps)
-        h = attention(xn, self, rope, is_global, kv_groups)
+        h = attention(xn, self, rope, kv_groups)
         if self.ls1 is not None:
             h = h * self.ls1.to(h.dtype)
         x = x + h
-        return block_mlp(
-            x,
-            self.norm2.weight,
-            self.norm2.bias,
-            self.fc1.weight,
-            self.fc1.bias,
-            self.fc2.weight,
-            self.fc2.bias,
-            ls=self.ls2,
-            eps=self.eps,
-        )
+        if mlp_kernel_supported(x.shape[-1], self.fc1.out_features):
+            return block_mlp(
+                x,
+                self.norm2.weight,
+                self.norm2.bias,
+                self.fc1.weight,
+                self.fc1.bias,
+                self.fc2.weight,
+                self.fc2.bias,
+                ls=self.ls2,
+                eps=self.eps,
+            )
+        h = mlp(layer_norm(x, self.norm2.weight, self.norm2.bias, self.eps), self)
+        if self.ls2 is not None:
+            h = h * self.ls2.to(h.dtype)
+        return x + h
 
 
 def attention(
     x: torch.Tensor,
-    blk: Block,
+    attn: nn.Module,
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,
-    is_global: bool = False,
     kv_groups: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
-    """Self-attention of ``blk`` over x (B, T, C) -> (B, T, C).
+    """Self-attention over x (B, T, C) -> (B, T, C) with the weights of
+    ``attn`` (a ``Block`` or an ``Attention``).
 
     kv_groups = (n_frames, tokens_per_frame, merge): the global blocks' k/v
     merge; it applies when merge > 1 and merge divides n_frames, and the
     block takes the exact path otherwise (a 50-frame tail with merge 4)."""
     if kv_groups is not None and kv_groups[2] > 1 and kv_groups[0] % kv_groups[2] == 0:
-        return merged_kv_attention(x, blk, rope, kv_groups)
+        return merged_kv_attention(x, attn, rope, kv_groups)
     b, t, c = x.shape
-    h = blk.num_heads
+    h = attn.num_heads
     d = c // h
-    qkv = linear(x, blk.qkv.weight, blk.qkv.bias)
-    if blk.q_norm is None and rope is None:
+    qkv = linear(x, attn.qkv.weight, attn.qkv.bias)
+    if d != PACKED_HEAD_DIM:
+        q, k, v = _qk_norm_rope(qkv.view(b, t, 3, h, d).unbind(2), attn, rope)
+        out = sdpa(q, k, v).reshape(b, t, c)
+    elif attn.q_norm is None and rope is None:
         out = attention_single_pass_packed(qkv, h, q_scale=d**-0.5 * LOG2_E)
     else:
         if rope is None:  # qk-norm without RoPE: identity rotation
@@ -133,23 +170,40 @@ def attention(
                 torch.zeros((b, t, d), device=x.device),
             )
         norm = {}
-        if blk.q_norm is not None:
+        if attn.q_norm is not None:
             norm = dict(
-                q_norm_scale=blk.q_norm.weight,
-                q_norm_bias=blk.q_norm.bias,
-                k_norm_scale=blk.k_norm.weight,
-                k_norm_bias=blk.k_norm.bias,
-                eps=blk.q_norm.eps,
+                q_norm_scale=attn.q_norm.weight,
+                q_norm_bias=attn.q_norm.bias,
+                k_norm_scale=attn.k_norm.weight,
+                k_norm_bias=attn.k_norm.bias,
+                eps=attn.q_norm.eps,
             )
         packed = qkv_rope_producer(qkv, rope[0], rope[1], h, t, **norm)
-        attn = flash_attention_packed if is_global else attention_single_pass_packed
-        out = attn(packed, h)
-    return linear(out, blk.proj.weight, blk.proj.bias)
+        entry = attention_single_pass_packed if t <= SINGLE_PASS_MAX_T else flash_attention_packed
+        out = entry(packed, h)
+    return linear(out, attn.proj.weight, attn.proj.bias)
+
+
+def _qk_norm_rope(
+    qkv: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    attn: nn.Module,
+    rope: tuple[torch.Tensor, torch.Tensor] | None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """qk-norm (if ``attn`` has it) and RoPE (if given) on (B, T, H, D)
+    q / k views, in plain torch; v passes through."""
+    q, k, v = qkv
+    if attn.q_norm is not None:
+        q = layer_norm(q, attn.q_norm.weight, attn.q_norm.bias, attn.q_norm.eps)
+        k = layer_norm(k, attn.k_norm.weight, attn.k_norm.bias, attn.k_norm.eps)
+    if rope is not None:
+        q = apply_rope(q, *rope)
+        k = apply_rope(k, *rope)
+    return q, k, v
 
 
 def merged_kv_attention(
     x: torch.Tensor,
-    blk: Block,
+    attn: nn.Module,
     rope: tuple[torch.Tensor, torch.Tensor] | None,
     kv_groups: tuple[int, int, int],
 ) -> torch.Tensor:
@@ -161,24 +215,23 @@ def merged_kv_attention(
     qk-norm and RoPE run here in plain torch on (B, T, H, D) (tokens of a
     group share a position, so the rotation commutes with the mean); the
     merged k and v are materialised once and the same tensors go to the
-    kernel, whose fixed shift uses their global per-head max |k|."""
+    partial kernel, whose fixed shift uses their global per-head max |k|.
+    Head dims other than 64 take ``sdpa_reference``, as in the JAX package."""
     b, t, c = x.shape
-    h = blk.num_heads
+    h = attn.num_heads
     d = c // h
     nf, tpf, m = kv_groups
-    q, k, v = linear(x, blk.qkv.weight, blk.qkv.bias).view(b, t, 3, h, d).unbind(2)
-    if blk.q_norm is not None:
-        q = layer_norm(q, blk.q_norm.weight, blk.q_norm.bias, blk.q_norm.eps)
-        k = layer_norm(k, blk.k_norm.weight, blk.k_norm.bias, blk.k_norm.eps)
-    if rope is not None:
-        q = apply_rope(q, *rope)
-        k = apply_rope(k, *rope)
+    qkv = linear(x, attn.qkv.weight, attn.qkv.bias).view(b, t, 3, h, d).unbind(2)
+    q, k, v = _qk_norm_rope(qkv, attn, rope)
 
     def merge(a: torch.Tensor) -> torch.Tensor:
         return a.reshape(b, nf // m, m, tpf, h, d).mean(dim=2).reshape(b, (nf // m) * tpf, h, d)
 
     k, v = merge(k), merge(v)
-    kn = k.float().square().sum(-1).amax(dim=1).sqrt()  # (B, H)
-    acc, l = flash_attention_partial(q, k, v, kn)
-    out = (acc / l.clamp_min(1e-30)[..., None]).to(x.dtype)
-    return linear(out.reshape(b, t, c), blk.proj.weight, blk.proj.bias)
+    if d != PACKED_HEAD_DIM:
+        out = sdpa_reference(q, k, v)
+    else:
+        kn = k.float().square().sum(-1).amax(dim=1).sqrt()  # (B, H)
+        acc, l = flash_attention_partial(q, k, v, kn)
+        out = (acc / l.clamp_min(1e-30)[..., None]).to(x.dtype)
+    return linear(out.reshape(b, t, c), attn.proj.weight, attn.proj.bias)

@@ -139,7 +139,7 @@ class Pi3(nn.Module):
         for i in range(0, cfg.dec_depth, 2):
             x_frame = self.decoder[i](x, rope=rope_frame)
             x = self.decoder[i + 1](
-                x_frame.reshape(B, N * t, c), rope=rope_global, is_global=True, kv_groups=kv_groups
+                x_frame.reshape(B, N * t, c), rope=rope_global, kv_groups=kv_groups
             ).reshape(bn, t, c)
         return torch.cat([x_frame, x], dim=-1), pos_frame
 

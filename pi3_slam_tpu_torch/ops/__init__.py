@@ -6,6 +6,8 @@ else, so a run can show that the main path went through the kernels.
 """
 
 from .block_mlp import block_mlp
+from .flash_attention import attention_single_pass, flash_attention
+from .mlp import mlp
 from .packed_attention import attention_single_pass_packed, flash_attention_packed
 from .partial_attention import flash_attention_partial
 from .qkv_producer import qkv_rope_producer
@@ -16,6 +18,9 @@ KERNEL_WRAPPERS = {
     "flash_attention_packed": flash_attention_packed,
     "flash_attention_partial": flash_attention_partial,
     "block_mlp": block_mlp,
+    "flash_attention": flash_attention,
+    "attention_single_pass": attention_single_pass,
+    "mlp": mlp,
 }
 
 

@@ -77,6 +77,10 @@ PRODUCER = dict(max_rel=2.0**-7, l2_rel=1e-2)
 # Attention rounds P to bf16 for the PV product (2^-9 relative per term) and
 # both versions round the output to bf16.
 ATTENTION = dict(max_rel=2.0**-6, l2_rel=1e-2)
+# The bare MLP fc2(GELU(fc1 x)): the plain version rounds the fc1 output to
+# bf16 before the GELU and adds the fc2 bias in bf16 where the kernel keeps
+# fp32 (block_mlp_bounds' reason, without a residual to subtract).
+MLP = dict(max_rel=2.0**-6, l2_rel=2e-2)
 # The partial attention's denominator l: fp32 sums of the same unrounded
 # terms in another order, with logits (and so exp2) that differ by fp32
 # rounding of the q.k products; its acc and normalised output take ATTENTION.

@@ -1,0 +1,164 @@
+"""The port's (B, T, H, D) attention (pi3_slam_tpu_torch/ops/attention.py and
+ops/flash_attention.py) against the JAX package, on the CPU.
+
+* ``blockwise_attention`` (the plain version of the hand-written
+  ``flash_attention`` / ``attention_single_pass`` kernel, and what a CPU
+  tensor runs) against the Pallas ``flash_attention_tpu`` and
+  ``attention_single_pass_tpu`` in interpret mode, both variants ("bound"
+  and "max"), at the sizes of tests/test_pallas_attention.py.
+* ``sdpa`` against the JAX ``sdpa`` on the CPU, below and above
+  ``LONG_SEQUENCE_THRESHOLD`` and with Tk != Tq; ``sdpa_route`` against the
+  JAX dispatch itself (its kernels stubbed, "on TPU" for "on CUDA");
+  ``attention_score_matrix``.
+
+fp32 on both sides, different summation order: atol 2e-5 on outputs of order
+1 (the Pallas tests' own tolerance), 3e-5 where the Pallas test allowed it.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pi3_slam_tpu.ops.attention as jax_attention
+import pi3_slam_tpu.ops.flash_attention as jax_flash
+import pi3_slam_tpu.ops.pallas_attention as jax_pallas
+
+from pi3_slam_tpu_torch.ops import launch_counts
+from pi3_slam_tpu_torch.ops.attention import (
+    LONG_SEQUENCE_THRESHOLD,
+    attention_score_matrix,
+    sdpa,
+    sdpa_reference,
+    sdpa_route,
+)
+from pi3_slam_tpu_torch.ops.compare import ATTENTION, compare
+from pi3_slam_tpu_torch.ops.flash_attention import (
+    attention_single_pass,
+    blockwise_attention,
+    flash_attention,
+)
+
+ATOL = 2e-5
+
+
+def _qkv(rng, b, tq, h, d, tk=None):
+    tk = tq if tk is None else tk
+    return (rng.normal(size=(b, tq, h, d)).astype(np.float32),
+            rng.normal(size=(b, tk, h, d)).astype(np.float32),
+            rng.normal(size=(b, tk, h, d)).astype(np.float32))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("variant", ["bound", "max"])
+@pytest.mark.parametrize("t", [300, 256, 700])
+def test_blockwise_matches_pallas_flash(rng, t, variant):
+    q, k, v = _qkv(rng, 1, t, 2, 64)
+    want = jax_pallas.flash_attention_tpu(*map(jnp.asarray, (q, k, v)), blk_q=128, blk_k=128,
+                                          variant=variant, interpret=True)
+    got = flash_attention(_t(q), _t(k), _t(v))  # a CPU tensor: blockwise_attention
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+    # key blocks smaller than T cross the online-softmax rescale
+    np.testing.assert_allclose(blockwise_attention(_t(q), _t(k), _t(v), block_size=128).numpy(),
+                               np.asarray(want), atol=3e-5)
+
+
+@pytest.mark.parametrize("variant", ["bound", "max"])
+@pytest.mark.parametrize("t", [300, 256])
+def test_blockwise_matches_pallas_single_pass(rng, t, variant):
+    q, k, v = _qkv(rng, 2, t, 2, 64)
+    want = jax_pallas.attention_single_pass_tpu(*map(jnp.asarray, (q, k, v)), variant=variant,
+                                                interpret=True)
+    got = attention_single_pass(_t(q), _t(k), _t(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+
+
+@pytest.mark.parametrize("tq,tk", [(300, 170), (190, 333)])
+def test_blockwise_masks_keys_by_length(rng, tq, tk):
+    """Tk < Tq and Tk > Tq, neither a multiple of the key block: the JAX
+    kernels cannot take these (they pad k to q's lattice); the XLA route
+    can, and blockwise_attention matches it."""
+    q, k, v = _qkv(rng, 2, tq, 2, 64, tk)
+    want = jax_attention.sdpa_reference(*map(jnp.asarray, (q, k, v)))
+    for block in (64, 1024):
+        got = blockwise_attention(_t(q), _t(k), _t(v), block_size=block)
+        assert got.shape == (2, tq, 2, 64)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("tq,tk,d", [(100, 100, 64), (700, 700, 64), (4100, 4100, 64),
+                                     (300, 170, 64), (120, 250, 32)])
+def test_sdpa_matches_jax(rng, tq, tk, d):
+    """T = 4100 crosses LONG_SEQUENCE_THRESHOLD into blockwise attention on
+    both sides; the rest take the plain route (XLA on the JAX side)."""
+    q, k, v = _qkv(rng, 1, tq, 2, d, tk)
+    want = jax_attention.sdpa(*map(jnp.asarray, (q, k, v)))
+    before = launch_counts()
+    got = sdpa(_t(q), _t(k), _t(v))
+    assert launch_counts() == before  # CPU tensors never count a launch
+    assert got.shape == (1, tq, 2, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    assert (tq >= LONG_SEQUENCE_THRESHOLD) == (sdpa_route(tq, d, False) == "blockwise")
+
+
+def test_sdpa_takes_no_implementation():
+    q = torch.zeros(1, 8, 1, 64)
+    with pytest.raises(ValueError):
+        sdpa(q, q, q, implementation="cudnn")
+
+
+@pytest.mark.parametrize("t", [100, 255, 256, 700, 1280, 1281, 2572, 4095, 4096, 64300])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("on_device", [True, False])
+def test_sdpa_route_follows_the_jax_dispatch(monkeypatch, t, d, on_device):
+    """The JAX sdpa with its kernels and XLA call stubbed to name themselves,
+    and "on TPU" set as the port's "on CUDA"."""
+    monkeypatch.setattr(jax_attention, "on_tpu_platform", lambda: on_device)
+    monkeypatch.setattr(jax_pallas, "flash_attention_tpu", lambda *a, **kw: "flash")
+    monkeypatch.setattr(jax_pallas, "attention_single_pass_tpu", lambda *a, **kw: "single_pass")
+    monkeypatch.setattr(jax_flash, "blockwise_attention", lambda *a, **kw: "blockwise")
+    monkeypatch.setattr(jax.nn, "dot_product_attention", lambda *a, **kw: "plain")
+    x = jax.ShapeDtypeStruct((1, t, 1, d), jnp.float32)  # never read by the stubs
+    assert sdpa_route(t, d, on_device) == jax_attention.sdpa(x, x, x)
+
+
+def test_score_matrix_matches_jax(rng):
+    frames, tokens = 3, 40
+    q, k, _ = _qkv(rng, 2, frames * tokens, 2, 32)
+    want = jax_attention.attention_score_matrix(jnp.asarray(q), jnp.asarray(k), frames, tokens)
+    got = attention_score_matrix(_t(q), _t(k), frames, tokens)
+    assert got.shape == (2, frames, frames)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=1e-5)
+
+
+def test_sdpa_reference_matches_jax(rng):
+    q, k, v = _qkv(rng, 2, 50, 3, 16, 70)
+    want = jax_attention.sdpa_reference(*map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(sdpa_reference(_t(q), _t(k), _t(v)).numpy(), np.asarray(want),
+                               atol=ATOL)
+
+
+def _kernel_bf16_p(q, k, v):
+    """The hand-written kernel's arithmetic on the CPU: fp32 logits scaled
+    by D^-1/2 log2(e), exact max, P rounded to bf16 for PV, bf16 output."""
+    d = q.shape[-1]
+    q32, k32, v32 = (a.float().transpose(1, 2) for a in (q, k, v))
+    s = (q32 @ k32.transpose(-1, -2)) * (d**-0.5 * np.log2(np.e))
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    o = (p.to(torch.bfloat16).float() @ v32) / p.sum(-1, keepdim=True)
+    return o.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_chip_bounds_pass_kernel_arithmetic_and_reject_wrong_outputs(rng, d):
+    q, k, v = (_t(a).to(torch.bfloat16) for a in _qkv(rng, 2, 300, 2, d, 170))
+    got = _kernel_bf16_p(q, k, v)
+    ref = blockwise_attention(q, k, v)
+    c = compare(got, ref, **ATTENTION)
+    assert c.ok and c.rejects_wrong, c
+    assert not compare(torch.zeros_like(ref), ref, **ATTENTION).ok
+    assert not compare(1.1 * ref.float(), ref, **ATTENTION).ok

@@ -19,11 +19,18 @@ from pi3_slam_tpu_torch.ops import launch_counts
 from pi3_slam_tpu_torch.ops.block_mlp import block_mlp, block_mlp_plain
 from pi3_slam_tpu_torch.ops.compare import (
     ATTENTION,
+    MLP,
     PARTIAL_L,
     PRODUCER,
     block_mlp_bounds,
     compare,
 )
+from pi3_slam_tpu_torch.ops.flash_attention import (
+    attention_single_pass,
+    blockwise_attention,
+    flash_attention,
+)
+from pi3_slam_tpu_torch.ops.mlp import mlp, mlp_plain
 from pi3_slam_tpu_torch.ops.packed_attention import (
     attention_single_pass_packed,
     flash_attention_packed,
@@ -196,3 +203,67 @@ def test_partial_wrapper_counts_launches_and_refuses_fp32(gen):
     assert launch_counts()["flash_attention_partial"] == before + 1
     with pytest.raises(TypeError):
         flash_attention_partial(q.float(), k, v, kn)
+
+
+def _bthd_views(gen, b, tq, tk, h, d):
+    """q, k, v as the strided (B, T, H, D) views of two projections (row
+    strides 3*H*D and 2*H*D), the way the unpacked and cross routes pass them."""
+    q = _randn(gen, b, tq, 3, h, d)[:, :, 0]
+    kv = _randn(gen, b, tk, 2, h, d)
+    return q, kv[:, :, 0], kv[:, :, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tq,tk", [(301, 301), (301, 150), (130, 333), (70, 1)])
+def test_bthd_attention_matches_plain(gen, d, tq, tk):
+    """Tk < Tq and Tk > Tq, neither a multiple of the 64-row tile; strided
+    q / k / v read in place."""
+    q, k, v = _bthd_views(gen, 2, tq, tk, 3, d)
+    assert not q.is_contiguous() and not k.is_contiguous()
+    ref = blockwise_attention(q, k, v)
+    _assert_close(flash_attention(q, k, v), ref, **ATTENTION)
+    _assert_close(attention_single_pass(q, k, v), ref, **ATTENTION)
+
+
+@pytest.mark.cuda
+def test_bthd_wrappers_count_launches_and_refuse_what_the_kernel_does_not_take(gen):
+    q, k, v = _bthd_views(gen, 1, 70, 40, 2, 64)
+    before = launch_counts()
+    flash_attention(q, k, v)
+    attention_single_pass(q, k, v)
+    after = launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["attention_single_pass"] == before["attention_single_pass"] + 1
+    with pytest.raises(TypeError):
+        flash_attention(q.float(), k, v)
+    odd = _randn(gen, 1, 70, 2, 68)[..., :64]  # row stride 68: not 16-byte aligned
+    with pytest.raises(ValueError):
+        attention_single_pass(odd, odd, odd)
+    wide = _randn(gen, 1, 70, 2, 192)  # head dim 192: ROADMAP Queue 3
+    with pytest.raises(ValueError):
+        flash_attention(wide, wide, wide)
+    assert launch_counts() == after
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c,hidden", [(333, 256, 1024), (64, 128, 512)])
+def test_mlp_matches_plain(gen, rows, c, hidden):
+    x = _randn(gen, 1, rows, c)
+    args = (_randn(gen, hidden, c, scale=0.05), _randn(gen, hidden, scale=0.1),
+            _randn(gen, c, hidden, scale=0.05), _randn(gen, c, scale=0.1))
+    before = launch_counts()["mlp"]
+    got = mlp(x, *args)
+    assert launch_counts()["mlp"] == before + 1
+    _assert_close(got, mlp_plain(x, *args), **MLP)
+
+
+@pytest.mark.cuda
+def test_mlp_outside_kernel_widths_runs_plain_on_the_card(gen):
+    x = _randn(gen, 2, 50, 320)
+    args = (_randn(gen, 1280, 320, scale=0.05), _randn(gen, 1280, scale=0.1),
+            _randn(gen, 320, 1280, scale=0.05), _randn(gen, 320, scale=0.1))
+    before = launch_counts()["mlp"]
+    got = mlp(x, *args)
+    assert launch_counts()["mlp"] == before
+    assert got.is_cuda and torch.equal(got, mlp_plain(x, *args))

@@ -1,0 +1,87 @@
+"""The port's transformer MLP (pi3_slam_tpu_torch/ops/mlp.py) against the JAX
+package, on the CPU.
+
+``mlp`` on a CPU tensor runs ``mlp_plain``, the plain version the
+hand-written kernel (``csrc/block_mlp.cu``, entry ``pi3_mlp``) is held to on
+the card. Here it is held to the Pallas ``mlp_fused_tpu`` in interpret mode at
+the sizes of tests/test_pallas_mlp.py, and to ``models.layers.mlp``, in fp32:
+atol 2e-5 and rtol 1e-5 (tests/test_pallas_mlp.py's own).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pi3_slam_tpu.models.layers import mlp as jax_mlp
+from pi3_slam_tpu.ops.pallas_mlp import mlp_fused_tpu
+
+from pi3_slam_tpu_torch.ops import launch_counts
+from pi3_slam_tpu_torch.ops.compare import MLP, compare
+from pi3_slam_tpu_torch.ops.mlp import mlp, mlp_kernel_supported, mlp_plain
+
+
+def _params(rng, c, hidden):
+    """JAX layout: kernels (in, out)."""
+    return {
+        "fc1_kernel": (rng.normal(size=(c, hidden)) * 0.05).astype(np.float32),
+        "fc1_bias": (rng.normal(size=(hidden,)) * 0.1).astype(np.float32),
+        "fc2_kernel": (rng.normal(size=(hidden, c)) * 0.05).astype(np.float32),
+        "fc2_bias": (rng.normal(size=(c,)) * 0.1).astype(np.float32),
+    }
+
+
+def _torch_args(p):
+    return (torch.from_numpy(p["fc1_kernel"].T.copy()), torch.from_numpy(p["fc1_bias"]),
+            torch.from_numpy(p["fc2_kernel"].T.copy()), torch.from_numpy(p["fc2_bias"]))
+
+
+@pytest.mark.parametrize("t,c,hidden,blk", [(300, 256, 1024, 128), (512, 128, 512, 256)])
+def test_mlp_matches_pallas_and_layers_mlp(rng, t, c, hidden, blk):
+    p = _params(rng, c, hidden)
+    x = (rng.normal(size=(2, t, c)) * 0.5).astype(np.float32)
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    want = mlp_fused_tpu(jnp.asarray(x), jp["fc1_kernel"], jp["fc1_bias"], jp["fc2_kernel"],
+                         jp["fc2_bias"], blk_rows=blk, interpret=True)
+    before = launch_counts()
+    got = mlp(torch.from_numpy(x), *_torch_args(p))
+    assert launch_counts() == before  # CPU tensors never count a launch
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_mlp(jnp.asarray(x), jp)),
+                               atol=2e-5, rtol=1e-5)
+
+
+def test_mlp_outside_the_kernel_widths_matches_layers_mlp(rng):
+    """C = 320 (not a multiple of 128): the card runs the plain matmuls too."""
+    c, hidden = 320, 1280
+    assert not mlp_kernel_supported(c, hidden)
+    p = _params(rng, c, hidden)
+    x = rng.normal(size=(3, 50, c)).astype(np.float32)
+    want = jax_mlp(jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()})
+    np.testing.assert_allclose(mlp(torch.from_numpy(x), *_torch_args(p)).numpy(),
+                               np.asarray(want), atol=2e-5, rtol=1e-5)
+
+
+def test_mlp_refuses_mismatched_weights():
+    x = torch.zeros(2, 5, 128)
+    with pytest.raises(ValueError):
+        mlp(x, torch.zeros(512, 128), torch.zeros(512), torch.zeros(512, 128), torch.zeros(128))
+
+
+def test_chip_bounds_pass_kernel_arithmetic_and_reject_wrong_outputs(rng):
+    """The bounds chip_smoke.py and the GPU tests hold the kernel to accept
+    its bf16 arithmetic (fp32 products of bf16 operands, fp32 biases and
+    GELU, the GELU output stored in bf16; simulated here) and fail an
+    all-zero and a 10%-off output."""
+    bf16 = torch.bfloat16
+    c, hidden = 256, 1024
+    x = torch.from_numpy(rng.normal(size=(1, 500, c)).astype(np.float32)).to(bf16)
+    w1, b1, w2, b2 = (a.to(bf16) for a in _torch_args(_params(rng, c, hidden)))
+    h = torch.nn.functional.gelu(x.float() @ w1.float().T + b1.float()).to(bf16)
+    got = (h.float() @ w2.float().T + b2.float()).to(bf16)
+    ref = mlp_plain(x, w1, b1, w2, b2)
+    cmp = compare(got, ref, **MLP)
+    assert cmp.ok and cmp.rejects_wrong, cmp
+    assert not compare(torch.zeros_like(ref), ref, **MLP).ok
+    assert not compare(1.1 * ref.float(), ref, **MLP).ok
