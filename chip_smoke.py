@@ -29,6 +29,25 @@ Phases, each of which raises (exit code 1) on failure:
    and with --global-kv-merge 2 --no-metric-depth. Each: two chunk files and
    a manifest with the JAX creator's keys and finite values, and the kernel
    launch counts of the run (counts set to 0 just before it).
+5. sol: the speed-of-light probe through its entry point
+   (pi3_slam_tpu_torch.tools.perf_lab sol): a square 8192^3 bf16 matmul,
+   dots_attention, flash_attention_packed and block_mlp at (1, 65536, ...),
+   with the run's launch counts.
+6. reconstruct: (a) the port's reconstructor CLI on phase 4's metric-depth
+   chunks, images to trajectory (130 finite poses, both PLY files); (b)
+   eval-scale synthetic chunks (420 frames: five chunks of 100 and a 20-frame
+   tail, 400 keypoints, overlap 20, confidence outliers; the generator and
+   scene of tests/test_system_ape.py, copied) reconstructed on the card at
+   the evaluation settings (10 BA and at most 50 refine iterations): APE
+   RMSE < 0.07 m, 5 alignments with > 2000 common tracks each, 10 BA
+   iterations per chunk, per-chunk reconstruction, BA and alignment
+   seconds; then chunk 0's BA from one start on the card and on the host
+   CPU, where the damping still fixes the solution (one step: rotations
+   within 1e-5; four steps: centers within 5e-5 after one similarity, costs
+   within 1e-4 relative), each bound shown to reject the host's result with
+   1% of the tracks removed; and the first two chunks end
+   to end on both, every pose within 2e-2 m after one similarity, printed
+   beside a second card run and a run without BA.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -44,6 +63,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -65,6 +86,8 @@ KERNELS = {
         "cuda", "pi3_slam_tpu_torch/csrc/attention.cu", "pi3_slam_tpu/ops/pallas_attention.py:797"),
     "mlp": (
         "cuda", "pi3_slam_tpu_torch/csrc/block_mlp.cu", "pi3_slam_tpu/ops/pallas_mlp.py:285"),
+    "dots_attention": (
+        "cuda", "pi3_slam_tpu_torch/csrc/dots_attention.cu", "tools/perf_lab.py:107"),
 }
 # the card's peaks (H100 SXM data sheet): bf16 tensor cores, fp32 outside
 # them, device memory
@@ -82,6 +105,7 @@ PI3_LAUNCHES = {
     "flash_attention": 0,
     "attention_single_pass": 0,
     "mlp": 0,
+    "dots_attention": 0,
 }
 # with global_kv_merge > 1 the 18 global blocks do qk-norm and RoPE in plain
 # torch (no producer pass) and run the partial kernel
@@ -179,7 +203,7 @@ def phase_build() -> None:
 
     from pi3_slam_tpu_torch.ops._build import build
 
-    names = ("packed_attention", "partial_attention", "block_mlp", "attention")
+    names = ("packed_attention", "partial_attention", "block_mlp", "attention", "dots_attention")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(build, names))
     for name, (so, seconds) in zip(names, built):
@@ -205,7 +229,8 @@ def phase_kernels() -> dict:
 
     from pi3_slam_tpu_torch.ops.block_mlp import block_mlp, block_mlp_plain
     from pi3_slam_tpu_torch.ops.compare import (
-        ATTENTION, MLP, PARTIAL_L, PRODUCER, block_mlp_bounds)
+        ATTENTION, DOTS, MLP, PARTIAL_L, PRODUCER, block_mlp_bounds)
+    from pi3_slam_tpu_torch.ops.dots_attention import dots_attention, dots_attention_plain
     from pi3_slam_tpu_torch.ops.flash_attention import (
         attention_single_pass, blockwise_attention, flash_attention)
     from pi3_slam_tpu_torch.ops.mlp import mlp, mlp_plain
@@ -230,7 +255,7 @@ def phase_kernels() -> dict:
         if "ms" not in r:  # the first shape listed is the one reported
             r.update(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=library_ms)
-        lib = "" if library_ms is None else f"   sdpa {library_ms:9.3f} ms"
+        lib = "" if library_ms is None else f"   library {library_ms:9.3f} ms"
         log(f"  {name:30s} {shape:28s} kernel {ms:9.3f} ms   plain {plain_ms:9.3f} ms   "
             f"bound {bound_ms:8.3f} ms ({bound_by}){lib}")
 
@@ -405,7 +430,30 @@ def phase_kernels() -> dict:
     bthd("attention_single_pass", f"({N_FRAMES}, {FRAME_T}, 16, 64)", q, k, v, 10, 3)
     q, k, v = randn(N_FRAMES, FRAME_T, 3, 8, 128).unbind(2)
     bthd("attention_single_pass", f"({N_FRAMES}, {FRAME_T}, 8, 128) views", q, k, v, 10, 3)
+    # head dims 192 and 256: the column-sliced wide kernel
+    q, k, v = randn(1, 8192, 4, 256), randn(1, 8192, 4, 256), randn(1, 8192, 4, 256)
+    bthd("flash_attention", "(1, 8192, 4, 256)", q, k, v, 10, 3)
+    q, k, v = randn(N_FRAMES, FRAME_T, 4, 192), randn(N_FRAMES, FRAME_T, 4, 192), randn(
+        N_FRAMES, FRAME_T, 4, 192)
+    bthd("attention_single_pass", f"({N_FRAMES}, {FRAME_T}, 4, 192)", q, k, v, 10, 3)
     del q, k, v
+
+    # the speed-of-light probe's dots-only twin of the packed flash kernel at
+    # its shape, N(0, 0.05^2) entries as the probe draws them; the plain
+    # version is two cuBLAS matmuls per 1024-query block, so its time is also
+    # the library's time for the same products
+    t_sol = 65536
+    qkv = randn(1, t_sol, 3 * C, scale=0.05)
+    shape_name = f"(1, {t_sol}, {3 * C})"
+    run = lambda: dots_attention(qkv, H)
+    plain = lambda: dots_attention_plain(qkv, H)
+    c = check("dots_attention", shape_name, run(), plain(),
+              "bf16 logits and output, T-deep cuBLAS reduction", **DOTS)
+    plain_ms = time_ms(plain, 1)
+    record("dots_attention", shape_name, [c], time_ms(run, 3), plain_ms,
+           (attention_flops(1, H, t_sol, t_sol, 64), qkv.numel() * 2 + qkv.numel() // 3 * 2),
+           library_ms=plain_ms)
+    del qkv
 
     # the cross block's MLP (1024 / 4096) over four frames' tokens x 25 and
     # one frame's x 100
@@ -681,28 +729,310 @@ def run_cli(name: str, frames: str, out: str, extra: list) -> tuple[dict, list]:
     return counts, records
 
 
-def phase_cli() -> dict:
-    """Both main paths through the CLI; returns each path's launch counts."""
+def phase_cli(tmp: str) -> dict:
+    """Both main paths through the CLI, writing under tmp; returns each
+    path's launch counts."""
     from pi3_slam_tpu_torch.models.convert import init_moge_params, moge_vits_config, save_params_npz
 
-    with tempfile.TemporaryDirectory() as tmp:
-        frames = os.path.join(tmp, "frames")
-        os.makedirs(frames)
-        write_frames(frames)
-        moge = os.path.join(tmp, "moge_random.npz")
-        save_params_npz(moge, init_moge_params(0, moge_vits_config()))
-        counts, records = run_cli("metric_depth", frames, os.path.join(tmp, "metric"),
-                                  ["--moge-path", moge])
-        scales = [r["metric_scale"] for r in records]
-        if all(sc is not None for sc in scales):
-            log(f"  metric_depth: every chunk holds metric_scale: {scales}")
-        else:  # the creator printed "metric scale skipped: too few valid ..." for these
-            log(f"  metric_depth: metric_scale per chunk {scales}; None = the JAX message "
-                "'metric scale skipped: too few valid MoGe/Pi3 depth pairs' (random weights)")
-        by_path = {"metric_depth": counts}
-        by_path["kv_merge"], _ = run_cli("kv_merge", frames, os.path.join(tmp, "kv_merge"),
-                                         ["--global-kv-merge", "2", "--no-metric-depth"])
-        return by_path
+    frames = os.path.join(tmp, "frames")
+    os.makedirs(frames)
+    write_frames(frames)
+    moge = os.path.join(tmp, "moge_random.npz")
+    save_params_npz(moge, init_moge_params(0, moge_vits_config()))
+    counts, records = run_cli("metric_depth", frames, os.path.join(tmp, "metric"),
+                              ["--moge-path", moge])
+    scales = [r["metric_scale"] for r in records]
+    if all(sc is not None for sc in scales):
+        log(f"  metric_depth: every chunk holds metric_scale: {scales}")
+    else:  # the creator printed "metric scale skipped: too few valid ..." for these
+        log(f"  metric_depth: metric_scale per chunk {scales}; None = the JAX message "
+            "'metric scale skipped: too few valid MoGe/Pi3 depth pairs' (random weights)")
+    by_path = {"metric_depth": counts}
+    by_path["kv_merge"], _ = run_cli("kv_merge", frames, os.path.join(tmp, "kv_merge"),
+                                     ["--global-kv-merge", "2", "--no-metric-depth"])
+    return by_path
+
+
+def phase_sol() -> dict:
+    """The speed-of-light probe through its entry point; returns the run's
+    launch counts (set to 0 just before it)."""
+    from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pi3_slam_tpu_torch.tools.perf_lab import ITERS, probe
+
+    # one warm-up and ITERS timed calls of each kernel
+    want = {k: ITERS + 1 for k in ("dots_attention", "flash_attention_packed", "block_mlp")}
+    reset_launch_counts()
+    results = probe(["sol"])
+    counts = launch_counts()
+    nonzero = {k: v for k, v in counts.items() if v}
+    log(f"  sol: launches {nonzero}")
+    if nonzero != want:
+        raise RuntimeError(f"sol: launch counts {nonzero} != {want}")
+    for name, r in results.items():
+        if not (math.isfinite(r["ms"]) and r["ms"] > 0):
+            raise RuntimeError(f"sol: {name} took {r['ms']} ms")
+    dots, flash = (next(r["ms"] for n, r in results.items() if n.startswith(k))
+                   for k in ("dots_attention", "flash_attention_packed"))
+    log(f"  sol: the online softmax costs flash_attention_packed {flash - dots:.3f} ms of "
+        f"{flash:.3f} ms ({(flash - dots) / flash:.1%}) at this shape")
+    return counts
+
+
+# --- eval-scale synthetic chunks: the generator of tests/test_system_ape.py
+# (make_synthetic_sequence, project, write_synthetic_chunks), copied with
+# numpy and scipy so that this script imports nothing of the JAX package
+
+
+def synthetic_sequence(rng, n_frames, n_landmarks, width, height, step, yaw_rate):
+    """Smooth forward trajectory with yaw, landmarks ahead of the cameras."""
+    from scipy.spatial.transform import Rotation
+
+    f = 500.0
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]])
+    i = np.arange(n_frames)
+    centers = np.stack([step * i, 0.05 * np.sin(i * 0.4), 0.05 * step * i], axis=1)
+    rots = np.stack([Rotation.from_euler("y", yaw_rate * j).as_matrix() for j in i])
+    landmarks = np.stack([rng.uniform(-4, 4 + step * n_frames, n_landmarks),
+                          rng.uniform(-3, 3, n_landmarks), rng.uniform(4, 10, n_landmarks)], axis=1)
+    return K, centers, rots, landmarks
+
+
+def write_synthetic_chunks(out, rng, n_frames=420, n_landmarks=5000, chunk_length=100,
+                           overlap=20, n_kp=400, noise_px=0.4, step=0.08, yaw_rate=0.0007,
+                           width=640, height=480):
+    """Chunk files of a synthetic scene, each chunk in its own random Sim3
+    gauge, with confidence-correlated pixel / point noise and gross outliers
+    among low-confidence keypoints. Returns the true camera centers."""
+    from scipy.spatial.transform import Rotation
+
+    from pi3_slam_tpu_torch.data.datasets import chunk_windows
+
+    K, centers, rots, landmarks = synthetic_sequence(rng, n_frames, n_landmarks, width, height,
+                                                     step, yaw_rate)
+    os.makedirs(os.path.join(out, "chunks"), exist_ok=True)
+    for ci, (s, e) in enumerate(chunk_windows(n_frames, chunk_length, overlap)):
+        frames = list(range(s, e))
+        nf = len(frames)
+        g_s = rng.uniform(0.7, 1.4)
+        g_R = Rotation.from_rotvec(rng.normal(size=3) * 0.1).as_matrix()
+        g_t = rng.normal(size=3) * 0.5
+        kps = np.zeros((nf, n_kp, 2), np.float32)
+        pts = np.zeros((nf, n_kp, 3), np.float32)
+        confs = np.ones((nf, n_kp, 1), np.float32)
+        poses = np.tile(np.eye(4), (nf, 1, 1))
+        for j, fidx in enumerate(frames):
+            cam = (landmarks - centers[fidx]) @ rots[fidx]
+            z = cam[:, 2]
+            uv = np.stack([K[0, 0] * cam[:, 0] / z + K[0, 2], K[1, 1] * cam[:, 1] / z + K[1, 2]], 1)
+            vis = ((z > 0.5) & (uv[:, 0] > 5) & (uv[:, 0] < width - 5) & (uv[:, 1] > 5)
+                   & (uv[:, 1] < height - 5))
+            # the same keypoints for a frame in every chunk that holds it
+            sel_rng = np.random.default_rng(fidx)
+            vis_ids = np.nonzero(vis)[0]
+            sel = vis_ids[sel_rng.permutation(len(vis_ids))[:n_kp]]
+            sel = np.concatenate([sel, np.repeat(sel[-1:], n_kp - len(sel))])
+            conf = sel_rng.uniform(0.2, 1.0, n_kp)
+            confs[j, :, 0] = conf
+            gross = (conf < 0.4) & (sel_rng.uniform(size=n_kp) < 0.15)
+            kps[j] = uv[sel] + sel_rng.normal(size=(n_kp, 2)) * noise_px * (1.5 - conf)[:, None]
+            pw = g_s * landmarks[sel] @ g_R.T + g_t
+            pts[j] = pw + rng.normal(size=pw.shape) * 0.005 * (1.5 - conf)[:, None]
+            if gross.any():
+                kps[j, gross] += sel_rng.normal(size=(gross.sum(), 2)) * 40.0
+                pts[j, gross] += rng.normal(size=(gross.sum(), 3)) * (2.0 * g_s)
+            poses[j, :3, :3] = g_R @ rots[fidx]
+            poses[j, :3, 3] = g_s * g_R @ centers[fidx] + g_t
+        np.savez_compressed(
+            os.path.join(out, "chunks", f"chunk_{ci:06d}.npz"),
+            keypoints=kps.astype(np.float16), points=pts.astype(np.float16),
+            colors=np.full((nf, n_kp, 3), 128, np.uint8), camera_poses=poses.astype(np.float32),
+            camera_poses_cw=np.linalg.inv(poses).astype(np.float32),
+            intrinsics=np.tile(K, (nf, 1, 1)).astype(np.float32),
+            image_paths=np.asarray([f"frame_{i:04d}.png" for i in frames]),
+            original_width=width, original_height=height, masks=np.ones((nf, n_kp), bool),
+            conf=confs.astype(np.float16))
+    with open(os.path.join(out, "chunk_metadata.json"), "w") as f:
+        json.dump({"chunk_length": chunk_length, "overlap": overlap,
+                   "target_size": [height, width]}, f)
+    return centers
+
+
+def check_artifacts(result: dict, n_poses: int) -> np.ndarray:
+    """The reconstructor's three files exist and are finite; the TUM file has
+    n_poses poses. Returns its positions."""
+    from pi3_slam_tpu_torch.io.ply import read_ply
+    from pi3_slam_tpu_torch.io.tum import read_tum_trajectory
+
+    traj = read_tum_trajectory(result["artifacts"]["trajectory"])
+    if traj["positions"].shape != (n_poses, 3):
+        raise RuntimeError(f"trajectory has {traj['positions'].shape[0]} poses, not {n_poses}")
+    for key in ("positions", "quaternions_xyzw"):
+        if not np.isfinite(traj[key]).all():
+            raise RuntimeError(f"trajectory {key} not finite")
+    for name in ("points", "cameras"):
+        xyz = read_ply(result["artifacts"][name])["xyz"]
+        if not np.isfinite(xyz).all():
+            raise RuntimeError(f"{name} PLY not finite")
+    log(f"  artifacts: {n_poses} poses, {read_ply(result['artifacts']['points'])['xyz'].shape[0]} "
+        "points, cameras PLY, all finite")
+    return traj["positions"]
+
+
+def log_alignments(result: dict) -> None:
+    for a, t in zip(result["alignment"], result["timings"][1:]):
+        log(f"    chunk {t['chunk']}: {a.method} route, {a.num_common_tracks} common / "
+            f"{a.num_used_tracks} used tracks, scale {float(a.sim3.scale):.4f}, "
+            f"{'ok' if a.success else 'FAILED'}")
+
+
+def phase_reconstruct(tmp: str) -> None:
+    """(a) phase 4's metric-depth chunks through the port's reconstructor CLI;
+    (b) the eval-scale synthetic system on the card, and its first two chunks
+    again on the host CPU."""
+    import shutil
+
+    from pi3_slam_tpu_torch.reconstruct_offline import reconstruct
+    from pi3_slam_tpu_torch.utils.evaluation import ape_translation
+
+    argv = ["--chunks", os.path.join(tmp, "metric"), "--output", os.path.join(tmp, "recon")]
+    log("  (a) python -m pi3_slam_tpu_torch.reconstruct_offline " + " ".join(argv))
+    result = reconstruct(argv)
+    check_artifacts(result, 130)
+    log_alignments(result)
+
+    log("  (b) eval-scale synthetic chunks: 420 frames (5 x 100 + a 20-frame tail), 400 "
+        "keypoints, overlap 20")
+    scene = os.path.join(tmp, "eval")
+    t0 = time.perf_counter()
+    gt = write_synthetic_chunks(scene, np.random.default_rng(0))
+    log(f"    written in {time.perf_counter() - t0:.1f}s")
+    argv = ["--chunks", scene, "--output", os.path.join(scene, "card"),
+            "--max-observations-per-track", "10", "--ba-iterations", "10"]
+    log("    python -m pi3_slam_tpu_torch.reconstruct_offline " + " ".join(argv))
+    t0 = time.perf_counter()
+    card = reconstruct(argv)
+    wall = time.perf_counter() - t0
+    pos = check_artifacts(card, len(gt))
+    log_alignments(card)
+    for t in card["timings"]:
+        log(f"    chunk {t['chunk']}: reconstruction {t['recon_s']:.3f}s, of it BA {t['ba_s']:.3f}s "
+            f"({t['ba_iterations']} iterations)"
+            + (f", align {t['align_s']:.3f}s (refine {t.get('refine_iterations')} iterations)"
+               if "align_s" in t else ""))
+    ape = ape_translation(gt, pos)
+    log(f"    card: APE RMSE {ape.rmse:.4f} m (gate 0.07), reconstructor wall {wall:.1f}s")
+    if ape.rmse >= 0.07:
+        raise RuntimeError(f"eval-scale APE RMSE {ape.rmse} m >= 0.07 m")
+    if [t["frames"] for t in card["timings"]] != [100] * 5 + [20]:
+        raise RuntimeError(f"eval-scale chunks {[t['frames'] for t in card['timings']]}")
+    if len(card["alignment"]) != 5 or not all(
+            a.success and a.num_common_tracks > 2000 for a in card["alignment"]):
+        raise RuntimeError("eval-scale alignments: expected 5 with > 2000 common tracks each")
+    if [t["ba_iterations"] for t in card["timings"]] != [10] * 6:
+        raise RuntimeError(f"eval-scale BA iterations {[t['ba_iterations'] for t in card['timings']]}")
+
+    ba_against_host(os.path.join(scene, "chunks", "chunk_000000.npz"))
+
+    # the first two chunks end to end on the card (twice), on the host CPU,
+    # and on the card without BA
+    two = os.path.join(tmp, "eval2")
+    os.makedirs(os.path.join(two, "chunks"))
+    for i in (0, 1):
+        shutil.copy(os.path.join(scene, "chunks", f"chunk_{i:06d}.npz"), os.path.join(two, "chunks"))
+    runs = {}
+    for name, device, extra in (("card", "cuda", []), ("host", "cpu", []), ("card again", "cuda", []),
+                                ("card without BA", "cuda", ["--ba-iterations", "0"])):
+        argv = ["--chunks", two, "--output", os.path.join(two, name.replace(" ", "_")),
+                "--max-observations-per-track", "10", "--device", device] + extra
+        t0 = time.perf_counter()
+        res = reconstruct(argv)
+        runs[name] = (check_artifacts(res, 180), time.perf_counter() - t0, res["timings"])
+    for name in ("card", "host"):
+        _, wall, timings = runs[name]
+        log(f"    two chunks on the {name}: wall {wall:.2f}s, reconstruction " + ", ".join(
+            f"{t['recon_s']:.3f}s" for t in timings) + ", of it BA " + ", ".join(
+            f"{t['ba_s']:.3f}s" for t in timings) + f", align {timings[1]['align_s']:.3f}s")
+    # A chunk BA fixes no camera: from its fifth step the damping (below
+    # 1e-6 of the diagonal) no longer holds the gauge, each step's component
+    # along it comes from rounding, and which steps are accepted differs
+    # from run to run on the card itself (its atomics sum in a changing
+    # order). The end-to-end poses therefore spread by millimetres on one
+    # device, and a run without BA lies as close; this bound only catches a
+    # solve gone wrong by centimetres. ba_against_host holds the card to the
+    # host where the solution is fixed.
+    worst, rms = pose_distance(runs["card"][0], runs["host"][0])
+    spread = pose_distance(runs["card again"][0], runs["card"][0])[0]
+    no_ba = pose_distance(runs["card without BA"][0], runs["host"][0])[0]
+    log(f"    two chunks, card vs host after a similarity: largest {worst:.3e} m (tol 2e-2), "
+        f"RMS {rms:.3e} m; card vs card again {spread:.3e} m; card without BA vs host "
+        f"{no_ba:.3e} m {'ok' if worst <= 2e-2 else 'FAIL'}")
+    if worst > 2e-2:
+        raise RuntimeError(f"a card pose lies {worst} m from the host's after a similarity")
+
+
+def pose_distance(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
+    """Largest and RMS distance between two (N, 3) position sets after the
+    least-squares similarity that takes a onto b."""
+    import torch
+
+    from pi3_slam_tpu_torch.geometry.sim3 import sim3_apply, umeyama
+
+    a, b = torch.as_tensor(a, dtype=torch.float32).cpu(), torch.as_tensor(b, dtype=torch.float32).cpu()
+    d = (sim3_apply(umeyama(a, b), a) - b).norm(dim=-1)
+    return d.max().item(), d.square().mean().sqrt().item()
+
+
+def ba_against_host(chunk_path: str) -> None:
+    """Chunk 0's BA at eval scale (100 frames, 40,000 tracks of 10 slots)
+    from one start on the card and on the host CPU: one LM step at the
+    starting damping 1e-4, and the first four steps (damping 1e-4 down to
+    2.7e-6, each accepted for a cost drop of 0.6% or more), while the damping
+    still fixes the solution. Each bound must also reject the host's result
+    with 1% of the tracks removed."""
+    import torch
+
+    from pi3_slam_tpu_torch.sfm.ba import _gn_step, bundle_adjust
+    from pi3_slam_tpu_torch.sfm.reconstruction import build_chunk_reconstruction
+    from pi3_slam_tpu_torch.slam.offline_reconstructor import load_chunk_npz
+
+    chunk = load_chunk_npz(chunk_path)
+    kpf = chunk["keypoints"].shape[1]
+    recon = build_chunk_reconstruction(chunk, run_ba=False, device="cpu")
+    step, solve = {}, {}
+    for name in ("cuda", "cpu", "cpu, 1% of the tracks removed"):
+        device = name.split(",")[0]
+        prob = recon.to_problem(device=device)
+        if "removed" in name:
+            prob = prob._replace(track_valid=prob.track_valid * (
+                torch.arange(prob.track_valid.shape[0]) % 100 != 0))
+        n = prob.centers.shape[0]
+        s = _gn_step(prob, 2.0, torch.tensor(1e-4, device=device), torch.zeros(n, device=device),
+                     tracks_per_frame=kpf)
+        step[name] = s[0].cpu()
+        out, info = bundle_adjust(prob, iterations=4, tracks_per_frame=kpf, return_info=True)
+        solve[name] = (out.centers.cpu(), float(info["final_cost"]))
+
+    def gaps(name):
+        return ((step[name] - step["cpu"]).abs().max().item(),
+                pose_distance(solve[name][0], solve["cpu"][0])[0],
+                abs(solve[name][1] - solve["cpu"][1]) / solve["cpu"][1])
+
+    # On an NVIDIA H100 80GB HBM3 at 700 W the card read 2.07e-6 (the step's
+    # rotations), 1.35e-5 (four steps' centers) and 7.8e-6 (the cost). The
+    # step's centers are not held: removing 1% of the tracks moves them about
+    # as far as the card's other summation order does.
+    tols = (1e-5, 5e-5, 1e-4)
+    labels = ("one step, rotations", "4 steps, centers after a similarity",
+              "4 steps, relative cost")
+    card, cut = gaps("cuda"), gaps("cpu, 1% of the tracks removed")
+    for label, got, control, tol in zip(labels, card, cut, tols):
+        log(f"    chunk 0 BA, card vs host, {label}: {got:.3e} (tol {tol:g}; the host with 1% of "
+            f"the tracks removed: {control:.3e}) {'ok' if got <= tol < control else 'FAIL'}")
+        if got > tol:
+            raise RuntimeError(f"chunk 0 BA, {label}: card {got} from the host, tolerance {tol}")
+        if control <= tol:
+            raise RuntimeError(f"chunk 0 BA, {label}: the tolerance {tol} passes a problem with "
+                               f"1% of the tracks removed ({control})")
 
 
 def main() -> int:
@@ -734,8 +1064,13 @@ def main() -> int:
         "the cross-attention block (1 and 4 frames), Blocks at head dim 128 and C 320")
     phase_model()
     by_path = phase_blocks()
-    log("[4] main paths: port CLI over 130 frames, with metric depth and with kv-merge 2")
-    by_path.update(phase_cli())
+    with tempfile.TemporaryDirectory() as tmp:
+        log("[4] main paths: port CLI over 130 frames, with metric depth and with kv-merge 2")
+        by_path.update(phase_cli(tmp))
+        log("[5] sol: the speed-of-light probe (python -m pi3_slam_tpu_torch.tools.perf_lab sol)")
+        by_path["sol"] = phase_sol()
+        log("[6] reconstruct: the port's reconstructor CLI on the card")
+        phase_reconstruct(tmp)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]

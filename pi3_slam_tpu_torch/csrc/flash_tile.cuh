@@ -56,48 +56,91 @@ struct FlashRows {
   float l0, l1;            // this thread's partial row sums of 2^(s - m)
 };
 
+// The A fragments of this thread's rows of a 64-row tile of Q (D columns).
 template <int D>
-__device__ __forceinline__ void init_rows(FlashRows<D>& st, const TileD<D>& Qs) {
+__device__ __forceinline__ void load_q_fragments(uint32_t (&qf)[D / 16][4], const TileD<D>& Qs) {
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
   const int t4 = lane & 3;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int c = kk * 16 + 2 * t4;
-    st.qf[kk][0] = ld_pair(&Qs[r0][c]);
-    st.qf[kk][1] = ld_pair(&Qs[r0 + 8][c]);
-    st.qf[kk][2] = ld_pair(&Qs[r0][c + 8]);
-    st.qf[kk][3] = ld_pair(&Qs[r0 + 8][c + 8]);
+    qf[kk][0] = ld_pair(&Qs[r0][c]);
+    qf[kk][1] = ld_pair(&Qs[r0 + 8][c]);
+    qf[kk][2] = ld_pair(&Qs[r0][c + 8]);
+    qf[kk][3] = ld_pair(&Qs[r0 + 8][c + 8]);
   }
+}
+
+// O = 0, running max -inf, row sums 0.
+template <int D>
+__device__ __forceinline__ void reset_rows(FlashRows<D>& st) {
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) st.o[n][0] = st.o[n][1] = st.o[n][2] = st.o[n][3] = 0.f;
   st.m0 = st.m1 = -INFINITY;
   st.l0 = st.l1 = 0.f;
 }
 
-// One 64-key tile (keys k0 .. k0+63 in Ks / Vs; keys >= n_keys masked).
-// scale_log2 multiplies the fp32 logits. Key k0 < n_keys is in every visited
-// tile, so the running max stays finite.
 template <int D>
-__device__ __forceinline__ void attend_tile(FlashRows<D>& st, const TileD<D>& Ks,
-                                            const TileD<D>& Vs, int k0, int n_keys,
-                                            float scale_log2) {
+__device__ __forceinline__ void init_rows(FlashRows<D>& st, const TileD<D>& Qs) {
+  load_q_fragments<D>(st.qf, Qs);
+  reset_rows(st);
+}
+
+// s += Q K^T for this warp's 16 query rows and the tile's 64 keys: s[n] holds
+// keys n*8 .. n*8+7 in the C fragment layout (D/16 mma.sync per 8 keys).
+template <int D>
+__device__ __forceinline__ void tile_logits(float (&s)[8][4], const uint32_t (&qf)[D / 16][4],
+                                            const TileD<D>& Ks) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-
-  float s[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
-    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
     const int key = n * 8 + g;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int c = kk * 16 + 2 * t4;
-      mma_bf16_16816(s[n], st.qf[kk], ld_pair(&Ks[key][c]), ld_pair(&Ks[key][c + 8]));
+      mma_bf16_16816(s[n], qf[kk], ld_pair(&Ks[key][c]), ld_pair(&Ks[key][c + 8]));
     }
   }
+}
 
+// o += P V with P = bf16(s) (the tile's 64 keys) and V a 64-key tile of DV
+// columns: the S accumulator layout of key tiles (2kk, 2kk+1) is the A
+// operand layout of a 16-key step.
+template <int DV>
+__device__ __forceinline__ void tile_pv(float (&o)[DV / 8][4], const float (&s)[8][4],
+                                        const TileD<DV>& Vs) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t pa[4];
+    pa[0] = pack_float2(s[2 * kk][0], s[2 * kk][1]);
+    pa[1] = pack_float2(s[2 * kk][2], s[2 * kk][3]);
+    pa[2] = pack_float2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pa[3] = pack_float2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    const int key = kk * 16 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) {
+      const int col = n * 8 + g;
+      const uint32_t b0 = pack_pair(Vs[key][col], Vs[key + 1][col]);
+      const uint32_t b1 = pack_pair(Vs[key + 8][col], Vs[key + 9][col]);
+      mma_bf16_16816(o[n], pa, b0, b1);
+    }
+  }
+}
+
+// Base-2 online softmax of one tile's logits s (keys k0 .. k0+63; keys >=
+// n_keys masked): scale by scale_log2, update the running max, s <- 2^(s - m),
+// rescale O and the row sums. Key k0 < n_keys is in every visited tile, so the
+// running max stays finite.
+template <int D>
+__device__ __forceinline__ void online_softmax(FlashRows<D>& st, float (&s)[8][4], int k0,
+                                               int n_keys, float scale_log2) {
+  const int t4 = threadIdx.x & 3;
   // scale to base-2 logits, mask keys >= n_keys, tile row max
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -142,25 +185,20 @@ __device__ __forceinline__ void attend_tile(FlashRows<D>& st, const TileD<D>& Ks
     st.o[n][2] *= a1;
     st.o[n][3] *= a1;
   }
+}
 
-  // O += P V: the S accumulator layout of key tiles (2kk, 2kk+1) is the A
-  // operand layout of a 16-key step
+// One 64-key tile (keys k0 .. k0+63 in Ks / Vs; keys >= n_keys masked).
+// scale_log2 multiplies the fp32 logits.
+template <int D>
+__device__ __forceinline__ void attend_tile(FlashRows<D>& st, const TileD<D>& Ks,
+                                            const TileD<D>& Vs, int k0, int n_keys,
+                                            float scale_log2) {
+  float s[8][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t pa[4];
-    pa[0] = pack_float2(s[2 * kk][0], s[2 * kk][1]);
-    pa[1] = pack_float2(s[2 * kk][2], s[2 * kk][3]);
-    pa[2] = pack_float2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pa[3] = pack_float2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    const int key = kk * 16 + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int col = n * 8 + g;
-      const uint32_t b0 = pack_pair(Vs[key][col], Vs[key + 1][col]);
-      const uint32_t b1 = pack_pair(Vs[key + 8][col], Vs[key + 9][col]);
-      mma_bf16_16816(st.o[n], pa, b0, b1);
-    }
-  }
+  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  tile_logits<D>(s, st.qf, Ks);
+  online_softmax(st, s, k0, n_keys, scale_log2);
+  tile_pv<D>(st.o, s, Vs);
 }
 
 // Full row sums l0 / l1 (the quad's four partial sums added).

@@ -1,7 +1,8 @@
 """Device selection and numeric set-up.
 
 TF32 is switched off for both matmuls and cuDNN: the Pi3 heads run in fp32
-(reference ``models/pi3.py:235``) and the focal solver needs true fp32, and
+(reference ``models/pi3.py:235``), the focal solver, bundle adjustment and
+the Sim3 fits need true fp32 (the JAX package's ``utils/precision.py``), and
 cuDNN would otherwise run fp32 convolutions in TF32 by default.
 """
 
@@ -11,8 +12,10 @@ import torch
 
 
 def select_device(name: str) -> torch.device:
-    """Resolve a ``--device`` flag. ``cuda`` without a CUDA device raises:
-    there is no quiet CPU fallback; ``cpu`` is the explicit CPU mode."""
+    """Resolve a ``--device`` flag and switch TF32 off (the one place that
+    sets it; every entry point calls this). ``cuda`` without a CUDA device
+    raises: there is no quiet CPU fallback; ``cpu`` is the explicit CPU
+    mode."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(name)

@@ -6,6 +6,7 @@ else, so a run can show that the main path went through the kernels.
 """
 
 from .block_mlp import block_mlp
+from .dots_attention import dots_attention
 from .flash_attention import attention_single_pass, flash_attention
 from .mlp import mlp
 from .packed_attention import attention_single_pass_packed, flash_attention_packed
@@ -21,6 +22,7 @@ KERNEL_WRAPPERS = {
     "flash_attention": flash_attention,
     "attention_single_pass": attention_single_pass,
     "mlp": mlp,
+    "dots_attention": dots_attention,
 }
 
 

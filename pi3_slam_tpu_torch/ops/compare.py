@@ -77,6 +77,11 @@ PRODUCER = dict(max_rel=2.0**-7, l2_rel=1e-2)
 # Attention rounds P to bf16 for the PV product (2^-9 relative per term) and
 # both versions round the output to bf16.
 ATTENTION = dict(max_rel=2.0**-6, l2_rel=1e-2)
+# Dots-only attention: both versions round the fp32 logits and the output to
+# bf16; fp32 sums in another order can put one logit's rounding one bf16 ulp
+# (2^-8 of it) apart, and cuBLAS may reduce the plain version's long (T-deep)
+# second product in split-K partial sums of the input dtype.
+DOTS = dict(max_rel=2.0**-6, l2_rel=1e-2)
 # The bare MLP fc2(GELU(fc1 x)): the plain version rounds the fc1 output to
 # bf16 before the GELU and adds the fc2 bias in bf16 where the kernel keeps
 # fp32 (block_mlp_bounds' reason, without a residual to subtract).

@@ -11,8 +11,9 @@ routes to by sequence length:
 On a CUDA tensor both launch one hand-written kernel, ``csrc/attention.cu``
 (see its header), which reads q, k and v through their strides (a
 unit-stride last dim and 16-byte aligned rows, such as the q / k / v views of
-a qkv projection) and takes bf16 at head dim 64 or 128. On a CPU tensor both
-run :func:`blockwise_attention`, the kernel's plain version.
+a qkv projection) and takes bf16 at every head dim that is a multiple of 64
+(64 and 128 in one pass; wider head dims in column slices of O). On a CPU
+tensor both run :func:`blockwise_attention`, the kernel's plain version.
 
 Keys are masked by length, so Tk may differ from Tq on every route. The JAX
 kernels and ``blockwise_attention`` assume Tk == Tq (they pad k to q's
@@ -29,7 +30,6 @@ import torch
 
 from ._build import check_launch, load_library
 
-KERNEL_HEAD_DIMS = (64, 128)
 LOG2_E = math.log2(math.e)
 
 
@@ -98,9 +98,8 @@ def _strides(x: torch.Tensor, name: str, device: torch.device, what: str) -> tup
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> torch.Tensor:
     b, tq, h, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the {what} kernel takes head dim 64 or 128, got {d} "
-                         "(other head dims: ROADMAP Queue 3)")
+    if d % 64:
+        raise ValueError(f"the {what} kernel takes head dims that are multiples of 64, got {d}")
     dev = q.device
     strides = [s for x, name in ((q, "q"), (k, "k"), (v, "v")) for s in _strides(x, name, dev, what)]
     out = torch.empty((b, tq, h, d), device=dev, dtype=q.dtype)
@@ -115,7 +114,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> tor
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """q (B, Tq, H, D), k / v (B, Tk, H, D) -> (B, Tq, H, D); the long
     sequences (T > 1280) of ``sdpa``. CUDA tensors must be bfloat16 with
-    D = 64 or 128."""
+    D a multiple of 64."""
     _check(q, k, v)
     if not q.is_cuda:
         return blockwise_attention(q, k, v)

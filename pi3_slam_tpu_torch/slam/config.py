@@ -1,6 +1,7 @@
-"""Chunk-creator configuration. Port of ``OfflineCreatorConfig`` from
+"""Chunk-creator and reconstructor configuration. Port of
+``OfflineCreatorConfig`` and ``ReconstructorConfig`` from
 ``pi3_slam_tpu/slam/config.py`` (whose package ``__init__`` imports JAX),
-with the fields of this slice. Tail chunks always run unpadded (eager
+with the fields of the ported paths. Tail chunks always run unpadded (eager
 PyTorch has no recompile cost), so there is no ``pad_tail_chunks`` field.
 """
 
@@ -44,3 +45,28 @@ class OfflineCreatorConfig:
     resume: bool = False  # skip chunks whose files already exist
     # torch.profiler trace of chunk 1 (the first after warm-up) into this dir
     profile_dir: Optional[str] = None
+
+
+@dataclass
+class ReconstructorConfig:
+    """Port of the JAX package's ``ReconstructorConfig`` with the fields of
+    the ported offline path; telemetry priors, loop closure, COLMAP export
+    and mesh fusion are not ported (the CLI refuses their flags)."""
+
+    chunk_dir: str = "output_chunks"
+    output_dir: Optional[str] = None
+    chunk_length: Optional[int] = None  # from chunk_metadata.json when present
+    overlap: Optional[int] = None
+    max_observations_per_track: int = 10
+    # 'subsampled': earlier frames evenly subsampled to the observation
+    # budget (fixed width M); 'unbounded': every earlier frame
+    observation_fan: str = "subsampled"
+    use_inverse_depth: bool = False
+    ba_iterations: int = 10
+    # pose-prior refinement after each Sim3 alignment (50 Huber-3.0
+    # iterations at most)
+    align_refine: bool = True
+    align_refine_iterations: int = 50
+    save_debug: bool = False  # also save recon_XXXXXX.npz per chunk
+    # where the bundle adjustments and Sim3 fits run ('cuda' or 'cpu')
+    device: str = "cuda"

@@ -105,6 +105,21 @@ def test_sdpa_matches_jax(rng, tq, tk, d):
     assert (tq >= LONG_SEQUENCE_THRESHOLD) == (sdpa_route(tq, d, False) == "blockwise")
 
 
+@pytest.mark.parametrize("tq,d", [(300, 192), (700, 256), (4100, 192)])
+def test_wide_head_dims_match_jax(rng, tq, d):
+    """Head dims 192 and 256, which the card's kernels take in column slices:
+    sdpa and the kernels' plain version (what flash_attention and
+    attention_single_pass run on a CPU tensor) against the JAX sdpa (its XLA
+    route, or blockwise attention at T >= 4096)."""
+    q, k, v = _qkv(rng, 1, tq, 2, d)
+    want = np.asarray(jax_attention.sdpa(*map(jnp.asarray, (q, k, v))))
+    assert sdpa_route(tq, d, True) == ("flash" if tq > 1280 else "single_pass")
+    for fn in (sdpa, flash_attention, attention_single_pass):
+        got = fn(_t(q), _t(k), _t(v))
+        assert got.shape == (1, tq, 2, d)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
 def test_sdpa_takes_no_implementation():
     q = torch.zeros(1, 8, 1, 64)
     with pytest.raises(ValueError):
@@ -112,7 +127,7 @@ def test_sdpa_takes_no_implementation():
 
 
 @pytest.mark.parametrize("t", [100, 255, 256, 700, 1280, 1281, 2572, 4095, 4096, 64300])
-@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 192, 256])
 @pytest.mark.parametrize("on_device", [True, False])
 def test_sdpa_route_follows_the_jax_dispatch(monkeypatch, t, d, on_device):
     """The JAX sdpa with its kernels and XLA call stubbed to name themselves,
@@ -153,7 +168,7 @@ def _kernel_bf16_p(q, k, v):
     return o.transpose(1, 2).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_chip_bounds_pass_kernel_arithmetic_and_reject_wrong_outputs(rng, d):
     q, k, v = (_t(a).to(torch.bfloat16) for a in _qkv(rng, 2, 300, 2, d, 170))
     got = _kernel_bf16_p(q, k, v)

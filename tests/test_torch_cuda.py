@@ -19,12 +19,14 @@ from pi3_slam_tpu_torch.ops import launch_counts
 from pi3_slam_tpu_torch.ops.block_mlp import block_mlp, block_mlp_plain
 from pi3_slam_tpu_torch.ops.compare import (
     ATTENTION,
+    DOTS,
     MLP,
     PARTIAL_L,
     PRODUCER,
     block_mlp_bounds,
     compare,
 )
+from pi3_slam_tpu_torch.ops.dots_attention import dots_attention, dots_attention_plain
 from pi3_slam_tpu_torch.ops.flash_attention import (
     attention_single_pass,
     blockwise_attention,
@@ -214,11 +216,12 @@ def _bthd_views(gen, b, tq, tk, h, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("tq,tk", [(301, 301), (301, 150), (130, 333), (70, 1)])
 def test_bthd_attention_matches_plain(gen, d, tq, tk):
     """Tk < Tq and Tk > Tq, neither a multiple of the 64-row tile; strided
-    q / k / v read in place."""
+    q / k / v read in place. Head dims 192 and 256 take the column-sliced
+    wide kernel (64- and 128-wide slices of O)."""
     q, k, v = _bthd_views(gen, 2, tq, tk, 3, d)
     assert not q.is_contiguous() and not k.is_contiguous()
     ref = blockwise_attention(q, k, v)
@@ -240,9 +243,9 @@ def test_bthd_wrappers_count_launches_and_refuse_what_the_kernel_does_not_take(g
     odd = _randn(gen, 1, 70, 2, 68)[..., :64]  # row stride 68: not 16-byte aligned
     with pytest.raises(ValueError):
         attention_single_pass(odd, odd, odd)
-    wide = _randn(gen, 1, 70, 2, 192)  # head dim 192: ROADMAP Queue 3
+    odd_d = _randn(gen, 1, 70, 2, 96)  # head dim 96: not a multiple of 64
     with pytest.raises(ValueError):
-        flash_attention(wide, wide, wide)
+        flash_attention(odd_d, odd_d, odd_d)
     assert launch_counts() == after
 
 
@@ -267,3 +270,76 @@ def test_mlp_outside_kernel_widths_runs_plain_on_the_card(gen):
     got = mlp(x, *args)
     assert launch_counts()["mlp"] == before
     assert got.is_cuda and torch.equal(got, mlp_plain(x, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h", [(1, 1000, 3), (2, 301, 2), (1, 64, 1)])
+def test_dots_attention_matches_plain(gen, b, t, h):
+    """T not a multiple of the 64-row tile; entries at the probe's N(0, 0.05^2)
+    and at unit variance (logits far from 1)."""
+    for scale in (0.05, 1.0):
+        qkv = _randn(gen, b, t, 3 * h * D, scale=scale)
+        before = launch_counts()["dots_attention"]
+        got = dots_attention(qkv, h)
+        assert launch_counts()["dots_attention"] == before + 1
+        _assert_close(got, dots_attention_plain(qkv, h), **DOTS)
+
+
+@pytest.mark.cuda
+def test_dots_attention_refuses_what_the_kernel_does_not_take(gen):
+    qkv = _randn(gen, 1, 70, 3 * 2 * D)
+    before = launch_counts()
+    with pytest.raises(TypeError):
+        dots_attention(qkv.float(), 2)
+    with pytest.raises(ValueError):
+        dots_attention(qkv[:, ::2], 2)  # not contiguous
+    with pytest.raises(ValueError):
+        dots_attention(qkv, 3)  # 3 * 3 * 64 columns expected
+    assert launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_bundle_adjust_on_the_card_matches_the_host(gen):
+    """The BA's scatters (atomics on the card, in an order that changes from
+    run to run), batched inverses and dense solve against the same fp32 code
+    on the host, on a well-posed scene: cameras on an arc, 200 points at depth
+    4-8 seen by 5 of 8 frames, two cameras fixed (the gauge). One damped
+    Gauss-Newton step (0.29 on the centers, 1.16 on the points) is held to
+    5e-4: the same step in fp64 differs from the fp32 one by 7e-5 on the
+    host, the rounding that another summation order moves. The whole
+    20-iteration solve, whose accept / reject of a step near convergence
+    compares two fp32 costs and may go the other way on the card, is held to
+    1e-3 and to the noise floor."""
+    from pi3_slam_tpu_torch.device import select_device
+    from pi3_slam_tpu_torch.sfm.ba import _gn_step, bundle_adjust, make_problem, reprojection_errors
+
+    select_device("cuda")  # TF32 off, as every entry point sets it
+    g = torch.Generator().manual_seed(0)
+    n, t, m = 8, 200, 5
+    pts = torch.rand(t, 3, generator=g) * torch.tensor([4.0, 4.0, 4.0]) + torch.tensor(
+        [-2.0, -2.0, 4.0])
+    centers = torch.stack([torch.linspace(-1.5, 1.5, n), torch.zeros(n), torch.zeros(n)], 1)
+    rot = torch.eye(3).expand(n, 3, 3).clone()
+    intr = torch.tensor([500.0, 500.0, 320.0, 240.0]).expand(n, 4)
+    obs_frame = torch.stack([torch.randperm(n, generator=g)[:m] for _ in range(t)])
+    xc = pts[:, None] - centers[obs_frame]
+    uv = intr[obs_frame][..., :2] * xc[..., :2] / xc[..., 2:] + intr[obs_frame][..., 2:]
+    uv = uv + 0.5 * torch.randn(uv.shape, generator=g)
+    start = dict(rotations=rot, centers=centers + 0.03 * torch.randn(n, 3, generator=g),
+                 points=pts + 0.03 * torch.randn(t, 3, generator=g), intrinsics=intr,
+                 obs_frame=obs_frame, obs_uv=uv, obs_valid=torch.ones(t, m))
+    fixed = torch.tensor([1.0, 1.0] + [0.0] * (n - 2))
+    step, out = {}, {}
+    for device in ("cpu", "cuda"):
+        prob = make_problem(**start, device=device)
+        step[device] = _gn_step(prob, 2.0, torch.tensor(1e-4, device=device), fixed.to(device))
+        out[device] = bundle_adjust(prob, iterations=20, fixed_cameras=fixed)
+    for a, b in zip(step["cuda"], step["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=5e-4)
+    card, host = out["cuda"], out["cpu"]
+    assert card.points.is_cuda
+    err = reprojection_errors(card).cpu()
+    assert err[torch.isfinite(err)].median() < 1.0
+    for name in ("rotations", "centers", "points"):
+        torch.testing.assert_close(getattr(card, name).cpu(), getattr(host, name), rtol=0,
+                                   atol=1e-3)

@@ -108,8 +108,9 @@ def test_checkpoint_round_trip(tmp_path):
 
 def test_port_imports_and_runs_without_jax():
     """The port never imports JAX nor the JAX package: a fresh interpreter
-    imports every module, runs a tiny forward and finds neither 'jax' nor
-    'pi3_slam_tpu' in sys.modules."""
+    imports every module (the SfM, reconstructor and probe modules included),
+    runs a tiny forward, a tiny bundle adjustment, a Sim3 fit and the APE
+    scorer, and finds neither 'jax' nor 'pi3_slam_tpu' in sys.modules."""
     code = textwrap.dedent(
         """
         import sys, pkgutil, importlib, torch
@@ -127,6 +128,19 @@ def test_port_imports_and_runs_without_jax():
         with torch.no_grad():
             out = model(torch.rand(1, 2, 3, 28, 28))
         assert out["points"].shape == (1, 2, 28, 28, 3)
+        # the SfM path: a tiny bundle adjustment, a Sim3 fit, the APE scorer
+        import numpy as np
+        from pi3_slam_tpu_torch.geometry.sim3 import robust_umeyama
+        from pi3_slam_tpu_torch.sfm.ba import bundle_adjust, make_problem
+        from pi3_slam_tpu_torch.utils.evaluation import ape_translation
+        eye = np.tile(np.eye(3), (2, 1, 1))
+        prob = make_problem(eye, [[0, 0, 0], [1, 0, 0]], [[0, 0, 5], [1, 1, 6]],
+                            np.tile([500.0, 500, 320, 240], (2, 1)), [[0, 1], [1, 0]],
+                            np.full((2, 2, 2), 300.0), np.ones((2, 2)))
+        assert torch.isfinite(bundle_adjust(prob, iterations=2).points).all()
+        pts = torch.rand(10, 3)
+        assert float(robust_umeyama(pts, 2 * pts).scale) > 1.9
+        assert ape_translation(np.random.rand(5, 3), np.random.rand(5, 3)).rmse >= 0
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert "pi3_slam_tpu" not in sys.modules, sorted(
             m for m in sys.modules if m.split(".")[0] == "pi3_slam_tpu")
