@@ -12,10 +12,12 @@ Phases, each of which raises (exit code 1) on failure:
    paths' shapes (Pi3, MoGe-2, the cross-attention block), in bf16: max
    error against the stated tolerance; the kernel's and the plain version's
    time (CUDA events), the bound (the least time the card could take: bytes
-   over 3.35 TB/s or operations over 989 TFLOP/s bf16, whichever is larger)
-   and, for the attention kernels, the time of
+   over 3.35 TB/s or operations over 989 TFLOP/s bf16, whichever is larger),
+   for the packed attention kernel also its exp2 over 3.9e12/s, and, for the
+   attention kernels, the time of
    torch.nn.functional.scaled_dot_product_attention on the same q, k and v
-   (a yardstick only: the port never calls it).
+   (a yardstick only: the port never calls it). The padded frame shape runs
+   with zero and with NaN rows past true_t.
 3. Full-width forwards with random weights (seed 0): Pi3 on a 4-frame chunk
    at 308x406, exact and with global_kv_merge=2, MoGe-2 (ViT-S backbone) on
    one 308x406 frame, the cross-attention block at Pi3's decoder widths over
@@ -32,7 +34,9 @@ Phases, each of which raises (exit code 1) on failure:
 5. sol: the speed-of-light probe through its entry point
    (pi3_slam_tpu_torch.tools.perf_lab sol): a square 8192^3 bf16 matmul,
    dots_attention, flash_attention_packed and block_mlp at (1, 65536, ...),
-   with the run's launch counts.
+   with the run's launch counts and each kernel's TFLOP/s as a share of the
+   matmul's; then SDPA's time and the packed kernel's two bounds at the
+   probe's attention shape.
 6. reconstruct: (a) the port's reconstructor CLI on phase 4's metric-depth
    chunks, images to trajectory (130 finite poses, both PLY files); (b)
    eval-scale synthetic chunks (420 frames: five chunks of 100 and a 20-frame
@@ -94,6 +98,9 @@ KERNELS = {
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# exp2 on the special-function units (FlashAttention-3, Shah et al. 2024, §3):
+# at head dim 64 one exp2 per logit weighs as much as the two products
+PEAK_EXP2 = 3.9e12
 # launches of one Pi3 forward over a chunk: 36 decoder + 15 head producer
 # passes; 24 encoder + 18 frame + 15 head single-pass; 18 global; 75 block MLPs
 PI3_LAUNCHES = {
@@ -245,19 +252,23 @@ def phase_kernels() -> dict:
     H, C = 16, 1024
     results = {}
 
-    def record(name, shape, checks, ms, plain_ms, work, library_ms=None):
-        """work = (flops, bytes[, peak]) of one call at this shape."""
+    def record(name, shape, checks, ms, plain_ms, work, library_ms=None, exp2=None):
+        """work = (flops, bytes[, peak]) of one call at this shape; exp2 = the
+        call's count of exp2 (one per logit), printed as its own bound beside
+        the products' (bound() leaves it out)."""
         r = results.setdefault(name, {"max_abs_err": 0.0, "rel_l2": 0.0})
         for c in checks:
             r["max_abs_err"] = max(r["max_abs_err"], c.max_abs_err)
             r["rel_l2"] = max(r["rel_l2"], c.rel_l2)
         bound_ms, bound_by = bound(*work)
+        exp2_ms = None if exp2 is None else exp2 / PEAK_EXP2 * 1e3
         if "ms" not in r:  # the first shape listed is the one reported
             r.update(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=library_ms)
         lib = "" if library_ms is None else f"   library {library_ms:9.3f} ms"
+        ex = "" if exp2_ms is None else f"   exp2 bound {exp2_ms:8.3f} ms"
         log(f"  {name:30s} {shape:28s} kernel {ms:9.3f} ms   plain {plain_ms:9.3f} ms   "
-            f"bound {bound_ms:8.3f} ms ({bound_by}){lib}")
+            f"bound {bound_ms:8.3f} ms ({bound_by}){ex}{lib}")
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g, device="cuda") * scale).to(bf16)
@@ -301,6 +312,10 @@ def phase_kernels() -> dict:
         b, t, c3 = qkv.shape
         return attention_flops(b, c3 // 192, t, t, 64), qkv.numel() * 2 + qkv.numel() // 3 * 2
 
+    def packed_exp2(qkv):
+        b, t, c3 = qkv.shape
+        return b * (c3 // 192) * t * t
+
     def packed_sdpa_ms(qkv, q_scale, iters):
         b, t, c3 = qkv.shape
         q, k, v = qkv.view(b, t, 3, c3 // 192, 64).unbind(2)
@@ -314,19 +329,29 @@ def phase_kernels() -> dict:
         plain = lambda: packed_attention_plain(qkv, H, q_scale=q_scale)
         c = check("attention_single_pass_packed", shape_name, run(), plain(), **attn)
         record("attention_single_pass_packed", shape_name, [c], time_ms(run, 10), time_ms(plain, 3),
-               packed_work(qkv), packed_sdpa_ms(qkv, q_scale, 10))
-    # padded keys (the producer's zero rows) are masked by length
-    padded = torch.nn.functional.pad(produced["(100, 643, 3072) norm"], (0, 0, 0, 61))
+               packed_work(qkv), packed_sdpa_ms(qkv, q_scale, 10), packed_exp2(qkv))
+    # padded keys (the producer's zero rows) are masked by length; rows past
+    # true_t full of NaN must not reach the output either (the kernel reads
+    # none of them), which the unpadded input's output shows bit for bit
+    unpadded = produced["(100, 643, 3072) norm"]
+    padded = torch.nn.functional.pad(unpadded, (0, 0, 0, 61))
     check("attention_single_pass_packed", "(100, 704, 3072) true_t=643",
           attention_single_pass_packed(padded, H, true_t=FRAME_T),
           packed_attention_plain(padded, H, true_t=FRAME_T), **attn)
+    padded[:, FRAME_T:] = float("nan")
+    got = attention_single_pass_packed(padded, H, true_t=FRAME_T)
+    check("attention_single_pass_packed", "(100, 704, 3072) true_t=643 NaN", got,
+          packed_attention_plain(padded, H, true_t=FRAME_T), **attn)
+    if not torch.equal(got, attention_single_pass_packed(unpadded, H)):
+        raise RuntimeError("attention_single_pass_packed: NaN padding rows changed the output")
+    del padded, got
 
     qkv = produced["(1, 64300, 3072) norm"]
     run = lambda: flash_attention_packed(qkv, H)
     plain = lambda: packed_attention_plain(qkv, H)
     c = check("flash_attention_packed", "(1, 64300, 3072)", run(), plain(), **attn)
     record("flash_attention_packed", "(1, 64300, 3072)", [c], time_ms(run, 3), time_ms(plain, 1),
-           packed_work(qkv), packed_sdpa_ms(qkv, 1.0, 3))
+           packed_work(qkv), packed_sdpa_ms(qkv, 1.0, 3), packed_exp2(qkv))
 
     w1 = randn(4 * C, C, scale=0.02)
     w2 = randn(C, 4 * C, scale=0.02)
@@ -381,7 +406,7 @@ def phase_kernels() -> dict:
     plain = lambda: packed_attention_plain(qkv, 6, q_scale=scale)
     c = check("attention_single_pass_packed", shape_name, run(), plain(), **attn)
     record("attention_single_pass_packed", shape_name, [c], time_ms(run, 10), time_ms(plain, 3),
-           packed_work(qkv), packed_sdpa_ms(qkv, scale, 10))
+           packed_work(qkv), packed_sdpa_ms(qkv, scale, 10), packed_exp2(qkv))
     x = randn(1, MOGE_T, c_s)
     mlp_params = (
         1 + 0.1 * torch.randn(c_s, generator=g, device="cuda"),
@@ -757,7 +782,7 @@ def phase_sol() -> dict:
     """The speed-of-light probe through its entry point; returns the run's
     launch counts (set to 0 just before it)."""
     from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
-    from pi3_slam_tpu_torch.tools.perf_lab import ITERS, probe
+    from pi3_slam_tpu_torch.tools.perf_lab import ITERS, SOL_H, SOL_T, probe
 
     # one warm-up and ITERS timed calls of each kernel
     want = {k: ITERS + 1 for k in ("dots_attention", "flash_attention_packed", "block_mlp")}
@@ -771,10 +796,23 @@ def phase_sol() -> dict:
     for name, r in results.items():
         if not (math.isfinite(r["ms"]) and r["ms"] > 0):
             raise RuntimeError(f"sol: {name} took {r['ms']} ms")
-    dots, flash = (next(r["ms"] for n, r in results.items() if n.startswith(k))
-                   for k in ("dots_attention", "flash_attention_packed"))
-    log(f"  sol: the online softmax costs flash_attention_packed {flash - dots:.3f} ms of "
-        f"{flash:.3f} ms ({(flash - dots) / flash:.1%}) at this shape")
+    peak = next(r["tflops"] for n, r in results.items() if n.startswith("square"))
+    for name, r in results.items():
+        if not name.startswith("square"):
+            log(f"  sol: {name.split(' (')[0]} {r['tflops']:.1f} TFLOP/s, {r['tflops'] / peak:.1%} "
+                f"of the {peak:.1f} of the 8192^3 matmul")
+    # the library yardstick and both bounds of the packed flash kernel at the
+    # probe's shape (after the counts were read: not part of the probe run)
+    import torch
+
+    t, h = SOL_T, SOL_H
+    q, k, v = ((torch.randn(1, t, h, 64, device="cuda") * 0.05).to(torch.bfloat16) for _ in range(3))
+    lib = sdpa_ms(q, k, v, 1.0, ITERS)
+    del q, k, v
+    flops = attention_flops(1, h, t, t, 64)
+    log(f"  sol: scaled_dot_product_attention at (1, {t}, {h}, 64) {lib:.3f} ms (library "
+        f"yardstick); bounds of that shape: products {flops / PEAK_BF16 * 1e3:.3f} ms, exp2 "
+        f"{h * t * t / PEAK_EXP2 * 1e3:.3f} ms")
     return counts
 
 

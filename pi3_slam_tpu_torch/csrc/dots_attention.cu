@@ -1,5 +1,5 @@
 // Dots-only packed attention for Hopper (sm_90a): the speed-of-light twin of
-// packed_attention.cu.
+// flash_tile.cuh's mma.sync loop (partial_attention.cu, attention.cu).
 //
 // Replaces the Pallas TPU kernel dots_kernel of tools/perf_lab.py::bench_sol
 // (the "dots-only twin of _flash_packed_kernel"). Over the packed
@@ -17,9 +17,10 @@
 // Design: flash_tile.cuh's loop with online_softmax taken out. The same block
 // (4 warps, 64 query rows of one head), the same 64-key tiles staged through
 // shared memory, the same mma.sync m16n8k16 for S = Q K^T (tile_logits) and
-// O += bf16(S) V (tile_pv), the same output write. So its time beside
-// flash_attention_packed at the same shape is the cost of the softmax (the
-// running max, the exp2 of every logit, the rescale of O) in that kernel.
+// O += bf16(S) V (tile_pv), the same output write. So its time is the floor
+// of that loop's kernels (rows 5-7 of PERF.md's kernel table) without their
+// softmax. packed_attention.cu runs another loop (TMA + wgmma), and its time
+// beside this one's is not the cost of a softmax.
 // Zero-filled key rows past T give logits of exactly 0, and their v rows are
 // zero, so no key mask is needed.
 //

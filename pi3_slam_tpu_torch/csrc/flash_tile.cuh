@@ -1,11 +1,12 @@
-// The online-softmax attention loop shared by packed_attention.cu,
-// partial_attention.cu and attention.cu: one block of 4 warps owns 64 query
-// rows of one head, each warp 16 rows, and walks the keys in 64-key tiles
-// held in shared memory. Per tile: S = Q K^T (8 * D/16 mma.sync), base-2
-// online softmax on the S fragments (exact running max per row), P rounded to
-// bf16 in registers as the A operand, O += P V (4 * D/8 mma.sync). The head
-// dim D is a template parameter, 64 or 128; the packed and partial kernels
-// take D = 64 (kD).
+// The mma.sync online-softmax attention loop of partial_attention.cu and
+// attention.cu (dots_attention.cu runs it without its softmax;
+// packed_attention.cu has its own TMA + wgmma loop): one block of 4 warps
+// owns 64 query rows of one head, each warp 16 rows, and walks the keys in
+// 64-key tiles held in shared memory. Per tile: S = Q K^T (8 * D/16
+// mma.sync), base-2 online softmax on the S fragments (exact running max per
+// row), P rounded to bf16 in registers as the A operand, O += P V (4 * D/8
+// mma.sync). The head dim D is a template parameter, 64 or 128; the partial
+// and dots kernels take D = 64 (kD).
 #pragma once
 
 #include <math.h>
@@ -14,7 +15,7 @@
 
 namespace pi3 {
 
-constexpr int kD = 64;        // head dim of the packed and partial kernels
+constexpr int kD = 64;        // head dim of the partial and dots kernels
 constexpr int kTile = 64;     // query rows per block, keys per tile
 constexpr int kThreads = 128; // 4 warps x 16 query rows
 

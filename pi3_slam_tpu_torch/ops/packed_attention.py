@@ -83,6 +83,8 @@ def _launch(qkv: torch.Tensor, num_heads: int, t_valid: int, scale_log2: float, 
         raise TypeError(f"{what} kernel takes bfloat16, got {qkv.dtype}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(f"{what}: qkv must be contiguous and 16-byte aligned")
+    if not scale_log2 > 0:  # the kernel takes its running max on the unscaled logits
+        raise ValueError(f"{what}: the kernel takes a logit scale > 0, got {scale_log2}")
     b, t, _ = qkv.shape
     out = torch.empty((b, t_valid, num_heads * HEAD_DIM), device=qkv.device, dtype=qkv.dtype)
     code = _kernel()(

@@ -109,6 +109,27 @@ def _store_dense_maps(
     result["dense_stride"] = np.int16(stride)
 
 
+def device_timeline(trace_path: str) -> Dict[str, float]:
+    """Traced window, device-busy time and idle share of a torch.profiler
+    Chrome trace: the window spans every timed event (host and device), busy
+    is the union of the device's kernel, memcpy and memset intervals."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "dur" in e and "ts" in e]
+    if not events:
+        return {"window_ms": 0.0, "busy_ms": 0.0, "idle_share": 1.0}
+    window = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for start, stop in device:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    window_ms, busy_ms = window / 1e3, busy / 1e3
+    return {"window_ms": window_ms, "busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / window_ms if window_ms > 0 else 1.0}
+
+
 class OfflineChunkCreator:
     def __init__(self, config: OfflineCreatorConfig, pi3_config: Pi3Config | None = None):
         self.config = config
@@ -245,10 +266,15 @@ class OfflineChunkCreator:
         os.makedirs(self.config.profile_dir, exist_ok=True)
         with profile(activities=acts) as prof:
             result = run()
-        prof.export_chrome_trace(os.path.join(self.config.profile_dir, "chunk_trace.json"))
+        trace = os.path.join(self.config.profile_dir, "chunk_trace.json")
+        prof.export_chrome_trace(trace)
         table = prof.key_averages().table(
             sort_by="self_device_time_total" if cuda else "self_cpu_time_total", row_limit=40
         )
+        if cuda:
+            t = device_timeline(trace)
+            table += (f"\ntraced window {t['window_ms']:.1f} ms, device busy {t['busy_ms']:.1f} ms, "
+                      f"idle share {t['idle_share']:.3f}\n")
         with open(os.path.join(self.config.profile_dir, "summary.txt"), "w") as f:
             f.write(table)
         print(f"   profiler trace written to {self.config.profile_dir}")

@@ -8,14 +8,16 @@ and prints ms and TFLOP/s of:
 
 * a square 8192^3 bf16 ``torch.matmul``: the card's practical bf16 peak, a
   yardstick;
-* ``dots_attention`` at (1, 65536, 3*16*64): the packed flash kernel's tile
-  loop with the softmax taken out (``csrc/dots_attention.cu``);
-* ``flash_attention_packed`` at the same shape (``csrc/packed_attention.cu``);
+* ``dots_attention`` at (1, 65536, 3*16*64): the ``mma.sync`` tile loop of
+  ``csrc/flash_tile.cuh`` (the partial and (B, T, H, D) attention kernels')
+  with the softmax taken out (``csrc/dots_attention.cu``);
+* ``flash_attention_packed`` at the same shape: the TMA + ``wgmma`` kernel
+  with its online softmax (``csrc/packed_attention.cu``);
 * ``block_mlp`` at (1, 65536, 1024) with hidden 4096 (``csrc/block_mlp.cu``).
 
-The dots-only time against the packed kernel's is the cost of the softmax in
-that kernel, and both against the matmul yardstick say how far the tile loop
-is from the tensor cores' practical rate. The JAX package's other probes
+Each against the matmul yardstick says how far its loop is from the tensor
+cores' practical rate. The two attention kernels run different loops, so
+their difference is not the cost of a softmax. The JAX package's other probes
 (global, frame, block, packed, stages, mlp, mlp-sweep, forward, refine,
 kv-accuracy, tsdf) are not ported (ROADMAP.md Queue 2, item 9).
 """
@@ -76,9 +78,9 @@ def bench_sol() -> dict:
     qkv = mk(1, SOL_T, 3 * SOL_H * SOL_D)
     aflops = 4.0 * SOL_H * SOL_T * SOL_T * SOL_D
     shape = f"(1, {SOL_T}, {3 * SOL_H * SOL_D})"
-    run("dots_attention (the tile loop without softmax)", shape,
+    run("dots_attention (the mma.sync loop without softmax)", shape,
         lambda: dots_attention(qkv, SOL_H), aflops)
-    run("flash_attention_packed (online softmax)", shape,
+    run("flash_attention_packed (TMA + wgmma, online softmax)", shape,
         lambda: flash_attention_packed(qkv, SOL_H), aflops)
     del qkv
 

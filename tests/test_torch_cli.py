@@ -100,6 +100,28 @@ def test_profile_dir_traces_chunk_one_on_cpu(tmp_path):
     assert len(list((tmp_path / "out" / "chunks").glob("chunk_*.npz"))) == 3
 
 
+def test_device_timeline_takes_the_union_of_device_intervals(tmp_path):
+    """Busy time counts overlapping kernels once; host events widen the
+    window but are not busy."""
+    import json
+
+    from pi3_slam_tpu_torch.slam.chunk_creator import device_timeline
+
+    events = [
+        {"ph": "X", "cat": "cpu_op", "ts": 0.0, "dur": 1000.0},
+        {"ph": "X", "cat": "kernel", "ts": 100.0, "dur": 300.0},
+        {"ph": "X", "cat": "kernel", "ts": 200.0, "dur": 300.0},  # overlaps the first
+        {"ph": "X", "cat": "gpu_memcpy", "ts": 600.0, "dur": 100.0},
+        {"ph": "i", "cat": "instant", "ts": 5000.0},  # no duration: not timed
+    ]
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps({"traceEvents": events}))
+    t = device_timeline(str(trace))
+    assert t["window_ms"] == pytest.approx(1.0)
+    assert t["busy_ms"] == pytest.approx(0.5)
+    assert t["idle_share"] == pytest.approx(0.5)
+
+
 def test_create_chunks_returns_per_chunk_records(tmp_path):
     """One record per chunk (path, frames, time, frames/s, kernel launches);
     a resumed chunk has no timing. No kernel runs on the CPU."""

@@ -99,9 +99,19 @@ def test_producer_matches_plain(gen, with_norm, out_t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,true_t", [(301, None), (384, 301), (70, 1)])
-def test_attention_matches_plain(gen, t, true_t):
-    b, h = 2, 4
+@pytest.mark.parametrize(
+    "b,t,true_t,h",
+    [
+        (2, 301, None, 4),
+        (2, 384, 301, 4),
+        (2, 70, 1, 4),
+        (2, 643, None, 6),  # MoGe-2's C 384: 3C = 1152 columns; 643 = 5 x 128 + 3
+        (1, 4100, None, 2),  # 33 key tiles: the ring of K / V stages wraps many times
+        (2, 128, None, 4),  # exactly one 128-row tile
+        (2, 129, None, 4),  # one key and one query over it
+    ],
+)
+def test_attention_matches_plain(gen, b, t, true_t, h):
     qkv, cos, sin, norm = _packed(gen, b, t, h)
     packed = qkv_rope_producer_plain(qkv, cos, sin, h, t, **norm)
     ref = packed_attention_plain(packed, h, true_t=true_t)
@@ -111,6 +121,22 @@ def test_attention_matches_plain(gen, t, true_t):
     ref = packed_attention_plain(qkv, h, true_t=true_t, q_scale=s)
     got = attention_single_pass_packed(qkv, h, true_t=true_t, q_scale=s)
     _assert_close(got, ref, **ATTENTION)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", [flash_attention_packed, attention_single_pass_packed])
+def test_attention_ignores_what_the_padding_rows_hold(gen, entry):
+    """Rows >= true_t full of NaN: the kernel reads none of them (not even as
+    keys whose weight is 0, where 0 x NaN would reach the output), so the
+    output equals the unpadded input's exactly."""
+    b, t, h, true_t = 2, 704, 6, 643
+    qkv, cos, sin, norm = _packed(gen, b, true_t, h)
+    packed = qkv_rope_producer_plain(qkv, cos, sin, h, true_t, **norm)
+    padded = torch.full((b, t, 3 * h * D), float("nan"), device="cuda", dtype=torch.bfloat16)
+    padded[:, :true_t] = packed
+    got = entry(padded, h, true_t=true_t)
+    assert torch.equal(got, entry(packed, h))
+    _assert_close(got, packed_attention_plain(packed, h), **ATTENTION)
 
 
 @pytest.mark.cuda
@@ -145,6 +171,8 @@ def test_wrappers_count_launches_and_refuse_fp32(gen):
     assert after["attention_single_pass_packed"] == before["attention_single_pass_packed"] + 1
     with pytest.raises(TypeError):
         attention_single_pass_packed(packed.float(), 2)
+    with pytest.raises(ValueError):
+        attention_single_pass_packed(packed, 2, q_scale=0.0)
     with pytest.raises(TypeError):
         qkv_rope_producer(qkv.float(), cos, sin, 2, 70)
 
