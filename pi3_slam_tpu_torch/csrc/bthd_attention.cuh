@@ -1,0 +1,366 @@
+// The TMA + wgmma attention loop over (B, T, H, D) q / k / v for Hopper
+// (sm_90a), shared by attention.cu (softmax(q.k^T * D^-1/2) . v, normalised,
+// bf16 out) and partial_attention.cu (the bound-shift partial sums acc and l,
+// fp32 out). It is packed_attention.cu's loop with one tensor map per operand
+// in place of one map over the packed projection:
+//
+// * Loads. q, k and v each get a 4D tensor map (D columns, H heads, T rows,
+//   B) over their own byte strides, so strided views (the q / k / v of a qkv
+//   projection, keys cut from a longer buffer) need no copy. The row extent
+//   is Tq for q and Tk for k and v: rows past it come in zero-filled (never
+//   the rows behind it in memory, never the next batch row), and keys >= Tk
+//   are masked to -inf before the max, since a zero key is a logit of 0, not
+//   an absent key. 128-byte swizzle, 64-column boxes: a D-wide tile is D/64
+//   boxes, each rows x 128 bytes, 1024-byte aligned. One producer thread
+//   issues Q once per block and K, V per key tile into a ring of stages,
+//   each with a full and an empty mbarrier.
+// * Products. Two consumer warpgroups of 64 query rows each (a block 128).
+//   S = Q K^T is wgmma m64nNk16 with both operands in shared memory (K rows
+//   the K-major B operand), D/16 k-steps: 32 bytes apart in a box, a box
+//   apart every fourth. O += P V is wgmma m64nDk16 with P from registers and
+//   V the MN-major (transposed) B operand, N/16 k-steps of 2048 bytes; at D >
+//   64 its N spans D/64 boxes, the descriptor's leading byte offset apart.
+// * Softmax and overlap: hopper.cuh's base-2 online softmax, exact running
+//   max; FlashAttention-3's two overlaps, as in packed_attention.cu: S_j is
+//   issued with P_{j-1} V_{j-1} and its softmax runs under the latter, and
+//   named barriers make the two warpgroups take turns at issuing products.
+//
+// Tiles by head dim, to fit 240 consumer registers (O D/2, S N/2 and P N/4
+// live at once) and 227 KB of shared memory (Q 256 D bytes, each stage 4 N D):
+//
+//   D    key tile N  stages  O + S + P regs  shared memory
+//   64   128         3       32 + 64 + 32    114,688 + barriers
+//   128  128         3       64 + 64 + 32    229,376
+//   192  64          3       96 + 32 + 16    196,608
+//   256  64          2       128 + 32 + 16   196,608
+//
+// The stages were chosen on an H100 by timing builds with other tiles: at D
+// 128 and 192 three stages beat two; at D 64 a fourth gained nothing; D 256
+// has no room for a third.
+//
+// Bound on the H100: the two products, 4 Tq Tk D flops per (batch, head), at
+// 989 TFLOP/s; at D 64 the exp2 (one per logit, ~3.9e12/s) weighs as much.
+#pragma once
+
+#include "hopper.cuh"
+
+namespace pi3 {
+
+constexpr int kBthdBlockM = 128;  // query rows per block: two consumer warpgroups of 64
+constexpr int kBthdThreads = 384;  // producer warpgroup + two consumer warpgroups
+
+// Key tile and ring stages by head dim (the table above).
+template <int N, int S>
+struct TileShape {
+  static constexpr int kBlockN = N, kStages = S;
+};
+template <int D>
+struct BthdTiles;
+template <>
+struct BthdTiles<64> : TileShape<128, 3> {};
+template <>
+struct BthdTiles<128> : TileShape<128, 3> {};
+template <>
+struct BthdTiles<192> : TileShape<64, 3> {};
+template <>
+struct BthdTiles<256> : TileShape<64, 2> {};
+
+template <int D>
+struct __align__(1024) BthdSmem {  // 128-byte swizzle wants 1024-byte aligned tiles
+  static constexpr int N = BthdTiles<D>::kBlockN;
+  static constexpr int S = BthdTiles<D>::kStages;
+  __nv_bfloat16 q[kBthdBlockM * D];  // box c (columns 64c ..) at 128 * 64 * c
+  __nv_bfloat16 k[S][N * D];         // box c at N * 64 * c
+  __nv_bfloat16 v[S][N * D];
+  uint64_t q_full;
+  uint64_t full[S];
+  uint64_t empty[S];
+};
+
+template <int D>
+constexpr int bthd_smem_bytes() {
+  return sizeof(BthdSmem<D>) + 1024;  // + slack to align the dynamic base
+}
+
+// Each instantiation fits the H100's 227 KB of shared memory a block.
+static_assert(bthd_smem_bytes<64>() <= 232448 && bthd_smem_bytes<128>() <= 232448 &&
+                  bthd_smem_bytes<192>() <= 232448 && bthd_smem_bytes<256>() <= 232448,
+              "a tile table entry exceeds 227 KB of shared memory");
+
+// S = Q K^T for the warpgroup's 64 query rows (q: its rows in box 0) and one
+// N-key tile.
+template <int D, int N>
+__device__ __forceinline__ void bthd_issue_qk(float (&acc)[N / 2], const __nv_bfloat16* q,
+                                              const __nv_bfloat16* k) {
+  const uint64_t q_desc = smem_desc(q);
+  const uint64_t k_desc = smem_desc(k);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // in 16-byte units: a box of Q is 128 rows of 128 bytes, one of K N rows
+    const int in_box = 2 * (kk % 4);
+    wgmma_ss<N>(acc, q_desc + (kk / 4) * (kBthdBlockM * 8) + in_box,
+                k_desc + (kk / 4) * (N * 8) + in_box, kk);
+  }
+  wgmma_commit();
+}
+
+// O += P V: N/16 k-steps of 16 keys, 16 rows of V (2048 bytes) each.
+template <int D, int N>
+__device__ __forceinline__ void bthd_issue_pv(float (&o)[D / 2], const uint32_t (&p)[N / 16][4],
+                                              uint64_t v_desc) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) wgmma_rs<D>(o, p[kk], v_desc + kk * (2048 >> 4));
+  wgmma_commit();
+}
+
+// kPartial = false: out (B, Tq, H, D) bf16 contiguous, normalised by the row
+// sum. kPartial = true (D 64): out = acc (B, Tq, H, 64) and lsum = l (B, Tq,
+// H), fp32 contiguous, both scaled by 2^-mh with mh = min(|q| scale_log2
+// kn[b, h] + 1, 120) (see partial_attention.cu).
+template <int D, bool kPartial>
+__global__ void __launch_bounds__(kBthdThreads, 1)
+bthd_attention_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map, void* __restrict__ out,
+                      const float* __restrict__ kn, float* __restrict__ lsum, int Tq, int Tk,
+                      int H, float scale_log2) {
+  constexpr int N = BthdTiles<D>::kBlockN;
+  constexpr int S = BthdTiles<D>::kStages;
+  extern __shared__ __align__(128) uint8_t smem_raw[];  // aligned to 1024 below
+  const uint32_t raw = smem_u32(smem_raw);
+  BthdSmem<D>& sm = *reinterpret_cast<BthdSmem<D>*>(smem_raw + (((raw + 1023u) & ~1023u) - raw));
+
+  const int q0 = blockIdx.x * kBthdBlockM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = (Tk + N - 1) / N;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&sm.q_full, kBthdBlockM * D * 2);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load(sm.q + c * kBthdBlockM * 64, &q_map, &sm.q_full, 64 * c, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % S;
+        mbar_wait(&sm.empty[s], ((j / S) & 1) ^ 1);  // the first round passes
+        mbar_expect_tx(&sm.full[s], 2 * N * D * 2);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(sm.k[s] + c * N * 64, &k_map, &sm.full[s], 64 * c, h, j * N, b);
+          tma_load(sm.v[s] + c * N * 64, &v_map, &sm.full[s], 64 * c, h, j * N, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int c = wg - 1;  // consumer warpgroup: query rows q0 + 64c .. q0 + 64c + 63
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+  const __nv_bfloat16* q_rows = sm.q + c * 64 * 64;  // this warpgroup's rows of box 0
+  const uint32_t v_box_bytes = N * 128;  // leading byte offset of V's boxes
+  // Ping-pong: warpgroup c issues its products after bar.sync on barrier 1 + c
+  // and then lets the other one issue (bar.arrive on 2 - c). Warpgroup 0 opens
+  // its own barrier for its first turn.
+  const uint32_t my_bar = 1 + c;
+  const uint32_t other_bar = 2 - c;
+
+  float o[D / 2];
+  float acc[N / 2];
+  uint32_t p[N / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  Rows r;
+
+  mbar_wait(&sm.q_full, 0);
+  if (c == 0) bar_arrive(my_bar);
+
+  // Turn 0: S_0 alone. Turn j (1 <= j < n): S_j and O += P_{j-1} V_{j-1}
+  // issued together; the softmax of S_j runs while P_{j-1} V_{j-1} is on the
+  // tensor cores. Turn n: the last P V.
+  mbar_wait(&sm.full[0], 0);
+  bar_sync(my_bar);
+  fence_regs(acc);
+  wgmma_fence();
+  bthd_issue_qk<D, N>(acc, q_rows, sm.k[0]);
+  bar_arrive(other_bar);
+  wgmma_wait<0>();
+  fence_regs(acc);
+  softmax_tile<N>(r, acc, 0, Tk, t4, scale_log2);
+  finish_tile<N, D>(r, o, p, acc);
+
+  for (int j = 1; j < n_tiles; ++j) {
+    const int s = j % S;
+    const int prev = (j - 1) % S;
+    mbar_wait(&sm.full[s], (j / S) & 1);
+    bar_sync(my_bar);
+    fence_regs(acc);
+    fence_regs(o);
+    fence_regs(p);
+    wgmma_fence();
+    bthd_issue_qk<D, N>(acc, q_rows, sm.k[s]);
+    bthd_issue_pv<D, N>(o, p, smem_desc(sm.v[prev], v_box_bytes));
+    bar_arrive(other_bar);
+    wgmma_wait<1>();  // S_j done; P_{j-1} V_{j-1} may still run
+    fence_regs(acc);
+    softmax_tile<N>(r, acc, j * N, Tk, t4, scale_log2);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+    if (lane == 0) mbar_arrive(&sm.empty[prev]);  // K and V of tile j-1 consumed
+    finish_tile<N, D>(r, o, p, acc);
+  }
+
+  const int last = (n_tiles - 1) % S;
+  bar_sync(my_bar);
+  fence_regs(o);
+  fence_regs(p);
+  wgmma_fence();
+  bthd_issue_pv<D, N>(o, p, smem_desc(sm.v[last], v_box_bytes));
+  if (c == 0) bar_arrive(other_bar);  // warpgroup 1's last turn has no successor
+  wgmma_wait<0>();
+  fence_regs(o);
+  if (lane == 0) mbar_arrive(&sm.empty[last]);
+
+  float l0 = r.l0, l1 = r.l1;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int row_a = q0 + 64 * c + 16 * warp + (lane >> 2);
+  const int row_b = row_a + 8;
+  const size_t ra = ((size_t)b * Tq + row_a) * H + h;  // (b, row, h) of (B, Tq, H)
+  const size_t rb = ra + (size_t)8 * H;
+
+  if constexpr (kPartial) {
+    static_assert(D == 64, "the partial epilogue is written for head dim 64");
+    // |q|^2 of rows r0 and r0 + 8 from Q in shared memory: each thread of the
+    // quad sums two of a row's eight 16-byte chunks. The swizzle permutes the
+    // chunks within their 128-byte row (chunk index XOR row % 8), so the
+    // row's eight chunks hold its 64 columns whatever the order.
+    float qq0 = 0.f, qq1 = 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = 16 * warp + (lane >> 2) + 8 * half;
+      const uint4* chunks = reinterpret_cast<const uint4*>(q_rows + row * 64) + 2 * t4;
+      float sq = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint4 w = chunks[i];
+        const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // a bf16 is the upper half of the fp32 with the same value
+          const float lo = __uint_as_float(words[j] << 16);
+          const float hi = __uint_as_float(words[j] & 0xffff0000u);
+          sq += lo * lo + hi * hi;
+        }
+      }
+      (half ? qq1 : qq0) = sq;
+    }
+    qq0 += __shfl_xor_sync(0xffffffffu, qq0, 1);
+    qq0 += __shfl_xor_sync(0xffffffffu, qq0, 2);
+    qq1 += __shfl_xor_sync(0xffffffffu, qq1, 1);
+    qq1 += __shfl_xor_sync(0xffffffffu, qq1, 2);
+    const float knh = kn[b * H + h];
+    const float mh0 = fminf(sqrtf(qq0) * scale_log2 * knh + 1.f, 120.f);
+    const float mh1 = fminf(sqrtf(qq1) * scale_log2 * knh + 1.f, 120.f);
+    // from the running max m to the fixed shift mh (m <= mh - 1 unless the
+    // clamp at 120 binds, so the factor is at most 1/2 there)
+    const float f0 = exp2f(r.m0 * scale_log2 - mh0);
+    const float f1 = exp2f(r.m1 * scale_log2 - mh1);
+    float* acc_out = static_cast<float*>(out);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      if (row_a < Tq)
+        *reinterpret_cast<float2*>(acc_out + ra * D + 8 * n + 2 * t4) =
+            make_float2(o[4 * n] * f0, o[4 * n + 1] * f0);
+      if (row_b < Tq)
+        *reinterpret_cast<float2*>(acc_out + rb * D + 8 * n + 2 * t4) =
+            make_float2(o[4 * n + 2] * f1, o[4 * n + 3] * f1);
+    }
+    if (t4 == 0) {
+      if (row_a < Tq) lsum[ra] = l0 * f0;
+      if (row_b < Tq) lsum[rb] = l1 * f1;
+    }
+  } else {
+    const float inv0 = 1.f / l0;
+    const float inv1 = 1.f / l1;
+    __nv_bfloat16* oa = static_cast<__nv_bfloat16*>(out) + ra * D + 2 * t4;
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out) + rb * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      if (row_a < Tq)
+        *reinterpret_cast<uint32_t*>(oa + n * 8) = pack_float2(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+      if (row_b < Tq)
+        *reinterpret_cast<uint32_t*>(ob + n * 8) = pack_float2(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+    }
+  }
+}
+
+// Element strides of a (B, T, H, D) tensor (unit stride over D).
+struct BthdStrides {
+  long long b, t, h;
+};
+
+// The tensor map of a (B, T, H, D) bf16 tensor: dims (D, H, T, B) over its
+// byte strides (each a multiple of 16, base 16-byte aligned), 128-byte
+// swizzle, boxes of 64 columns x 1 head x rows x 1. Rows >= T (and any
+// coordinate past its extent) load as zeros.
+inline bool encode_bthd_map(CUtensorMap* map, const void* base, int B, int T, int H, int D,
+                            BthdStrides st, int rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.t * 2, (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// Encodes the three maps and launches the kernel on stream (grid: 128-row
+// query blocks x H x B). Returns a cudaError_t; cudaErrorInvalidValue if a
+// map cannot be encoded (a stride or base the TMA does not take).
+template <int D, bool kPartial>
+int launch_bthd_attention(const void* q, const void* k, const void* v, void* out, const float* kn,
+                          float* lsum, int B, int Tq, int Tk, int H, BthdStrides qs,
+                          BthdStrides ks, BthdStrides vs, float scale_log2, cudaStream_t stream) {
+  constexpr int N = BthdTiles<D>::kBlockN;
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_bthd_map(&q_map, q, B, Tq, H, D, qs, kBthdBlockM) ||
+      !encode_bthd_map(&k_map, k, B, Tk, H, D, ks, N) ||
+      !encode_bthd_map(&v_map, v, B, Tk, H, D, vs, N))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = bthd_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(bthd_attention_kernel<D, kPartial>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Tq + kBthdBlockM - 1) / kBthdBlockM, H, B);
+  bthd_attention_kernel<D, kPartial><<<grid, kBthdThreads, smem, stream>>>(
+      q_map, k_map, v_map, out, kn, lsum, Tq, Tk, H, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace pi3

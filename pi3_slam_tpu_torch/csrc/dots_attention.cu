@@ -1,5 +1,6 @@
 // Dots-only packed attention for Hopper (sm_90a): the speed-of-light twin of
-// flash_tile.cuh's mma.sync loop (partial_attention.cu, attention.cu).
+// flash_tile.cuh's mma.sync loop (which served rows 5-7 of PERF.md's kernel
+// table until they moved to bthd_attention.cuh's TMA + wgmma loop).
 //
 // Replaces the Pallas TPU kernel dots_kernel of tools/perf_lab.py::bench_sol
 // (the "dots-only twin of _flash_packed_kernel"). Over the packed
@@ -18,9 +19,9 @@
 // (4 warps, 64 query rows of one head), the same 64-key tiles staged through
 // shared memory, the same mma.sync m16n8k16 for S = Q K^T (tile_logits) and
 // O += bf16(S) V (tile_pv), the same output write. So its time is the floor
-// of that loop's kernels (rows 5-7 of PERF.md's kernel table) without their
-// softmax. packed_attention.cu runs another loop (TMA + wgmma), and its time
-// beside this one's is not the cost of a softmax.
+// of that loop without its softmax. packed_attention.cu and
+// bthd_attention.cuh run another loop (TMA + wgmma), and their times beside
+// this one's are not the cost of a softmax.
 // Zero-filled key rows past T give logits of exactly 0, and their v rows are
 // zero, so no key mask is needed.
 //

@@ -1,12 +1,13 @@
-// The mma.sync online-softmax attention loop of partial_attention.cu and
-// attention.cu (dots_attention.cu runs it without its softmax;
-// packed_attention.cu has its own TMA + wgmma loop): one block of 4 warps
-// owns 64 query rows of one head, each warp 16 rows, and walks the keys in
-// 64-key tiles held in shared memory. Per tile: S = Q K^T (8 * D/16
-// mma.sync), base-2 online softmax on the S fragments (exact running max per
-// row), P rounded to bf16 in registers as the A operand, O += P V (4 * D/8
-// mma.sync). The head dim D is a template parameter, 64 or 128; the partial
-// and dots kernels take D = 64 (kD).
+// The mma.sync online-softmax attention loop of dots_attention.cu (which runs
+// it without its softmax) and of attention.cu's column-sliced kernel for head
+// dims above 256 (packed_attention.cu and bthd_attention.cuh have the TMA +
+// wgmma loop): one block of 4 warps owns 64 query rows of one head, each warp
+// 16 rows, and walks the keys in 64-key tiles held in shared memory. Per
+// tile: S = Q K^T (8 * D/16 mma.sync), base-2 online softmax on the S
+// fragments (exact running max per row), P rounded to bf16 in registers as
+// the A operand, O += P V (4 * D/8 mma.sync). The head dim D is a template
+// parameter, 64 or 128; the dots kernel and the logits of the wide one take
+// D = 64 (kD).
 #pragma once
 
 #include <math.h>
@@ -15,7 +16,7 @@
 
 namespace pi3 {
 
-constexpr int kD = 64;        // head dim of the partial and dots kernels
+constexpr int kD = 64;        // head dim of the dots kernel and of the wide kernel's logits
 constexpr int kTile = 64;     // query rows per block, keys per tile
 constexpr int kThreads = 128; // 4 warps x 16 query rows
 
@@ -51,7 +52,6 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16 (&dst)[kTile][LD],
 // and r0 + 8 of the block's query tile.
 template <int D>
 struct FlashRows {
-  uint32_t qf[D / 16][4];  // the A fragments of Q (16 rows x D)
   float o[D / 8][4];       // O accumulator fragments (16 rows x D, fp32)
   float m0, m1;            // running max of the base-2 logits, rows r0 / r0+8
   float l0, l1;            // this thread's partial row sums of 2^(s - m)
@@ -80,12 +80,6 @@ __device__ __forceinline__ void reset_rows(FlashRows<D>& st) {
   for (int n = 0; n < D / 8; ++n) st.o[n][0] = st.o[n][1] = st.o[n][2] = st.o[n][3] = 0.f;
   st.m0 = st.m1 = -INFINITY;
   st.l0 = st.l1 = 0.f;
-}
-
-template <int D>
-__device__ __forceinline__ void init_rows(FlashRows<D>& st, const TileD<D>& Qs) {
-  load_q_fragments<D>(st.qf, Qs);
-  reset_rows(st);
 }
 
 // s += Q K^T for this warp's 16 query rows and the tile's 64 keys: s[n] holds
@@ -186,20 +180,6 @@ __device__ __forceinline__ void online_softmax(FlashRows<D>& st, float (&s)[8][4
     st.o[n][2] *= a1;
     st.o[n][3] *= a1;
   }
-}
-
-// One 64-key tile (keys k0 .. k0+63 in Ks / Vs; keys >= n_keys masked).
-// scale_log2 multiplies the fp32 logits.
-template <int D>
-__device__ __forceinline__ void attend_tile(FlashRows<D>& st, const TileD<D>& Ks,
-                                            const TileD<D>& Vs, int k0, int n_keys,
-                                            float scale_log2) {
-  float s[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-  tile_logits<D>(s, st.qf, Ks);
-  online_softmax(st, s, k0, n_keys, scale_log2);
-  tile_pv<D>(st.o, s, Vs);
 }
 
 // Full row sums l0 / l1 (the quad's four partial sums added).

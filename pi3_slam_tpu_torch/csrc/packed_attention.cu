@@ -47,10 +47,7 @@
 // * setmaxnreg: the producer warpgroup drops to 24 registers, the consumers
 //   take 240 (S 64, P 32 and O 32 of them live at once).
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
-#include <math.h>
-
-#include "mma.cuh"
+#include "hopper.cuh"
 
 using namespace pi3;
 
@@ -73,257 +70,19 @@ struct __align__(1024) Smem {  // 128-byte swizzle wants 1024-byte aligned tiles
 };
 constexpr int kSmemBytes = sizeof(Smem) + 1024;  // + slack to align the dynamic base
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers and TMA
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed. A wait of more than
-// ~2^34 clocks (seconds; every real wait is microseconds) traps, so that a
-// barrier fault ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  long long start = 0;
-  for (uint32_t spins = 1;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((spins & 0xFFFFu) == 0) {
-      if (start == 0) start = clock64();
-      else if (clock64() - start > (1ll << 34)) __trap();
-    }
-  }
-}
-
-// One box (64 columns x 128 rows of batch row `batch`) -> dst, completion
-// counted on bar in bytes.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
-                                         int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(batch)
-      : "memory");
-}
-
-// --- wgmma
-
-// Shared-memory matrix descriptor of a tile as TMA's 128-byte swizzle lays
-// it out: rows of 128 bytes, 8-row groups 1024 bytes apart (stride byte
-// offset), swizzle mode 1 (128B) in bits 62-63. The leading byte offset is
-// not read by these layouts: a K-major k16 step (32 bytes) and the MN-major
-// v tile's 64 columns (128 bytes) each lie inside one swizzled row.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma registers across
-// the asynchronous product that owns them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x 128 fp32) = [d +] A (64 x 16, smem) . B^T (128 x 16, smem), both
-// K-major. accumulate = 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
-                                                    uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d (64 x 64 fp32) += A (64 x 16 bf16, registers) . B (16 x 64, smem,
-// MN-major: the transpose bit set).
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                   uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
 // S = Q K^T for the warpgroup's 64 query rows and one 128-key tile: 4 k-steps
 // of 32 bytes along each 128-byte row.
 __device__ __forceinline__ void issue_qk(float (&acc)[64], uint64_t q_desc, uint64_t k_desc) {
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) wgmma_m64n128k16_ss(acc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+  for (int kk = 0; kk < kD / 16; ++kk) wgmma_ss<kBlockN>(acc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
   wgmma_commit();
 }
 
 // O += P V: 8 k-steps of 16 keys, 16 rows of V (2048 bytes) each.
 __device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[8][4], uint64_t v_desc) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) wgmma_m64n64k16_rs(o, p[kk], v_desc + kk * (2048 >> 4));
+  for (int kk = 0; kk < 8; ++kk) wgmma_rs<kD>(o, p[kk], v_desc + kk * (2048 >> 4));
   wgmma_commit();
-}
-
-// Named barriers 1 and 2 order the two consumer warpgroups' products.
-__device__ __forceinline__ void bar_sync(uint32_t id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint32_t id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// This thread's accumulator entries (any m64nN wgmma): rows r0 = 16 warp +
-// lane/4 and r0 + 8 of the warpgroup's 64; entry 4i + e (e < 2) is row r0,
-// column 8i + 2 t4 + e (t4 = lane % 4), entry 4i + 2 + e the same column of
-// row r0 + 8. The four threads of a quad hold a row's columns.
-struct Rows {
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of the raw logits
-  float l0 = 0.f, l1 = 0.f;              // this thread's partial row sums
-  float a0, a1;                          // rescale of O and l for the tile in flight
-  float rs0, rs1;                        // its partial row sums
-};
-
-// Base-2 online softmax of one tile's raw logits (keys k0 .. k0+127; keys >=
-// t_valid masked): updates the running max and turns acc into
-// 2^(scale * (s - m)); the rescale of O waits for the product in flight.
-// Key k0 < t_valid is in every tile, so the max stays finite.
-__device__ __forceinline__ void softmax_tile(Rows& r, float (&acc)[64], int k0, int t_valid,
-                                             int t4, float scale_log2) {
-  if (k0 + kBlockN > t_valid) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (k0 + 8 * i + 2 * t4 + e >= t_valid) acc[4 * i + e] = acc[4 * i + 2 + e] = -INFINITY;
-      }
-    }
-  }
-  float mx0 = r.m0, mx1 = r.m1;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    mx0 = fmaxf(mx0, fmaxf(acc[4 * i], acc[4 * i + 1]));
-    mx1 = fmaxf(mx1, fmaxf(acc[4 * i + 2], acc[4 * i + 3]));
-  }
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  r.a0 = ex2((r.m0 - mx0) * scale_log2);  // 0 on the first tile (m = -inf)
-  r.a1 = ex2((r.m1 - mx1) * scale_log2);
-  r.m0 = mx0;
-  r.m1 = mx1;
-  const float sub0 = mx0 * scale_log2;
-  const float sub1 = mx1 * scale_log2;
-  float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    acc[4 * i] = ex2(fmaf(acc[4 * i], scale_log2, -sub0));
-    acc[4 * i + 1] = ex2(fmaf(acc[4 * i + 1], scale_log2, -sub0));
-    acc[4 * i + 2] = ex2(fmaf(acc[4 * i + 2], scale_log2, -sub1));
-    acc[4 * i + 3] = ex2(fmaf(acc[4 * i + 3], scale_log2, -sub1));
-    rs0 += acc[4 * i] + acc[4 * i + 1];
-    rs1 += acc[4 * i + 2] + acc[4 * i + 3];
-  }
-  r.rs0 = rs0;
-  r.rs1 = rs1;
-}
-
-// After the product in flight has finished: rescale O and the row sums, and
-// round P to bf16 (keys 16kk .. 16kk+15 are accumulator columns 2kk, 2kk+1:
-// the A-operand layout of k-step kk).
-__device__ __forceinline__ void finish_tile(Rows& r, float (&o)[32], uint32_t (&p)[8][4],
-                                            const float (&acc)[64]) {
-  r.l0 = r.l0 * r.a0 + r.rs0;
-  r.l1 = r.l1 * r.a1 + r.rs1;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    o[4 * n] *= r.a0;
-    o[4 * n + 1] *= r.a0;
-    o[4 * n + 2] *= r.a1;
-    o[4 * n + 3] *= r.a1;
-  }
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    p[kk][0] = pack_float2(acc[8 * kk], acc[8 * kk + 1]);
-    p[kk][1] = pack_float2(acc[8 * kk + 2], acc[8 * kk + 3]);
-    p[kk][2] = pack_float2(acc[8 * kk + 4], acc[8 * kk + 5]);
-    p[kk][3] = pack_float2(acc[8 * kk + 6], acc[8 * kk + 7]);
-  }
 }
 
 // --- the kernel
@@ -406,8 +165,8 @@ packed_attention_kernel(const __grid_constant__ CUtensorMap qkv_map,
   bar_arrive(other_bar);
   wgmma_wait<0>();
   fence_regs(acc);
-  softmax_tile(r, acc, 0, t_valid, t4, scale_log2);
-  finish_tile(r, o, p, acc);
+  softmax_tile<kBlockN>(r, acc, 0, t_valid, t4, scale_log2);
+  finish_tile<kBlockN, kD>(r, o, p, acc);
 
   for (int j = 1; j < n_tiles; ++j) {
     const int s = j % kStages;
@@ -423,12 +182,12 @@ packed_attention_kernel(const __grid_constant__ CUtensorMap qkv_map,
     bar_arrive(other_bar);
     wgmma_wait<1>();  // S_j done; P_{j-1} V_{j-1} may still run
     fence_regs(acc);
-    softmax_tile(r, acc, j * kBlockN, t_valid, t4, scale_log2);
+    softmax_tile<kBlockN>(r, acc, j * kBlockN, t_valid, t4, scale_log2);
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(p);
     if (lane == 0) mbar_arrive(&sm.empty[prev]);  // K and V of tile j-1 consumed
-    finish_tile(r, o, p, acc);
+    finish_tile<kBlockN, kD>(r, o, p, acc);
   }
 
   const int last = (n_tiles - 1) % kStages;
@@ -460,28 +219,6 @@ packed_attention_kernel(const __grid_constant__ CUtensorMap qkv_map,
     if (row_b < t_valid)
       *reinterpret_cast<uint32_t*>(ob + n * 8) = pack_float2(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 }  // namespace

@@ -11,9 +11,10 @@ routes to by sequence length:
 On a CUDA tensor both launch one hand-written kernel, ``csrc/attention.cu``
 (see its header), which reads q, k and v through their strides (a
 unit-stride last dim and 16-byte aligned rows, such as the q / k / v views of
-a qkv projection) and takes bf16 at every head dim that is a multiple of 64
-(64 and 128 in one pass; wider head dims in column slices of O). On a CPU
-tensor both run :func:`blockwise_attention`, the kernel's plain version.
+a qkv projection) and takes bf16 at every head dim that is a multiple of 64:
+64 to 256 on the TMA + ``wgmma`` loop of ``csrc/bthd_attention.cuh``, wider
+head dims in column slices of O. On a CPU tensor both run
+:func:`blockwise_attention`, the kernel's plain version.
 
 Keys are masked by length, so Tk may differ from Tq on every route. The JAX
 kernels and ``blockwise_attention`` assume Tk == Tq (they pad k to q's

@@ -14,8 +14,9 @@ share ``kn`` sum exactly and the caller divides once; ``acc`` and ``l``
 themselves, not only their ratio, are the contract.
 
 On a CUDA tensor :func:`flash_attention_partial` launches the hand-written
-kernel ``csrc/partial_attention.cu`` (see its header), which reads q, k and v
-through their strides (any view with a unit-stride last dim and 16-byte
+kernel ``csrc/partial_attention.cu`` (see its header; the TMA + ``wgmma``
+loop of ``csrc/bthd_attention.cuh`` with its own epilogue), which reads q, k
+and v through their strides (any view with a unit-stride last dim and 16-byte
 aligned rows, such as the qkv projection's q / k / v slices); on a CPU tensor
 it runs :func:`partial_attention_plain`.
 """

@@ -15,12 +15,14 @@ Everything runs in fp32 on the problem's device, with TF32 off (set by
 
 Against the JAX version:
 
-* ``jax.ops.segment_sum`` is ``index_add_``. On CUDA that adds with atomics,
-  so the order of the per-frame sums (and their last bits) changes from run
-  to run; on the CPU the order is fixed. The owner-grouped accumulation
-  (tracks laid out (owner frame, keypoint), identical ``obs_frame`` rows in a
-  group) sums each group first, as the JAX version does: exact algebra that
-  also cuts the scatter to N * M items.
+* ``jax.ops.segment_sum`` is a sum in a fixed order, with no atomics: the
+  segment index (which depends on ``obs_frame`` alone) is sorted once per
+  :func:`bundle_adjust` with a stable argsort, and each segment is reduced
+  by ``torch.segment_reduce``. So two runs on the card give the same bits,
+  as two runs on the CPU do. The owner-grouped accumulation (tracks laid out
+  (owner frame, keypoint), identical ``obs_frame`` rows in a group) sums each
+  group first, as the JAX version does: exact algebra that also cuts the
+  per-frame sums to N * M items.
 * The ungrouped Schur accumulation's ``lax.scan`` over slots is a Python loop.
 * The solves are ``torch.linalg.solve_ex`` / ``inv_ex`` without error checks:
   a singular system gives non-finite values, which ``nan_to_num`` turns into
@@ -182,9 +184,46 @@ def snap_points_to_anchor_rays(p: BAProblem) -> BAProblem:
     return p._replace(points=c_a + u_dir / rho[:, None])
 
 
-def _segment_sum(values: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n,) + values.shape[1:], dtype=values.dtype, device=values.device)
-    return out.index_add_(0, index, values)
+class _Segments(NamedTuple):
+    """How to sum rows into n segments in a fixed order: the stable argsort of
+    the rows' segment index and each segment's row count."""
+
+    order: torch.Tensor  # (R,) int64
+    lengths: torch.Tensor  # (n,) int64
+
+
+def _segments(index: torch.Tensor, n: int) -> _Segments:
+    index = index.reshape(-1)
+    # integer counts: exact in any order
+    lengths = torch.zeros(n, dtype=torch.int64, device=index.device).index_add_(
+        0, index, torch.ones_like(index))
+    return _Segments(torch.argsort(index, stable=True), lengths)
+
+
+def _segment_sum(values: torch.Tensor, seg: _Segments) -> torch.Tensor:
+    """(R, ...) rows summed into (n, ...) by segment, each segment in row
+    order (empty segments give 0); deterministic on every device."""
+    return torch.segment_reduce(values[seg.order], "sum", lengths=seg.lengths, unsafe=True)
+
+
+class _ScatterPlan(NamedTuple):
+    """The segment sums of one problem's LM steps, which depend on its
+    ``obs_frame`` alone: per frame, and per (frame, frame) pair of the Schur
+    complement (one plan per slot m1 without grouping)."""
+
+    group: int | None  # tracks per owner group; None: no grouping
+    frame: _Segments
+    pair: list
+
+
+def _scatter_plan(obs_frame: torch.Tensor, n: int, tracks_per_frame: int | None) -> _ScatterPlan:
+    T, M = obs_frame.shape
+    if tracks_per_frame is not None and T % max(tracks_per_frame, 1) == 0:
+        group_frames = obs_frame.reshape(T // tracks_per_frame, tracks_per_frame, M)[:, 0, :]
+        pairs = group_frames[:, :, None] * n + group_frames[:, None, :]
+        return _ScatterPlan(tracks_per_frame, _segments(group_frames, n), [_segments(pairs, n * n)])
+    return _ScatterPlan(None, _segments(obs_frame, n), [
+        _segments(obs_frame[:, m1, None] * n + obs_frame, n * n) for m1 in range(M)])
 
 
 def _gn_step(
@@ -195,11 +234,13 @@ def _gn_step(
     optimize_focal: bool = False,
     inverse_depth: bool = False,
     tracks_per_frame: int | None = None,
+    plan: _ScatterPlan | None = None,
 ):
     """One damped Gauss-Newton step. Camera dof 6 (rotation, center) or 7
     (+ a shared log-focal scale); point dof 3 (euclidean) or 1 (inverse depth
-    along the owner-frame bearing). Returns (rotations, centers, points,
-    intrinsics)."""
+    along the owner-frame bearing). ``plan`` is ``_scatter_plan(p.obs_frame,
+    N, tracks_per_frame)``, made here when not given. Returns (rotations,
+    centers, points, intrinsics)."""
     N = p.rotations.shape[0]
     T, M = p.obs_frame.shape
     DC = 7 if optimize_focal else 6
@@ -239,24 +280,17 @@ def _gn_step(
         Jp = JpX
 
     # owner-grouped accumulation: (owner frame, keypoint) layout with the
-    # same obs_frame rows within a group; sum over the group, then scatter
-    grouped = tracks_per_frame is not None and T % max(tracks_per_frame, 1) == 0
-    K_g = tracks_per_frame if grouped else 1
+    # same obs_frame rows within a group; sum over the group, then by frame
+    if plan is None:
+        plan = _scatter_plan(p.obs_frame, N, tracks_per_frame)
+    K_g = plan.group or 1
     NG = T // K_g
 
     wJc = w[..., None, None] * Jc
     Hcc_obs = torch.einsum("tmki,tmkj->tmij", wJc, Jc)  # (T, M, DC, DC)
     bc_obs = -torch.einsum("tmki,tmk->tmi", wJc, r)  # (T, M, DC)
-    if grouped:
-        group_frames = p.obs_frame.reshape(NG, K_g, M)[:, 0, :]  # (NG, M)
-        flat_f = group_frames.reshape(-1)
-        Hcc = _segment_sum(Hcc_obs.reshape(NG, K_g, M, DC, DC).sum(1).reshape(-1, DC, DC),
-                           flat_f, N)
-        bc = _segment_sum(bc_obs.reshape(NG, K_g, M, DC).sum(1).reshape(-1, DC), flat_f, N)
-    else:
-        flat_f = p.obs_frame.reshape(-1)
-        Hcc = _segment_sum(Hcc_obs.reshape(-1, DC, DC), flat_f, N)
-        bc = _segment_sum(bc_obs.reshape(-1, DC), flat_f, N)
+    Hcc = _segment_sum(Hcc_obs.reshape(NG, K_g, M, DC, DC).sum(1).reshape(-1, DC, DC), plan.frame)
+    bc = _segment_sum(bc_obs.reshape(NG, K_g, M, DC).sum(1).reshape(-1, DC), plan.frame)
 
     wJp = w[..., None, None] * Jp
     Hpp = torch.einsum("tmki,tmkj->tij", wJp, Jp)  # (T, DP, DP)
@@ -290,24 +324,20 @@ def _gn_step(
 
     # Schur complement on the cameras: S = Hcc - sum_t Hcp Hpp^-1 Hpc
     Y = torch.einsum("tmij,tjk->tmik", Hcp, Hpp_inv)  # (T, M, DC, DP)
-    if grouped:
+    if plan.group is not None:
         # (m1, m2) frame-pair couplings summed over each owner group
         Yg = Y.reshape(NG, K_g, M, DC, DP)
         Hcpg = Hcp.reshape(NG, K_g, M, DC, DP)
         S_contrib = torch.einsum("nkaij,nkblj->nabil", Yg, Hcpg)  # (NG, M, M, DC, DC)
-        pair_idx = (group_frames[:, :, None] * N + group_frames[:, None, :]).reshape(-1)
-        S_flat = _segment_sum(S_contrib.reshape(-1, DC, DC), pair_idx, N * N)
-        yb = torch.einsum("tmij,tj->tmi", Y, bp).reshape(NG, K_g, M, DC).sum(1)
-        b_schur = bc - _segment_sum(yb.reshape(-1, DC), group_frames.reshape(-1), N)
+        S_flat = _segment_sum(S_contrib.reshape(-1, DC, DC), plan.pair[0])
     else:
         # one slot at a time, so the (T, M, M, DC, DC) coupling never exists
         S_flat = torch.zeros((N * N, DC, DC), dtype=Y.dtype, device=dev)
-        for m1 in range(M):
+        for m1, seg in enumerate(plan.pair):
             contrib = torch.einsum("tij,tmkj->tmik", Y[:, m1], Hcp)  # (T, M, DC, DC)
-            pidx = (p.obs_frame[:, m1, None] * N + p.obs_frame).reshape(-1)
-            S_flat.index_add_(0, pidx, contrib.reshape(-1, DC, DC))
-        yb = torch.einsum("tmij,tj->tmi", Y, bp)
-        b_schur = bc - _segment_sum(yb.reshape(-1, DC), flat_f, N)
+            S_flat += _segment_sum(contrib.reshape(-1, DC, DC), seg)
+    yb = torch.einsum("tmij,tj->tmi", Y, bp).reshape(NG, K_g, M, DC).sum(1)
+    b_schur = bc - _segment_sum(yb.reshape(-1, DC), plan.frame)
 
     S = -S_flat.reshape(N, N, DC, DC)
     ar = torch.arange(N, device=dev)
@@ -376,11 +406,12 @@ def bundle_adjust(
     prob = problem
     lam = torch.tensor(init_lambda, dtype=torch.float32, device=dev)
     cost = _cost(prob, huber_delta)
+    plan = _scatter_plan(prob.obs_frame, n, tracks_per_frame)
     done = 0
     for done in range(1, iterations + 1):
         new_rot, new_cen, new_pts, new_intr = _gn_step(
             prob, huber_delta, lam, fixc, optimize_focal=optimize_focal,
-            inverse_depth=use_inverse_depth, tracks_per_frame=tracks_per_frame)
+            inverse_depth=use_inverse_depth, tracks_per_frame=tracks_per_frame, plan=plan)
         cand = prob._replace(rotations=new_rot, centers=new_cen, points=new_pts,
                              intrinsics=new_intr)
         new_cost = _cost(cand, huber_delta)

@@ -9,8 +9,8 @@ and prints ms and TFLOP/s of:
 * a square 8192^3 bf16 ``torch.matmul``: the card's practical bf16 peak, a
   yardstick;
 * ``dots_attention`` at (1, 65536, 3*16*64): the ``mma.sync`` tile loop of
-  ``csrc/flash_tile.cuh`` (the partial and (B, T, H, D) attention kernels')
-  with the softmax taken out (``csrc/dots_attention.cu``);
+  ``csrc/flash_tile.cuh`` with the softmax taken out
+  (``csrc/dots_attention.cu``);
 * ``flash_attention_packed`` at the same shape: the TMA + ``wgmma`` kernel
   with its online softmax (``csrc/packed_attention.cu``);
 * ``block_mlp`` at (1, 65536, 1024) with hidden 4096 (``csrc/block_mlp.cu``).

@@ -77,7 +77,7 @@ def test_blockwise_matches_pallas_single_pass(rng, t, variant):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
 
 
-@pytest.mark.parametrize("tq,tk", [(300, 170), (190, 333)])
+@pytest.mark.parametrize("tq,tk", [(300, 170), (190, 333), (643, 129), (129, 643), (4100, 2050)])
 def test_blockwise_masks_keys_by_length(rng, tq, tk):
     """Tk < Tq and Tk > Tq, neither a multiple of the key block: the JAX
     kernels cannot take these (they pad k to q's lattice); the XLA route
@@ -105,12 +105,14 @@ def test_sdpa_matches_jax(rng, tq, tk, d):
     assert (tq >= LONG_SEQUENCE_THRESHOLD) == (sdpa_route(tq, d, False) == "blockwise")
 
 
-@pytest.mark.parametrize("tq,d", [(300, 192), (700, 256), (4100, 192)])
+@pytest.mark.parametrize("tq,d", [(300, 192), (700, 256), (4100, 192), (4100, 256), (300, 320),
+                                  (4100, 320)])
 def test_wide_head_dims_match_jax(rng, tq, d):
-    """Head dims 192 and 256, which the card's kernels take in column slices:
-    sdpa and the kernels' plain version (what flash_attention and
-    attention_single_pass run on a CPU tensor) against the JAX sdpa (its XLA
-    route, or blockwise attention at T >= 4096)."""
+    """Head dims 192 and 256 (the card's TMA + wgmma loop at its widest
+    tiles) and 320 (the column-sliced kernel): sdpa and the kernels' plain
+    version (what flash_attention and attention_single_pass run on a CPU
+    tensor) against the JAX sdpa (its XLA route, or blockwise attention at
+    T >= 4096)."""
     q, k, v = _qkv(rng, 1, tq, 2, d)
     want = np.asarray(jax_attention.sdpa(*map(jnp.asarray, (q, k, v))))
     assert sdpa_route(tq, d, True) == ("flash" if tq > 1280 else "single_pass")

@@ -244,17 +244,69 @@ def _bthd_views(gen, b, tq, tk, h, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320])
 @pytest.mark.parametrize("tq,tk", [(301, 301), (301, 150), (130, 333), (70, 1)])
 def test_bthd_attention_matches_plain(gen, d, tq, tk):
-    """Tk < Tq and Tk > Tq, neither a multiple of the 64-row tile; strided
-    q / k / v read in place. Head dims 192 and 256 take the column-sliced
-    wide kernel (64- and 128-wide slices of O)."""
+    """Tk < Tq and Tk > Tq, neither a multiple of a key tile (128 keys at D
+    64 / 128, 64 at D 192 / 256) nor of the 128-row query block; strided q /
+    k / v read in place through their tensor maps. Head dim 320 takes the
+    column-sliced wide kernel (64-wide slices of O)."""
     q, k, v = _bthd_views(gen, 2, tq, tk, 3, d)
     assert not q.is_contiguous() and not k.is_contiguous()
     ref = blockwise_attention(q, k, v)
     _assert_close(flash_attention(q, k, v), ref, **ATTENTION)
     _assert_close(attention_single_pass(q, k, v), ref, **ATTENTION)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("t", [129, 643, 4100])
+def test_bthd_attention_ragged_batches(gen, d, t):
+    """B 2 and H 6 at ragged T: one query row and key past a 128 tile, the
+    frame length, and 33 (D 64 / 128) or 65 (D 192 / 256) key tiles, so the
+    ring of K / V stages wraps many times; contiguous q / k / v."""
+    q, k, v = (_randn(gen, 2, t, 6, d) for _ in range(3))
+    ref = blockwise_attention(q, k, v)
+    _assert_close(flash_attention(q, k, v), ref, **ATTENTION)
+    _assert_close(attention_single_pass(q, k, v), ref, **ATTENTION)
+
+
+def _nan_tail(x, t):
+    """x (B, T', ...) with its rows t.. replaced by NaN, cut back to t rows:
+    a view whose memory holds NaN right behind its last row."""
+    buf = x.clone()
+    buf[:, t:] = float("nan")
+    return buf[:, :t]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("entry", [flash_attention, attention_single_pass])
+def test_bthd_attention_reads_no_row_past_the_length(gen, entry, d):
+    """q (Tq 301) and k / v (Tk 150) cut from longer buffers whose rows past
+    the length hold NaN: the tensor maps' row extents are Tq and Tk, so no
+    NaN is loaded (a zero-weight key times NaN would reach the output), and
+    the output equals, bit for bit, the one from buffers whose tails hold
+    finite values."""
+    b, h, tq, tk, t = 2, 3, 301, 150, 400
+    q, k, v = (_randn(gen, b, t, h, d) for _ in range(3))
+    clean = entry(q[:, :tq], k[:, :tk], v[:, :tk])
+    got = entry(_nan_tail(q, tq), _nan_tail(k, tk), _nan_tail(v, tk))
+    assert torch.equal(got, clean)
+    _assert_close(got, blockwise_attention(q[:, :tq], k[:, :tk], v[:, :tk]), **ATTENTION)
+
+
+@pytest.mark.cuda
+def test_partial_attention_reads_no_row_past_the_length(gen):
+    """The partial kernel on q and k / v cut from NaN-tailed buffers: acc and
+    l bit-identical to those of finite tails."""
+    q, k, v, _ = _qkv_views(gen, 2, 400, 400, 3)
+    tq, tk = 301, 150
+    kn = k[:, :tk].float().square().sum(-1).amax(1).sqrt()
+    clean = flash_attention_partial(q[:, :tq], k[:, :tk], v[:, :tk], kn)
+    got = flash_attention_partial(_nan_tail(q, tq), _nan_tail(k, tk), _nan_tail(v, tk), kn)
+    assert torch.equal(got[0], clean[0]) and torch.equal(got[1], clean[1])
+    _check_partial(got, partial_attention_plain(q[:, :tq], k[:, :tk], v[:, :tk], kn))
 
 
 @pytest.mark.cuda
@@ -328,16 +380,16 @@ def test_dots_attention_refuses_what_the_kernel_does_not_take(gen):
 
 @pytest.mark.cuda
 def test_bundle_adjust_on_the_card_matches_the_host(gen):
-    """The BA's scatters (atomics on the card, in an order that changes from
-    run to run), batched inverses and dense solve against the same fp32 code
-    on the host, on a well-posed scene: cameras on an arc, 200 points at depth
+    """The BA's segment sums (fixed order, in another one than the host's),
+    batched inverses and dense solve against the same fp32 code on the host,
+    on a well-posed scene: cameras on an arc, 200 points at depth
     4-8 seen by 5 of 8 frames, two cameras fixed (the gauge). One damped
     Gauss-Newton step (0.29 on the centers, 1.16 on the points) is held to
     5e-4: the same step in fp64 differs from the fp32 one by 7e-5 on the
     host, the rounding that another summation order moves. The whole
     20-iteration solve, whose accept / reject of a step near convergence
     compares two fp32 costs and may go the other way on the card, is held to
-    1e-3 and to the noise floor."""
+    1e-3 and to the noise floor; a second run on the card to the bit."""
     from pi3_slam_tpu_torch.device import select_device
     from pi3_slam_tpu_torch.sfm.ba import _gn_step, bundle_adjust, make_problem, reprojection_errors
 
@@ -365,9 +417,44 @@ def test_bundle_adjust_on_the_card_matches_the_host(gen):
     for a, b in zip(step["cuda"], step["cpu"]):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=5e-4)
     card, host = out["cuda"], out["cpu"]
+    again = bundle_adjust(make_problem(**start, device="cuda"), iterations=20, fixed_cameras=fixed)
+    for name in ("rotations", "centers", "points"):  # fixed-order sums: the same bits
+        assert torch.equal(getattr(again, name), getattr(card, name)), name
     assert card.points.is_cuda
     err = reprojection_errors(card).cpu()
     assert err[torch.isfinite(err)].median() < 1.0
     for name in ("rotations", "centers", "points"):
         torch.testing.assert_close(getattr(card, name).cpu(), getattr(host, name), rtol=0,
                                    atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_chunk_bundle_adjust_is_bit_reproducible_on_the_card(gen):
+    """A chunk's BA as the reconstructor runs it (owner-grouped tracks, no
+    camera fixed, 10 LM steps): past the fourth step only the damping holds
+    the gauge, so sums whose order changed from run to run parted two runs
+    by millimetres. With fixed-order sums two runs give the same bits."""
+    from pi3_slam_tpu_torch.device import select_device
+    from pi3_slam_tpu_torch.sfm.ba import make_problem, run_bundle_adjust
+
+    select_device("cuda")
+    g = torch.Generator().manual_seed(1)
+    n, k, m = 20, 40, 6  # frames, tracks per owner frame, observations per track
+    centers = torch.stack([torch.linspace(0.0, 1.6, n), 0.05 * torch.sin(torch.arange(n) * 0.4),
+                           torch.zeros(n)], 1)
+    owner = torch.arange(n).repeat_interleave(k)
+    obs_frame = (owner[:, None] + torch.arange(m)) % n  # the same row within an owner group
+    pts = centers[owner] + torch.rand(n * k, 3, generator=g) * torch.tensor([3.0, 3.0, 4.0]) \
+        + torch.tensor([-1.5, -1.5, 4.0])
+    intr = torch.tensor([500.0, 500.0, 320.0, 240.0]).expand(n, 4)
+    xc = pts[:, None] - centers[obs_frame]
+    uv = intr[obs_frame][..., :2] * xc[..., :2] / xc[..., 2:] + intr[obs_frame][..., 2:]
+    prob = dict(rotations=torch.eye(3).expand(n, 3, 3).clone(),
+                centers=centers + 0.02 * torch.randn(n, 3, generator=g),
+                points=pts + 0.02 * torch.randn(n * k, 3, generator=g), intrinsics=intr,
+                obs_frame=obs_frame, obs_uv=uv + 0.5 * torch.randn(uv.shape, generator=g),
+                obs_valid=torch.ones(n * k, m))
+    runs = [run_bundle_adjust(make_problem(**prob, device="cuda"), 10, 2.0, tracks_per_frame=k,
+                              ftol=0.0) for _ in range(2)]
+    for name in ("rotations", "centers", "points"):
+        assert torch.equal(getattr(runs[0], name), getattr(runs[1], name)), name

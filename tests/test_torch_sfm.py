@@ -235,6 +235,24 @@ def test_grouped_step_equals_ungrouped_step(rng):
         _close(a, b.numpy(), 2e-5)
 
 
+@pytest.mark.parametrize("n,trailing", [(7, (6, 6)), (50, (7,)), (1, ()), (3, (2, 3)), (400, ())])
+def test_fixed_order_segment_sum_matches_index_add(rng, n, trailing):
+    """The BA's segment sum (stable sort once, then each segment in row
+    order) against index_add_ on random rows: indices repeat, some segments
+    are empty (the index never reaches n - 1 for n > 1), and the sums agree
+    to fp32 rounding in another order."""
+    rows = 300
+    index = torch.from_numpy(rng.integers(0, max(n - 1, 1), rows)).long()
+    values = _t(rng.normal(size=(rows, *trailing)))
+    want = torch.zeros((n, *trailing)).index_add_(0, index, values)
+    seg = tba._segments(index, n)
+    assert int(seg.lengths.sum()) == rows and (n == 1 or int(seg.lengths[-1]) == 0)
+    got = tba._segment_sum(values, seg)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(np.sort(seg.order.numpy()), np.arange(rows))
+
+
 @pytest.mark.parametrize("ftol", [0.0, 1e-3])
 def test_bundle_adjust_matches_jax_with_iteration_count(rng, ftol):
     """The whole LM solve on a well-posed scene: the same solution, final
