@@ -19,7 +19,10 @@ Phases, each of which raises (exit code 1) on failure:
    (a yardstick only: the port never calls it). The padded frame shape runs
    with zero and with NaN rows past true_t; flash_attention and
    flash_attention_partial with NaN keys past Tk, attention_single_pass with
-   NaN rows past Tq, each bit-identical to the output of finite rows. Head
+   NaN rows past Tq, block_mlp and mlp with NaN rows past M, each
+   bit-identical to the output of finite rows (and the MLP entries to a
+   second call). Beside block_mlp and mlp, the two bare bf16 cuBLAS products
+   of the same shapes (F.linear without bias) as a products yardstick. Head
    dim 320 holds the column-sliced kernel that flash_attention and
    attention_single_pass run above head dim 256; the kernels line reports
    it under the entry's "routes".
@@ -217,17 +220,47 @@ def nan_rows(x, t: int) -> None:
     x[:, t:] = float("nan")
 
 
-def same_bits(name: str, shape: str, got, want) -> None:
+def same_bits(name: str, shape: str, got, want, what: str = "finite rows") -> None:
     """A kernel's output on inputs cut from NaN-tailed buffers against its
     output on finite ones: equal bit for bit, or the kernel read a row past
-    the length."""
+    the length (what = "a second call": the same call twice, which a kernel
+    without atomics repeats to the bit)."""
     import torch
 
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     ok = all(torch.equal(a, b) for a, b in zip(got, want))
-    log(f"  {name:32s} {shape}: bit-identical to finite rows {'ok' if ok else 'FAIL'}")
+    log(f"  {name:32s} {shape}: bit-identical to {what} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise RuntimeError(f"{name} {shape}: rows past the length changed the output")
+        raise RuntimeError(f"{name} {shape}: not bit-identical to {what}")
+
+
+def gemm_bits(name: str, shape: str, x, fn) -> None:
+    """fn (an MLP entry) on x cut from a buffer with NaN rows behind it
+    against fn on x itself, and fn twice on the same x."""
+    import torch
+
+    buf = torch.full((1, x.shape[1] + 128, x.shape[2]), float("nan"), device="cuda",
+                     dtype=x.dtype)
+    buf[:, :x.shape[1]] = x
+    got = fn(buf[:, :x.shape[1]])
+    del buf
+    want = fn(x)
+    same_bits(name, f"{shape}, NaN rows past M", got, want)
+    same_bits(name, shape, fn(x), want, "a second call")
+
+
+def products_ms(shape: str, x, w1, w2, iters: int) -> float:
+    """The two bare bf16 cuBLAS products of an MLP at x's shape
+    (F.linear(x, w1), F.linear(h, w2) with no bias): a yardstick for the
+    fused GEMMs that computes less than they do (not library_ms: no single
+    call computes the fused function)."""
+    import torch
+    import torch.nn.functional as F
+
+    h = torch.empty(*x.shape[:-1], w1.shape[0], device="cuda", dtype=x.dtype).normal_()
+    ms = time_ms(lambda: (F.linear(x, w1), F.linear(h, w2)), iters)
+    log(f"  {'products yardstick':30s} {shape:28s} 2 x F.linear (bf16, no bias) {ms:9.3f} ms")
+    return ms
 
 
 def phase_build() -> None:
@@ -244,6 +277,10 @@ def phase_build() -> None:
         for line in report.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
+    from pi3_slam_tpu_torch.ops._build import load_library
+
+    log(f"    block_mlp.cu GEMMs: {load_library('block_mlp').pi3_gemm_smem_bytes()} bytes of "
+        "dynamic shared memory a block")
 
 
 def rope_for(b: int, frames_per_row: int):
@@ -402,6 +439,11 @@ def phase_kernels() -> dict:
                   **block_mlp_bounds(x, ref))
         record("block_mlp", shape_name, [c], time_ms(run, 5), time_ms(plain, 5),
                mlp_work(x, w1))
+        results["block_mlp"].setdefault("products_ms", {})[shape_name] = products_ms(
+            shape_name, x, w1, w2, 5)
+        if shape[0] == 1:
+            gemm_bits("block_mlp", shape_name, x,
+                      lambda a: block_mlp(a, *mlp_params[:6], ls=mlp_params[6]))
 
     # kv-merge global blocks: 64,300 queries against the 32,150 keys of 50
     # merged frame pairs (q after qk-norm and RoPE, unit-variance entries)
@@ -449,6 +491,10 @@ def phase_kernels() -> dict:
     c = check("attention_single_pass_packed", shape_name, run(), plain(), **attn)
     record("attention_single_pass_packed", shape_name, [c], time_ms(run, 10), time_ms(plain, 3),
            packed_work(qkv), packed_sdpa_ms(qkv, scale, 10), packed_exp2(qkv))
+    for q_scale in (0.0, -0.3):  # any scale, as the JAX function takes: q zeroed or negated
+        check("attention_single_pass_packed", f"(1, {MOGE_T}, {3 * c_s}) q_scale={q_scale}",
+              attention_single_pass_packed(qkv, 6, q_scale=q_scale),
+              packed_attention_plain(qkv, 6, q_scale=q_scale), **attn)
     x = randn(1, MOGE_T, c_s)
     mlp_params = (
         1 + 0.1 * torch.randn(c_s, generator=g, device="cuda"),
@@ -465,6 +511,8 @@ def phase_kernels() -> dict:
               **block_mlp_bounds(x, ref))
     record("block_mlp", shape_name, [c], time_ms(run, 10), time_ms(plain, 10),
            mlp_work(x, mlp_params[2]))
+    results["block_mlp"]["products_ms"][shape_name] = products_ms(
+        shape_name, x, mlp_params[2], mlp_params[4], 10)
 
     # the (B, T, H, D) route of sdpa: the cross-attention block's cross
     # attention (q and k after qk-norm and RoPE: contiguous, unit-variance
@@ -556,6 +604,10 @@ def phase_kernels() -> dict:
         c = check("mlp", shape_name, run(), plain(), "bf16 fc1 output and fc2 bias in plain",
                   **MLP)
         record("mlp", shape_name, [c], time_ms(run, 5), time_ms(plain, 5), mlp_work(x, w1))
+        results["mlp"].setdefault("products_ms", {})[shape_name] = products_ms(
+            shape_name, x, w1, w2, 5)
+        if shape[0] == 1:
+            gemm_bits("mlp", shape_name, x, lambda a: mlp(a, w1, b1, w2, b2))
     return results
 
 
@@ -1188,7 +1240,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "rel_l2": r["rel_l2"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "shape": r["shape"], **({"routes": r["routes"]} if r["routes"] else {})})
+                        "shape": r["shape"], **({"routes": r["routes"]} if r["routes"] else {}),
+                        **({"products_ms": r["products_ms"]} if "products_ms" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

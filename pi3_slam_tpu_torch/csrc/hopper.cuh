@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks of the TMA + wgmma attention kernels
-// (packed_attention.cu; attention.cu and partial_attention.cu through
-// bthd_attention.cuh): mbarriers, TMA tile loads, wgmma shared-memory
+// Hopper (sm_90a) building blocks of the TMA + wgmma kernels (packed_attention.cu;
+// attention.cu and partial_attention.cu through bthd_attention.cuh; block_mlp.cu
+// through gemm.cuh): mbarriers, TMA tile loads and stores, wgmma shared-memory
 // descriptors and products, named barriers, exp2, the base-2 online softmax
 // on the wgmma accumulator layout, and the driver's tensor-map encoder.
 #pragma once
@@ -54,6 +54,43 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       else if (clock64() - start > (1ll << 34)) __trap();
     }
   }
+}
+
+// One box of a 2D tensor map at (col, row) -> dst, completion counted on bar
+// in bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
+                                         int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// One box of shared memory -> a 2D tensor map at (col, row); elements past
+// the map's extent are not written. Completion is tracked per bulk group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int col,
+                                          int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N bulk groups still read their shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (a TMA store that reads them).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // One box of a 3D tensor map at (col, row, batch) -> dst, completion counted
@@ -242,6 +279,10 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
 // Named barriers 1 and 2 order the two consumer warpgroups' products.
 __device__ __forceinline__ void bar_sync(uint32_t id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+// A named barrier over one warpgroup (128 threads).
+__device__ __forceinline__ void bar_sync_warpgroup(uint32_t id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 __device__ __forceinline__ void bar_arrive(uint32_t id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");

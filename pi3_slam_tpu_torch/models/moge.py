@@ -4,7 +4,7 @@ Port of the single-device part of ``pi3_slam_tpu/models/moge.py``. The
 pipeline uses MoGe only for metric-scale recovery: depth on a chunk's first
 frame, then the median MoGe / Pi3 depth ratio (``slam/chunk_creator.py``).
 The batched chunk-dp path (``shard_params``, ``infer_depth_batch_async``)
-waits for the multi-device port (ROADMAP Queue 1, item 13).
+waits for the multi-device port (ROADMAP Queue 1, item 5).
 """
 
 from __future__ import annotations

@@ -41,6 +41,26 @@ def block_mlp_plain(
     return (x32 + y).to(x.dtype)
 
 
+def check_kernel_operands(
+    x: torch.Tensor, fc1_weight: torch.Tensor, fc2_weight: torch.Tensor, what: str
+) -> None:
+    """Raise unless the kernel takes these operands, before any launch:
+    bfloat16 x, C and hidden multiples of 128, weights (hidden, C) /
+    (C, hidden) in bfloat16, all three contiguous on 16-byte aligned bases
+    (the tensor maps' rule; their rows are then multiples of 256 bytes)."""
+    c = x.shape[-1]
+    hidden = fc1_weight.shape[0]
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel takes bfloat16, got {x.dtype}")
+    if c % 128 or hidden % 128:
+        raise ValueError(f"{what} kernel needs C and hidden divisible by 128, got {c}, {hidden}")
+    if tuple(fc1_weight.shape) != (hidden, c) or tuple(fc2_weight.shape) != (c, hidden):
+        raise ValueError("fc1/fc2 weights must be (hidden, C) / (C, hidden)")
+    for name, t in (("x", x), ("fc1 weight", fc1_weight), ("fc2 weight", fc2_weight)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous bfloat16 on a 16-byte aligned base")
+
+
 @functools.cache
 def _kernel():
     fn = load_library("block_mlp").pi3_block_mlp
@@ -64,7 +84,7 @@ def block_mlp(
 ) -> torch.Tensor:
     """x (..., C) -> x + ls * mlp(layer_norm(x)); ``ls`` None means 1.
 
-    CUDA tensors must be bfloat16 with C and hidden multiples of 128.
+    CUDA tensors must meet :func:`check_kernel_operands`.
     """
     if not x.is_cuda:
         return block_mlp_plain(
@@ -72,23 +92,16 @@ def block_mlp(
         )
     c = x.shape[-1]
     hidden = fc1_weight.shape[0]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"block_mlp kernel takes bfloat16, got {x.dtype}")
-    if c % 128 or hidden % 128:
-        raise ValueError(f"block_mlp kernel needs C and hidden divisible by 128, got {c}, {hidden}")
-    if tuple(fc1_weight.shape) != (hidden, c) or tuple(fc2_weight.shape) != (c, hidden):
-        raise ValueError("fc1/fc2 weights must be (hidden, C) / (C, hidden)")
-    if not x.is_contiguous():
-        raise ValueError("block_mlp: x must be contiguous")
     dev = x.device
+    w1 = fc1_weight.to(device=dev, dtype=torch.bfloat16).contiguous()
+    w2 = fc2_weight.to(device=dev, dtype=torch.bfloat16).contiguous()
+    check_kernel_operands(x, w1, w2, "block_mlp")
 
     def vec(t: torch.Tensor | None, n: int) -> torch.Tensor:
         if t is None:
             return torch.ones(n, device=dev, dtype=torch.float32)
         return t.to(device=dev, dtype=torch.float32).contiguous()
 
-    w1 = fc1_weight.to(device=dev, dtype=torch.bfloat16).contiguous()
-    w2 = fc2_weight.to(device=dev, dtype=torch.bfloat16).contiguous()
     params = [vec(norm_weight, c), vec(norm_bias, c), w1, vec(fc1_bias, hidden), w2,
               vec(fc2_bias, c), vec(ls, c)]
     m = x.numel() // c

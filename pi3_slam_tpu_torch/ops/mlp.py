@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check_launch, load_library
+from .block_mlp import check_kernel_operands
 
 
 def mlp_kernel_supported(c: int, hidden: int) -> bool:
@@ -58,7 +59,8 @@ def mlp(
     """x (..., C) -> fc2(GELU_erf(fc1(x))) (..., C).
 
     CUDA tensors must be bfloat16; the kernel runs when C and hidden are
-    multiples of 128 and x is contiguous."""
+    multiples of 128, and then x must meet
+    :func:`~.block_mlp.check_kernel_operands` (contiguous, 16-byte aligned)."""
     c = x.shape[-1]
     hidden = fc1_weight.shape[0]
     if tuple(fc1_weight.shape) != (hidden, c) or tuple(fc2_weight.shape) != (c, hidden):
@@ -69,11 +71,10 @@ def mlp(
         raise TypeError(f"mlp on the card takes bfloat16, got {x.dtype}")
     if not mlp_kernel_supported(c, hidden):
         return mlp_plain(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias)
-    if not x.is_contiguous():
-        raise ValueError("mlp: x must be contiguous")
     dev = x.device
     w1 = fc1_weight.to(device=dev, dtype=torch.bfloat16).contiguous()
     w2 = fc2_weight.to(device=dev, dtype=torch.bfloat16).contiguous()
+    check_kernel_operands(x, w1, w2, "mlp")
     b1 = fc1_bias.to(device=dev, dtype=torch.float32).contiguous()
     b2 = fc2_bias.to(device=dev, dtype=torch.float32).contiguous()
     m = x.numel() // c

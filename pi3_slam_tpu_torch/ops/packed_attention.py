@@ -83,8 +83,6 @@ def _launch(qkv: torch.Tensor, num_heads: int, t_valid: int, scale_log2: float, 
         raise TypeError(f"{what} kernel takes bfloat16, got {qkv.dtype}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(f"{what}: qkv must be contiguous and 16-byte aligned")
-    if not scale_log2 > 0:  # the kernel takes its running max on the unscaled logits
-        raise ValueError(f"{what}: the kernel takes a logit scale > 0, got {scale_log2}")
     b, t, _ = qkv.shape
     out = torch.empty((b, t_valid, num_heads * HEAD_DIM), device=qkv.device, dtype=qkv.dtype)
     code = _kernel()(
@@ -117,6 +115,24 @@ def flash_attention_packed(
     return out
 
 
+def positive_scale(qkv: torch.Tensor, q_scale: float) -> tuple[torch.Tensor, float]:
+    """(qkv', s) with s > 0 and the same logits s * q'.k as q_scale * q.k:
+    the kernel keeps its running max on the unscaled logits, so it needs a
+    positive scale. A negative scale is its magnitude on a copy with q
+    negated; a zero scale is 1 on a copy with q zeroed (every logit 0, so
+    uniform weights: a scale of 0 itself would make the kernel's first
+    rescale exp2(-inf * 0) = NaN). A positive scale returns qkv itself."""
+    if not q_scale <= 0:
+        return qkv, q_scale
+    qkv = qkv.clone()
+    q = qkv[..., : qkv.shape[-1] // 3]
+    if q_scale == 0:
+        q.zero_()
+        return qkv, 1.0
+    q.neg_()
+    return qkv, -q_scale
+
+
 def attention_single_pass_packed(
     qkv: torch.Tensor,
     num_heads: int,
@@ -124,10 +140,12 @@ def attention_single_pass_packed(
     q_scale: float = 1.0,
 ) -> torch.Tensor:
     """Frame / encoder / head-block attention over packed qkv; ``q_scale``
-    multiplies the fp32 logits (the encoder passes D**-0.5 * log2(e))."""
+    multiplies the fp32 logits (the encoder passes D**-0.5 * log2(e)) and
+    may take any value (:func:`positive_scale`)."""
     t_valid = _check(qkv, num_heads, true_t)
     if not qkv.is_cuda:
         return packed_attention_plain(qkv, num_heads, t_valid, q_scale)
+    qkv, q_scale = positive_scale(qkv, q_scale)
     out = _launch(qkv, num_heads, t_valid, q_scale, "attention_single_pass_packed")
     attention_single_pass_packed.launches += 1
     return out

@@ -1,7 +1,8 @@
-"""Speed-of-light probe on one NVIDIA GPU: the port of ``bench_sol`` from the
-JAX package's ``tools/perf_lab.py``.
+"""Speed-of-light and MLP probes on one NVIDIA GPU: the ports of ``bench_sol``
+and ``bench_mlp`` from the JAX package's ``tools/perf_lab.py``.
 
     python -m pi3_slam_tpu_torch.tools.perf_lab sol
+    python -m pi3_slam_tpu_torch.tools.perf_lab mlp
 
 Times, with CUDA events (one warm-up call, then the mean of ``ITERS`` calls),
 and prints ms and TFLOP/s of:
@@ -17,9 +18,16 @@ and prints ms and TFLOP/s of:
 
 Each against the matmul yardstick says how far its loop is from the tensor
 cores' practical rate. The two attention kernels run different loops, so
-their difference is not the cost of a softmax. The JAX package's other probes
-(global, frame, block, packed, stages, mlp, mlp-sweep, forward, refine,
-kv-accuracy, tsdf) are not ported (ROADMAP.md Queue 2, item 9).
+their difference is not the cost of a softmax.
+
+``mlp`` times, at the main paths' MLP shapes (Pi3's (1, 64300, 1024) and
+(100, 643, 1024) with hidden 4096, MoGe-2's (1, 3537, 384) with 1536), the
+two GEMM entries of ``csrc/block_mlp.cu`` (``block_mlp``, ``mlp``), their
+plain versions, and the two bare bf16 cuBLAS products (``F.linear`` without
+bias) of the same shapes: the products yardstick, which computes less than
+either entry. The JAX package's other probes (global, frame, block, packed,
+stages, mlp-sweep, forward, refine, kv-accuracy, tsdf) are not ported
+(ROADMAP.md Queue 2, item 9).
 """
 
 from __future__ import annotations
@@ -33,19 +41,21 @@ SQUARE = 8192
 SOL_T, SOL_H, SOL_D = 65536, 16, 64
 MLP_C, MLP_HIDDEN = 1024, 4096
 ITERS = 3  # timed calls of each probe, after one warm-up call
+MLP_ITERS = 20
+MLP_SHAPES = (((1, 64300), 1024, 4096), ((100, 643), 1024, 4096), ((1, 3537), 384, 1536))
 
 
-def _time_ms(fn) -> float:
+def _time_ms(fn, iters: int = ITERS) -> float:
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(ITERS):
+    for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / ITERS
+    return start.elapsed_time(end) / iters
 
 
 def bench_sol() -> dict:
@@ -94,22 +104,70 @@ def bench_sol() -> dict:
     return results
 
 
+def bench_mlp() -> dict:
+    """Time the MLP entries, their plain versions and the bare products at
+    MLP_SHAPES (one warm-up, then the mean of MLP_ITERS calls); returns
+    {shape: {name: ms}} and prints one line each with TFLOP/s of the two
+    products. Inputs are N(0, 1) activations and N(0, 0.02^2) weights in
+    bf16, drawn on the card from seed 0."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the MLP probe needs an NVIDIA GPU")
+    import torch.nn.functional as F
+
+    from ..ops.block_mlp import block_mlp, block_mlp_plain
+    from ..ops.mlp import mlp, mlp_plain
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def mk(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    results = {}
+    for lead, c, hidden in MLP_SHAPES:
+        x = mk(*lead, c)
+        w1, b1 = mk(hidden, c, scale=0.02), mk(hidden, scale=0.1)
+        w2, b2 = mk(c, hidden, scale=0.02), mk(c, scale=0.1)
+        norm = (torch.ones(c, device="cuda"), torch.zeros(c, device="cuda"))
+        ls = torch.full((c,), 0.9, device="cuda")
+        h = mk(*lead, hidden)
+        runs = {
+            "block_mlp": lambda: block_mlp(x, *norm, w1, b1, w2, b2, ls=ls),
+            "block_mlp_plain": lambda: block_mlp_plain(x, *norm, w1, b1, w2, b2, ls=ls),
+            "mlp": lambda: mlp(x, w1, b1, w2, b2),
+            "mlp_plain": lambda: mlp_plain(x, w1, b1, w2, b2),
+            "products (2 x F.linear, no bias)": lambda: (F.linear(x, w1), F.linear(h, w2)),
+        }
+        shape = f"({lead[0]}, {lead[1]}, {c})/{hidden}"
+        flops = 4.0 * lead[0] * lead[1] * c * hidden
+        results[shape] = {}
+        for name, fn in runs.items():
+            ms = _time_ms(fn, MLP_ITERS)
+            results[shape][name] = ms
+            print(f"{name:34s} {shape:24s} {ms:9.3f} ms {flops / ms / 1e9:8.1f} TFLOP/s",
+                  flush=True)
+        del x, h, w1, w2
+    return results
+
+
+PROBES = {"sol": bench_sol, "mlp": bench_mlp}
+
+
 def probe(argv=None) -> dict:
     """Parse ``argv`` and run the named probe on the GPU; returns its
-    results (:func:`bench_sol`'s). Exits with code 2 on a probe that is not
-    ported."""
+    results (:func:`bench_sol`'s or :func:`bench_mlp`'s). Exits with code 2
+    on a probe that is not ported."""
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("probe", nargs="?", default="sol")
     args = parser.parse_args(argv)
-    if args.probe != "sol":
+    if args.probe not in PROBES:
         parser.error(f"probe {args.probe!r} is not ported (ROADMAP.md Queue 2, item 9); "
-                     "only 'sol' is")
+                     f"only {' and '.join(map(repr, PROBES))} are")
     from ..device import select_device
 
     select_device("cuda")
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
-    return bench_sol()
+    return PROBES[args.probe]()
 
 
 def main(argv=None) -> int:

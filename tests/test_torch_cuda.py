@@ -171,10 +171,21 @@ def test_wrappers_count_launches_and_refuse_fp32(gen):
     assert after["attention_single_pass_packed"] == before["attention_single_pass_packed"] + 1
     with pytest.raises(TypeError):
         attention_single_pass_packed(packed.float(), 2)
-    with pytest.raises(ValueError):
-        attention_single_pass_packed(packed, 2, q_scale=0.0)
     with pytest.raises(TypeError):
         qkv_rope_producer(qkv.float(), cos, sin, 2, 70)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_scale", [0.0, -0.3])
+def test_single_pass_takes_any_logit_scale(gen, q_scale):
+    """The JAX function takes any q_scale: 0 gives uniform weights, a
+    negative one the softmax of negated logits. The kernel needs a scale > 0,
+    so the wrapper hands it q zeroed or negated (one launch all the same)."""
+    qkv = _randn(gen, 2, 301, 3 * 4 * D)
+    before = launch_counts()["attention_single_pass_packed"]
+    got = attention_single_pass_packed(qkv, 4, true_t=290, q_scale=q_scale)
+    assert launch_counts()["attention_single_pass_packed"] == before + 1
+    _assert_close(got, packed_attention_plain(qkv, 4, true_t=290, q_scale=q_scale), **ATTENTION)
 
 
 def _qkv_views(gen, b, tq, tk, h):
@@ -339,6 +350,68 @@ def test_mlp_matches_plain(gen, rows, c, hidden):
     got = mlp(x, *args)
     assert launch_counts()["mlp"] == before + 1
     _assert_close(got, mlp_plain(x, *args), **MLP)
+
+
+def _gemm_case(gen, entry, rows, c, hidden, x=None):
+    """(run, plain) of one MLP entry on x (1, rows, c) with random weights:
+    block_mlp with LayerScale, or the bare mlp."""
+    x = _randn(gen, 1, rows, c) if x is None else x
+    w = (_randn(gen, hidden, c, scale=0.05), _randn(gen, hidden, scale=0.1),
+         _randn(gen, c, hidden, scale=0.05), _randn(gen, c, scale=0.1))
+    if entry == "mlp":
+        return x, (lambda a: mlp(a, *w)), (lambda a: mlp_plain(a, *w))
+    norm = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda"),
+            0.1 * torch.randn(c, generator=gen, device="cuda"))
+    ls = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    return (x, (lambda a: block_mlp(a, *norm, *w, ls=ls)),
+            (lambda a: block_mlp_plain(a, *norm, *w, ls=ls)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["block_mlp", "mlp"])
+@pytest.mark.parametrize("c,hidden", [(128, 512), (384, 1536), (1024, 4096)])
+@pytest.mark.parametrize("rows", [1, 44, 333, 643 * 2])
+def test_gemm_entries_match_plain(gen, entry, c, hidden, rows):
+    """Both entries of csrc/block_mlp.cu at ragged row counts (one row, less
+    than one 128-row tile, a few tiles and a tail, two frames' tokens) and at
+    the widths of the tests, MoGe-2 and Pi3; one launch each."""
+    x, run, plain = _gemm_case(gen, entry, rows, c, hidden)
+    before = launch_counts()[entry]
+    got = run(x)
+    assert launch_counts()[entry] == before + 1
+    ref = plain(x)
+    _assert_close(got, ref, **(MLP if entry == "mlp" else block_mlp_bounds(x, ref)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["block_mlp", "mlp"])
+@pytest.mark.parametrize("rows,c,hidden", [(333, 128, 512), (1286, 1024, 4096)])
+def test_gemm_entries_read_no_row_past_m_and_repeat_bit_for_bit(gen, entry, rows, c, hidden):
+    """x as the first rows of a longer buffer with NaN behind them: the
+    output equals that of a clean buffer bit for bit (the tensor map's row
+    extent is M, so no row behind it loads), and a second call gives the same
+    bits (no split-K, no atomics)."""
+    buf = _randn(gen, 1, rows + 200, c)
+    clean = buf[:, :rows].clone()
+    buf[:, rows:] = float("nan")
+    x, run, _ = _gemm_case(gen, entry, rows, c, hidden, x=buf[:, :rows])
+    got = run(x)
+    assert torch.equal(got, run(clean))
+    assert torch.equal(got, run(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["block_mlp", "mlp"])
+def test_gemm_entries_refuse_a_misaligned_x(gen, entry):
+    """x one element into its buffer is contiguous but 2 bytes off a 16-byte
+    boundary, which a tensor map cannot take: refused before any launch."""
+    c = 128
+    x = _randn(gen, 70 * c + 1)[1:].view(1, 70, c)
+    _, run, _ = _gemm_case(gen, entry, 70, c, 512)
+    before = launch_counts()[entry]
+    with pytest.raises(ValueError):
+        run(x)
+    assert launch_counts()[entry] == before
 
 
 @pytest.mark.cuda

@@ -34,6 +34,7 @@ from pi3_slam_tpu_torch.ops.packed_attention import (
     attention_single_pass_packed,
     flash_attention_packed,
     packed_attention_plain,
+    positive_scale,
 )
 from pi3_slam_tpu_torch.ops.qkv_producer import qkv_rope_producer, qkv_rope_producer_plain
 
@@ -109,14 +110,34 @@ def test_single_pass_plain_matches_pallas(rng, b, t, h, out_t):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=1e-5)
 
 
-def test_single_pass_q_scale_plain_matches_pallas(rng):
-    """Encoder blocks: raw qkv, softmax scale on the fp32 logits."""
+@pytest.mark.parametrize("s", [D**-0.5 * np.log2(np.e), 0.0, -0.3])
+def test_single_pass_q_scale_plain_matches_pallas(rng, s):
+    """Encoder blocks: raw qkv, softmax scale on the fp32 logits; the JAX
+    function takes any scale, 0 (uniform weights) and negative ones too."""
     b, t, h = 2, 270, 2
     qkv = rng.standard_normal((b, t, 3 * h * D)).astype(np.float32)
-    s = D**-0.5 * np.log2(np.e)
     want = attention_single_pass_packed_tpu(jnp.asarray(qkv), h, q_scale=s, interpret=True)
     got = attention_single_pass_packed(_t(qkv), h, q_scale=s)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=1e-5)
+
+
+@pytest.mark.parametrize("s", [0.0, -0.3, 0.5])
+def test_positive_scale_keeps_the_logits(rng, s):
+    """The rewrite the card path applies before its kernel (which needs a
+    scale > 0): the plain version gives the same output on it, k and v are
+    untouched, and the input is not modified."""
+    b, t, h = 2, 150, 2
+    qkv = _t(rng.standard_normal((b, t, 3 * h * D)).astype(np.float32))
+    before = qkv.clone()
+    rewritten, scale = positive_scale(qkv, s)
+    assert scale > 0
+    assert torch.equal(qkv, before)
+    assert torch.equal(rewritten[..., h * D:], qkv[..., h * D:])
+    if s > 0:
+        assert rewritten is qkv and scale == s
+    np.testing.assert_allclose(packed_attention_plain(rewritten, h, q_scale=scale).numpy(),
+                               packed_attention_plain(qkv, h, q_scale=s).numpy(),
+                               atol=ATOL, rtol=1e-5)
 
 
 @pytest.mark.parametrize("with_kn", [True, False])

@@ -8,6 +8,10 @@ the sizes of tests/test_pallas_mlp.py, and to ``models.layers.mlp``, in fp32:
 atol 2e-5 and rtol 1e-5 (tests/test_pallas_mlp.py's own).
 """
 
+import os
+import subprocess
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +21,12 @@ from pi3_slam_tpu.models.layers import mlp as jax_mlp
 from pi3_slam_tpu.ops.pallas_mlp import mlp_fused_tpu
 
 from pi3_slam_tpu_torch.ops import launch_counts
+from pi3_slam_tpu_torch.ops.block_mlp import check_kernel_operands
 from pi3_slam_tpu_torch.ops.compare import MLP, compare
 from pi3_slam_tpu_torch.ops.mlp import mlp, mlp_kernel_supported, mlp_plain
+from pi3_slam_tpu_torch.tools import perf_lab
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _params(rng, c, hidden):
@@ -85,3 +93,61 @@ def test_chip_bounds_pass_kernel_arithmetic_and_reject_wrong_outputs(rng):
     assert cmp.ok and cmp.rejects_wrong, cmp
     assert not compare(torch.zeros_like(ref), ref, **MLP).ok
     assert not compare(1.1 * ref.float(), ref, **MLP).ok
+
+
+def _operands(case):
+    """(x, fc1 weight, fc2 weight) in bf16 at C 128 / hidden 512, with one
+    thing the GEMM kernel does not take (or none)."""
+    bf16 = torch.bfloat16
+    c, hidden = (320, 1280) if case == "C not a multiple of 128" else (128, 512)
+    x = torch.zeros(2, 7, c, dtype=bf16)
+    w1, w2 = torch.zeros(hidden, c, dtype=bf16), torch.zeros(c, hidden, dtype=bf16)
+    if case == "fp32 x":
+        x = x.float()
+    elif case == "x 2 bytes off 16":
+        x = torch.zeros(14 * c + 1, dtype=bf16)[1:].view(2, 7, c)
+    elif case == "x not contiguous":
+        x = torch.zeros(2, 7, 2 * c, dtype=bf16)[..., :c]
+    elif case == "fc1 weight 2 bytes off 16":
+        w1 = torch.zeros(hidden * c + 1, dtype=bf16)[1:].view(hidden, c)
+    elif case == "fc2 weight transposed":
+        w2 = torch.zeros(hidden, c, dtype=bf16)
+    return x, w1, w2
+
+
+@pytest.mark.parametrize("case,error", [
+    ("fp32 x", TypeError),
+    ("C not a multiple of 128", ValueError),
+    ("x 2 bytes off 16", ValueError),
+    ("x not contiguous", ValueError),
+    ("fc1 weight 2 bytes off 16", ValueError),
+    ("fc2 weight transposed", ValueError),
+])
+def test_gemm_operand_checks_refuse_what_the_tensor_maps_cannot_take(case, error):
+    """The checks both MLP wrappers run on CUDA operands before launching
+    csrc/block_mlp.cu (its GEMMs read x and the weights through TMA tensor
+    maps: 16-byte aligned bases, rows a multiple of 16 bytes); here on CPU
+    tensors of the same shapes and strides."""
+    x, w1, w2 = _operands(case)
+    with pytest.raises(error):
+        check_kernel_operands(x, w1, w2, "mlp")
+
+
+def test_gemm_operand_checks_take_the_main_path_operands():
+    x, w1, w2 = _operands("none")
+    check_kernel_operands(x, w1, w2, "mlp")
+    # the first rows of a longer buffer, as the NaN-past-M checks pass them
+    check_kernel_operands(torch.zeros(1, 50, 128, dtype=torch.bfloat16)[:, :7], w1, w2, "mlp")
+
+
+def test_mlp_probe_needs_a_gpu():
+    """``python -m pi3_slam_tpu_torch.tools.perf_lab mlp`` times the GEMM
+    entries on the card only: without one it fails and prints no time."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the probe runs")
+    with pytest.raises(RuntimeError, match="GPU"):
+        perf_lab.bench_mlp()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-m", "pi3_slam_tpu_torch.tools.perf_lab", "mlp"],
+                          capture_output=True, text=True, cwd=REPO, env=env, timeout=120)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr and "ms" not in proc.stdout
