@@ -23,9 +23,12 @@ Phases, each of which raises (exit code 1) on failure:
    bit-identical to the output of finite rows (and the MLP entries to a
    second call). Beside block_mlp and mlp, the two bare bf16 cuBLAS products
    of the same shapes (F.linear without bias) as a products yardstick. Head
-   dim 320 holds the column-sliced kernel that flash_attention and
-   attention_single_pass run above head dim 256; the kernels line reports
-   it under the entry's "routes".
+   dims 320, 384 and 512 at (1, 4100, 2, D) and (100, 643, 2, D), and 1152
+   at (1, 4100, 2, D), hold the wide variant of the (B, T, H, D) loop that
+   flash_attention and attention_single_pass run above head dim 256 (keys
+   past Tk NaN at the first shape, bit-identical); the kernels line reports
+   them under the entry's "routes". The producer's record also gives its effective TB/s
+   (its bytes over its time).
 3. Full-width forwards with random weights (seed 0): Pi3 on a 4-frame chunk
    at 308x406, exact and with global_kv_merge=2, MoGe-2 (ViT-S backbone) on
    one 308x406 frame, the cross-attention block at Pi3's decoder widths over
@@ -85,7 +88,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # per-kernel: route, source, the TPU kernel it replaces
 KERNELS = {
     "qkv_rope_producer": (
-        "triton", "pi3_slam_tpu_torch/ops/qkv_producer.py", "pi3_slam_tpu/ops/pallas_producer.py:169"),
+        "cuda", "pi3_slam_tpu_torch/csrc/qkv_producer.cu", "pi3_slam_tpu/ops/pallas_producer.py:169"),
     "attention_single_pass_packed": (
         "cuda", "pi3_slam_tpu_torch/csrc/packed_attention.cu", "pi3_slam_tpu/ops/pallas_attention.py:636"),
     "flash_attention_packed": (
@@ -268,7 +271,8 @@ def phase_build() -> None:
 
     from pi3_slam_tpu_torch.ops._build import build
 
-    names = ("packed_attention", "partial_attention", "block_mlp", "attention", "dots_attention")
+    names = ("qkv_producer", "packed_attention", "partial_attention", "block_mlp", "attention",
+             "dots_attention")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(build, names))
     for name, (so, seconds) in zip(names, built):
@@ -330,9 +334,9 @@ def phase_kernels() -> dict:
             r.update(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=library_ms)
         if route is not None:
-            r["routes"][route] = dict(
-                shape=shape, max_abs_err=max(c.max_abs_err for c in checks), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+            r["routes"].setdefault(route, {})[shape] = dict(
+                max_abs_err=max(c.max_abs_err for c in checks), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         lib = "" if library_ms is None else f"   library {library_ms:9.3f} ms"
         ex = "" if exp2_ms is None else f"   exp2 bound {exp2_ms:8.3f} ms"
         log(f"  {name:30s} {shape:28s} kernel {ms:9.3f} ms   plain {plain_ms:9.3f} ms   "
@@ -370,7 +374,12 @@ def phase_kernels() -> dict:
         # q and k: LayerNorm statistics (4 fp32 ops per element), normalise
         # and affine (3), RoPE (3), the scale on q (1)
         work = (2 * b * t * C * 11, 2 * qkv.numel() * 2 + 2 * cos.numel() * 4, PEAK_FP32)
-        record("qkv_rope_producer", shape_name, checks, time_ms(run, 10), time_ms(plain, 3), work)
+        ms = time_ms(run, 10)
+        record("qkv_rope_producer", shape_name, checks, ms, time_ms(plain, 3), work)
+        tbps = work[1] / ms / 1e9
+        results["qkv_rope_producer"].setdefault("tb_per_s", {})[shape_name] = tbps
+        log(f"  {'qkv_rope_producer':30s} {shape_name:28s} {tbps:.3f} TB/s effective "
+            f"({work[1] / 1e6:.0f} MB in and out)")
         produced[shape_name] = ref
 
     attn = dict(why="bf16 P, bf16 output", **ATTENTION)
@@ -565,15 +574,26 @@ def phase_kernels() -> dict:
     q, k, v = randn(N_FRAMES, FRAME_T, 4, 192), randn(N_FRAMES, FRAME_T, 4, 192), randn(
         N_FRAMES, FRAME_T, 4, 192)
     bthd("attention_single_pass", f"({N_FRAMES}, {FRAME_T}, 4, 192)", q, k, v, 10, 3)
-    # head dims above 256: the column-sliced mma.sync kernel (no configuration
-    # uses one; the wrappers take every multiple of 64)
-    q, k, v = randn(1, 4100, 2, 320), randn(1, 4100, 2, 320), randn(1, 4100, 2, 320)
-    bthd("flash_attention", "(1, 4100, 2, 320)", q, k, v, 10, 3, route="d_over_256")
-    q, k, v = randn(N_FRAMES, FRAME_T, 2, 320), randn(N_FRAMES, FRAME_T, 2, 320), randn(
-        N_FRAMES, FRAME_T, 2, 320)
-    bthd("attention_single_pass", f"({N_FRAMES}, {FRAME_T}, 2, 320)", q, k, v, 10, 3,
-         route="d_over_256")
-    del q, k, v
+    # head dims above 256: the loop's wide variant (no configuration uses
+    # one; the wrappers take every multiple of 64), one slice of O at D 320,
+    # two at 384 and 512, all of Q in shared memory; keys past Tk NaN leave
+    # the output bit-identical. Then D 1152, whose Q streams through the ring
+    for d in (320, 384, 512):
+        q, k, v = randn(1, 4100, 2, d), randn(1, 4100, 2, d), randn(1, 4100, 2, d)
+        bthd("flash_attention", f"(1, 4100, 2, {d})", q, k, v, 10, 3, route="d_over_256")
+        tk = 2050
+        clean = flash_attention(q, k[:, :tk].clone(), v[:, :tk].clone())
+        nan_rows(k, tk)
+        nan_rows(v, tk)
+        same_bits("flash_attention", f"(1, 4100, 2, {d}) x {tk}, NaN keys past Tk",
+                  flash_attention(q, k[:, :tk], v[:, :tk]), clean)
+        q, k, v = randn(N_FRAMES, FRAME_T, 2, d), randn(N_FRAMES, FRAME_T, 2, d), randn(
+            N_FRAMES, FRAME_T, 2, d)
+        bthd("attention_single_pass", f"({N_FRAMES}, {FRAME_T}, 2, {d})", q, k, v, 10, 3,
+             route="d_over_256")
+    q, k, v = randn(1, 4100, 2, 1152), randn(1, 4100, 2, 1152), randn(1, 4100, 2, 1152)
+    bthd("flash_attention", "(1, 4100, 2, 1152)", q, k, v, 10, 3, route="d_over_256")
+    del q, k, v, clean
 
     # the speed-of-light probe's dots-only twin of the packed flash kernel at
     # its shape, N(0, 0.05^2) entries as the probe draws them; the plain
@@ -1241,7 +1261,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": r["shape"], **({"routes": r["routes"]} if r["routes"] else {}),
-                        **({"products_ms": r["products_ms"]} if "products_ms" in r else {})})
+                        **({"products_ms": r["products_ms"]} if "products_ms" in r else {}),
+                        **({"tb_per_s": r["tb_per_s"]} if "tb_per_s" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 // The TMA + wgmma attention loop over (B, T, H, D) q / k / v for Hopper
 // (sm_90a), shared by attention.cu (softmax(q.k^T * D^-1/2) . v, normalised,
-// bf16 out) and partial_attention.cu (the bound-shift partial sums acc and l,
-// fp32 out). It is packed_attention.cu's loop with one tensor map per operand
-// in place of one map over the packed projection:
+// bf16 out; head dims above 256 in the wide variant at the end of this file)
+// and partial_attention.cu (the bound-shift partial sums acc and l, fp32
+// out). It is packed_attention.cu's loop with one tensor map per operand in
+// place of one map over the packed projection:
 //
 // * Loads. q, k and v each get a 4D tensor map (D columns, H heads, T rows,
 //   B) over their own byte strides, so strided views (the q / k / v of a qkv
@@ -360,6 +361,299 @@ int launch_bthd_attention(const void* q, const void* k, const void* v, void* out
   dim3 grid((Tq + kBthdBlockM - 1) / kBthdBlockM, H, B);
   bthd_attention_kernel<D, kPartial><<<grid, kBthdThreads, smem, stream>>>(
       q_map, k_map, v_map, out, kn, lsum, Tq, Tk, H, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+
+// --- Head dims above 256 (attention.cu): the wide variant of the loop
+//
+// Every multiple of 64 above 256, D a run-time argument; shared memory does
+// not grow with D.
+//
+// * Slices of O. wgmma's N is at most 256 and a thread has at most 255
+//   registers, so O (DV/2 registers a thread at 64 rows) is computed in as
+//   few DV-wide column slices as the registers allow: one at D 320 (O 160
+//   registers, P V as wgmma_rs<256> + wgmma_rs<64>), ceil(D / 256) above,
+//   each 64 * ceil(D / 64 / slices) wide. So DV is 192, 256 or 320, the
+//   kernel's one template parameter; columns of a last slice past D load as
+//   zeros and are not stored. Each slice is a block that computes the full
+//   logits Q K^T and O for its columns: D 512 computes Q K^T twice.
+// * A block: 64 query rows, one consumer warpgroup and one producer
+//   warpgroup (one thread issues every TMA load); 64-key tiles.
+// * Q K^T is summed over D's 64-column boxes. K's boxes stream through a
+//   ring of units (full / empty mbarriers), which wraps within and across
+//   key tiles. Q's first `resident` boxes are loaded once a block; where Q
+//   does not fit beside a ring of eight units, its other boxes ride in each
+//   unit beside their K box, read again from L2 for every key tile.
+// * The consumer waits for DV/64 boxes (as many as a slice has), issues them
+//   as one commit group, and frees their units once it has finished; then
+//   the rest of D's boxes one at a time. A group is retired before the loop
+//   goes on, and no mbarrier wait sits between its products: either made
+//   ptxas serialise every product (warning C7515).
+// * V's slice (DV/64 boxes) has two stages of its own. O += P_{j-1} V_{j-1}
+//   is issued once S_j is done, and the softmax of S_j runs under it.
+//
+// wide_plan (host) fills the 227 KB: 1 KB of mbarriers, V's two stages, all
+// of Q if eight 8 KB units still fit beside it (at most 16 units), else four
+// boxes of Q and eight 16 KB units (K and Q boxes):
+//
+//   D          slices x DV        resident Q boxes   units
+//   320        1 x 320            5                  13 x 8 KB
+//   384        2 x 192            6                  16 x 8 KB
+//   448-768    2-3 x 256 (576:    7-12               13-8 x 8 KB
+//              3 x 192)
+//   832 up     ceil(D/256) x 256  4                  8 x 16 KB
+
+constexpr int kSmemPerBlock = 232448;  // the H100's 227 KB a block
+constexpr int kWideBox = 64 * 128;     // bytes of a box: 64 rows of 64 bf16 (Q, K or V)
+constexpr int kWideMinUnits = 8;
+constexpr int kWideMaxUnits = 16;
+
+struct WidePlan {
+  int slices, dv, resident, units, unit_bytes, smem;
+};
+
+inline WidePlan wide_plan(int D) {
+  WidePlan p;
+  const int nb = D / 64;
+  p.slices = D <= 320 ? 1 : (D + 255) / 256;
+  p.dv = 64 * ((nb + p.slices - 1) / p.slices);
+  // boxes left beside V's two stages, 1 KB of mbarriers and 1 KB of slack to
+  // align the dynamic base
+  const int boxes = (kSmemPerBlock - 2048) / kWideBox - 2 * p.dv / 64;
+  const bool all_of_q = nb + kWideMinUnits <= boxes;
+  p.resident = all_of_q ? nb : boxes - 2 * kWideMinUnits;
+  p.unit_bytes = (all_of_q ? 1 : 2) * kWideBox;
+  p.units = (boxes - p.resident) * kWideBox / p.unit_bytes;
+  if (p.units > kWideMaxUnits) p.units = kWideMaxUnits;
+  p.smem = 2048 + (p.resident + 2 * p.dv / 64) * kWideBox + p.units * p.unit_bytes;
+  return p;
+}
+
+struct WideBars {
+  uint64_t q_full, v_full[2], v_empty[2], full[kWideMaxUnits], empty[kWideMaxUnits];
+};
+static_assert(sizeof(WideBars) <= 1024, "the wide variant's mbarriers take 1 KB");
+
+// O += P V over the slice's DV columns: above 256, the first 256 columns and
+// the rest (from V's fifth box on) as two products into the two parts of o.
+template <int DV, int N>
+__device__ __forceinline__ void wide_issue_pv(float (&o)[DV / 2], const uint32_t (&p)[N / 16][4],
+                                              uint64_t v_desc) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const uint64_t desc = v_desc + kk * (2048 >> 4);
+    if constexpr (DV <= 256) {
+      wgmma_rs<DV>(o, p[kk], desc);
+    } else {
+      wgmma_rs<256>(reinterpret_cast<float(&)[128]>(o[0]), p[kk], desc);
+      wgmma_rs<DV - 256>(reinterpret_cast<float(&)[(DV - 256) / 2]>(o[128]), p[kk],
+                         desc + 4 * (N * 128 >> 4));
+    }
+  }
+  wgmma_commit();
+}
+
+// out (B, Tq, H, D) bf16 contiguous, normalised by the row sum. Grid: 64-row
+// query blocks x (H x slices) x B; blockIdx.y = h * slices + slice.
+template <int DV>
+__global__ void __launch_bounds__(256, 1)
+bthd_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
+                 int Tq, int Tk, int H, int D, WidePlan plan, float scale_log2) {
+  constexpr int N = 64;
+  constexpr int kVBoxes = DV / 64;
+  extern __shared__ __align__(128) uint8_t smem_raw[];  // aligned to 1024 below
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  WideBars& bars = *reinterpret_cast<WideBars*>(base);
+  uint8_t* q_res = base + 1024;                      // Q's resident boxes
+  uint8_t* v_st = q_res + plan.resident * kWideBox;  // V's two stages
+  uint8_t* ring = v_st + 2 * kVBoxes * kWideBox;     // units: a K box [, its Q box]
+
+  const int nb = D / 64;
+  const int h = blockIdx.y / plan.slices;
+  const int c0 = (blockIdx.y - h * plan.slices) * DV;  // the slice: O columns c0 .. c0 + DV - 1
+  const int q0 = blockIdx.x * 64;
+  const int b = blockIdx.z;
+  const int n_tiles = (Tk + N - 1) / N;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bars.q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bars.v_full[s], 1);
+      mbar_init(&bars.v_empty[s], 4);  // one arrival per consumer warp
+    }
+    for (int u = 0; u < plan.units; ++u) {
+      mbar_init(&bars.full[u], 1);
+      mbar_init(&bars.empty[u], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&bars.q_full, plan.resident * kWideBox);
+      for (int c = 0; c < plan.resident; ++c)
+        tma_load(q_res + c * kWideBox, &q_map, &bars.q_full, 64 * c, h, q0, b);
+      int u = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        for (int c = 0; c < nb; ++c) {
+          mbar_wait(&bars.empty[u], phase ^ 1);  // the first round passes
+          uint8_t* unit = ring + u * plan.unit_bytes;
+          const bool q_box = c >= plan.resident;
+          mbar_expect_tx(&bars.full[u], q_box ? 2 * kWideBox : kWideBox);
+          tma_load(unit, &k_map, &bars.full[u], 64 * c, h, j * N, b);
+          if (q_box) tma_load(unit + kWideBox, &q_map, &bars.full[u], 64 * c, h, q0, b);
+          if (++u == plan.units) {
+            u = 0;
+            phase ^= 1;
+          }
+        }
+        const int s = j & 1;
+        mbar_wait(&bars.v_empty[s], ((j >> 1) & 1) ^ 1);
+        mbar_expect_tx(&bars.v_full[s], kVBoxes * kWideBox);
+        for (int c = 0; c < kVBoxes; ++c)
+          tma_load(v_st + (s * kVBoxes + c) * kWideBox, &v_map, &bars.v_full[s], c0 + 64 * c, h,
+                   j * N, b);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x - 128;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+
+  float o[DV / 2];
+  float acc[N / 2];
+  uint32_t p[N / 16][4];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  Rows r;
+  int u = 0;
+  uint32_t phase = 0;
+  mbar_wait(&bars.q_full, 0);
+
+  // S_j = Q K_j^T over D's boxes: kVBoxes of them a commit group, then one
+  // at a time (the header says why).
+  uint64_t q_desc[kVBoxes], k_desc[kVBoxes];
+  auto wait_box = [&](int c, int i) {  // box c's unit, its descriptors in slot i
+    mbar_wait(&bars.full[u], phase);
+    const uint8_t* unit = ring + u * plan.unit_bytes;
+    q_desc[i] = smem_desc(c < plan.resident ? q_res + c * kWideBox : unit + kWideBox);
+    k_desc[i] = smem_desc(unit);
+    if (++u == plan.units) {
+      u = 0;
+      phase ^= 1;
+    }
+  };
+  auto issue_box = [&](int c, int i) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<N>(acc, q_desc[i] + 2 * kk, k_desc[i] + 2 * kk, c + kk);
+  };
+  auto retire_boxes = [&](int first, int count) {  // then the group's units are free
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) {
+      for (int i = 0; i < count; ++i) {
+        mbar_arrive(&bars.empty[first]);
+        if (++first == plan.units) first = 0;
+      }
+    }
+  };
+
+  for (int j = 0; j < n_tiles; ++j) {
+    int c = 0;
+    for (; c + kVBoxes <= nb; c += kVBoxes) {
+      const int first = u;
+#pragma unroll
+      for (int i = 0; i < kVBoxes; ++i) wait_box(c + i, i);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < kVBoxes; ++i) issue_box(c + i, i);
+      retire_boxes(first, kVBoxes);
+    }
+    for (; c < nb; ++c) {
+      const int first = u;
+      wait_box(c, 0);
+      wgmma_fence();
+      issue_box(c, 0);
+      retire_boxes(first, 1);
+    }
+    const int s = (j + 1) & 1;  // V_{j-1}'s stage
+    if (j > 0) {
+      mbar_wait(&bars.v_full[s], ((j - 1) >> 1) & 1);
+      fence_regs(o);
+      fence_regs(p);
+      wgmma_fence();
+      wide_issue_pv<DV, N>(o, p, smem_desc(v_st + s * kVBoxes * kWideBox, N * 128));
+    }
+    softmax_tile<N>(r, acc, j * N, Tk, t4, scale_log2);  // under P_{j-1} V_{j-1}
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+    if (j > 0 && lane == 0) mbar_arrive(&bars.v_empty[s]);  // V_{j-1} consumed
+    finish_tile<N, DV>(r, o, p, acc);
+  }
+
+  const int last = (n_tiles - 1) & 1;
+  mbar_wait(&bars.v_full[last], ((n_tiles - 1) >> 1) & 1);
+  fence_regs(o);
+  fence_regs(p);
+  wgmma_fence();
+  wide_issue_pv<DV, N>(o, p, smem_desc(v_st + last * kVBoxes * kWideBox, N * 128));
+  wgmma_wait<0>();
+  fence_regs(o);
+
+  float l0 = r.l0, l1 = r.l1;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / l0;
+  const float inv1 = 1.f / l1;
+  const int row_a = q0 + 16 * warp + (lane >> 2);
+  const int row_b = row_a + 8;
+  __nv_bfloat16* oa = out + (((size_t)b * Tq + row_a) * H + h) * D + c0 + 2 * t4;
+  __nv_bfloat16* ob = oa + (size_t)8 * H * D;
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n) {
+    if (c0 + 8 * n >= D) continue;  // a last slice's columns past D
+    if (row_a < Tq)
+      *reinterpret_cast<uint32_t*>(oa + n * 8) = pack_float2(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+    if (row_b < Tq)
+      *reinterpret_cast<uint32_t*>(ob + n * 8) = pack_float2(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+  }
+}
+
+// Encodes the three maps (64-row boxes) and launches the wide variant with
+// slices of DV columns (plan = wide_plan(D), plan.dv == DV). Returns a
+// cudaError_t.
+template <int DV>
+int launch_bthd_wide(const void* q, const void* k, const void* v, void* out, int B, int Tq,
+                     int Tk, int H, int D, WidePlan plan, BthdStrides qs, BthdStrides ks,
+                     BthdStrides vs, float scale_log2, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_bthd_map(&q_map, q, B, Tq, H, D, qs, 64) ||
+      !encode_bthd_map(&k_map, k, B, Tk, H, D, ks, 64) ||
+      !encode_bthd_map(&v_map, v, B, Tk, H, D, vs, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(bthd_wide_kernel<DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Tq + 63) / 64, H * plan.slices, B);
+  bthd_wide_kernel<DV><<<grid, 256, plan.smem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), Tq, Tk, H, D, plan, scale_log2);
   return (int)cudaGetLastError();
 }
 

@@ -15,7 +15,7 @@
 // of v and then dropped that sum from its output; that sum is dead work and is
 // not computed here. The TPU's 128-lane head pairing is not carried over.
 //
-// Design: flash_tile.cuh's loop with online_softmax taken out. The same block
+// Design: flash_tile.cuh's loop, which has no softmax. The same block
 // (4 warps, 64 query rows of one head), the same 64-key tiles staged through
 // shared memory, the same mma.sync m16n8k16 for S = Q K^T (tile_logits) and
 // O += bf16(S) V (tile_pv), the same output write. So its time is the floor

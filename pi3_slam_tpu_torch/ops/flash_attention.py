@@ -13,7 +13,7 @@ On a CUDA tensor both launch one hand-written kernel, ``csrc/attention.cu``
 unit-stride last dim and 16-byte aligned rows, such as the q / k / v views of
 a qkv projection) and takes bf16 at every head dim that is a multiple of 64:
 64 to 256 on the TMA + ``wgmma`` loop of ``csrc/bthd_attention.cuh``, wider
-head dims in column slices of O. On a CPU tensor both run
+head dims on its wide variant (column slices of O). On a CPU tensor both run
 :func:`blockwise_attention`, the kernel's plain version.
 
 Keys are masked by length, so Tk may differ from Tq on every route. The JAX

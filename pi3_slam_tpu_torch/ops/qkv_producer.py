@@ -2,17 +2,11 @@
 row padding in one pass over the packed (B, T, 3*H*D) qkv projection.
 
 Replaces the Pallas TPU kernel ``pi3_slam_tpu/ops/pallas_producer.py::
-qkv_rope_producer_tpu`` (kernel ``_producer_kernel``). The TPU version
-computed its 64-lane LayerNorm statistics with an averaging-matrix matmul and
-rotated with lane rolls; on the GPU both are a plain row reduction and index
-arithmetic, written here as a Triton kernel (no matrix product: one
-elementwise pass with two small reductions).
-
-Bound on the H100: bytes. At the decoder shape (100, 643, 3072) bf16 the pass
-reads 395 MB and writes 395 MB with ~20 flops per element, far below the
-~295 flop/byte ridge. The design reads every element once and writes it once
-(the rotation partner is a second, cached load of the same 128-byte row
-segment) and keeps all arithmetic in fp32 registers.
+qkv_rope_producer_tpu`` (kernel ``_producer_kernel``). On a CUDA tensor
+:func:`qkv_rope_producer` launches the hand-written kernel of
+``csrc/qkv_producer.cu`` (its header has the design and the bound: bytes,
+one read and one write of the tensor); on a CPU tensor it runs
+:func:`qkv_rope_producer_plain`.
 
 On the GPU the producer emits ``out_t = T`` (the attention kernel masks by
 length, so there is no padding lattice); ``out_t > T`` with zeroed rows stays
@@ -21,10 +15,13 @@ supported for the parity tests.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
 import torch
+
+from ._build import check_launch, load_library
 
 LOG2_E = math.log2(math.e)
 HEAD_DIM = 64
@@ -80,70 +77,14 @@ def qkv_rope_producer_plain(
 
 
 @functools.cache
-def _triton_kernel():
-    """Define the Triton kernel on first use (``triton`` exists only where
-    there is a GPU; importing this module must not need it)."""
-    import triton
-    import triton.language as tl
+def _kernel():
+    fn = load_library("qkv_producer").pi3_qkv_producer
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
 
-    @triton.jit
-    def _norm_rope(row_ptr, valid, cols, partner, sign, cs, sn,
-                   w_ptr, b_ptr, eps, HAS_NORM: tl.constexpr, D: tl.constexpr):
-        x = tl.load(row_ptr + cols[None, :], mask=valid[:, None], other=0.0).to(tl.float32)
-        xp = tl.load(row_ptr + partner[None, :], mask=valid[:, None], other=0.0).to(tl.float32)
-        if HAS_NORM:
-            mean = tl.sum(x, axis=1) / D
-            xc = x - mean[:, None]
-            var = tl.sum(xc * xc, axis=1) / D
-            rstd = 1.0 / tl.sqrt(var + eps)
-            w = tl.load(w_ptr + cols).to(tl.float32)
-            bb = tl.load(b_ptr + cols).to(tl.float32)
-            wp = tl.load(w_ptr + partner).to(tl.float32)
-            bp = tl.load(b_ptr + partner).to(tl.float32)
-            x = xc * rstd[:, None] * w[None, :] + bb[None, :]
-            xp = (xp - mean[:, None]) * rstd[:, None] * wp[None, :] + bp[None, :]
-        return x, x * cs + sign[None, :] * xp * sn
-
-    @triton.jit
-    def producer_kernel(
-        qkv_ptr, cos_ptr, sin_ptr, qw_ptr, qb_ptr, kw_ptr, kb_ptr, out_ptr, kn_ptr,
-        T, OUT_T, H, eps, scale,
-        HAS_NORM: tl.constexpr, WANT_KN: tl.constexpr,
-        BLOCK_T: tl.constexpr, D: tl.constexpr,
-    ):
-        pid_t = tl.program_id(0)
-        h = tl.program_id(1)
-        b = tl.program_id(2).to(tl.int64)
-        c = H * D
-        rows = pid_t * BLOCK_T + tl.arange(0, BLOCK_T)
-        cols = tl.arange(0, D)
-        partner = cols ^ (D // 4)  # rotation partner within each half
-        sign = tl.where((cols % (D // 2)) < (D // 4), -1.0, 1.0)
-        valid = rows < T
-        in_rows = qkv_ptr + (b * T + rows[:, None]) * (3 * c)
-        out_rows = out_ptr + (b * OUT_T + rows[:, None]) * (3 * c)
-        store_mask = (rows < OUT_T)[:, None]
-        tab = (b * T + rows[:, None]) * D + cols[None, :]
-        cs = tl.load(cos_ptr + tab, mask=valid[:, None], other=0.0)
-        sn = tl.load(sin_ptr + tab, mask=valid[:, None], other=0.0)
-
-        _, q = _norm_rope(in_rows + h * D, valid, cols, partner, sign, cs, sn,
-                          qw_ptr, qb_ptr, eps, HAS_NORM, D)
-        q = tl.where(valid[:, None], q * scale, 0.0)
-        tl.store(out_rows + h * D + cols[None, :], q.to(out_ptr.dtype.element_ty), mask=store_mask)
-
-        kpre, k = _norm_rope(in_rows + c + h * D, valid, cols, partner, sign, cs, sn,
-                             kw_ptr, kb_ptr, eps, HAS_NORM, D)
-        if WANT_KN:
-            sq = tl.sum(tl.where(valid[:, None], kpre * kpre, 0.0), axis=1)
-            tl.atomic_max(kn_ptr + b * H + h, tl.max(sq, axis=0))
-        k = tl.where(valid[:, None], k, 0.0)
-        tl.store(out_rows + c + h * D + cols[None, :], k.to(out_ptr.dtype.element_ty), mask=store_mask)
-
-        v = tl.load(in_rows + 2 * c + h * D + cols[None, :], mask=valid[:, None], other=0.0)
-        tl.store(out_rows + 2 * c + h * D + cols[None, :], v, mask=store_mask)
-
-    return producer_kernel
 
 
 def qkv_rope_producer(
@@ -168,7 +109,9 @@ def qkv_rope_producer(
     ``return_k_norms`` also the per-head max |k| (B*H,) fp32 (post-norm;
     RoPE preserves norms).
 
-    A CUDA tensor runs the Triton kernel (bf16 only); a CPU tensor runs
+    A CUDA tensor runs the kernel of ``csrc/qkv_producer.cu`` (bfloat16,
+    head dim 64, qkv and the fp32 tables and norm parameters contiguous on
+    16-byte aligned bases; anything else raises); a CPU tensor runs
     :func:`qkv_rope_producer_plain`.
     """
     if not qkv.is_cuda:
@@ -180,28 +123,24 @@ def qkv_rope_producer(
         raise ValueError(f"qkv_rope_producer kernel takes head dim {HEAD_DIM}")
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"qkv_rope_producer kernel takes bfloat16, got {qkv.dtype}")
-    if not qkv.is_contiguous():
-        raise ValueError("qkv must be contiguous")
     b, t, c3 = qkv.shape
     dev = qkv.device
-    cos = cos.to(device=dev, dtype=torch.float32).contiguous()
-    sin = sin.to(device=dev, dtype=torch.float32).contiguous()
-    has_norm = q_norm_scale is not None
-    if has_norm:
-        norm = [p.to(device=dev, dtype=torch.float32).contiguous()
-                for p in (q_norm_scale, q_norm_bias, k_norm_scale, k_norm_bias)]
-    else:
-        norm = [cos] * 4  # never read
+    cos, sin = (x.to(device=dev, dtype=torch.float32).contiguous() for x in (cos, sin))
+    norm = [] if q_norm_scale is None else [
+        p.to(device=dev, dtype=torch.float32).contiguous()
+        for p in (q_norm_scale, q_norm_bias, k_norm_scale, k_norm_bias)]
+    # 16-byte vector loads: every base aligned, qkv contiguous (the others are made so)
+    if not qkv.is_contiguous() or any(x.data_ptr() % 16 for x in (qkv, cos, sin, *norm)):
+        raise ValueError("qkv_rope_producer kernel needs contiguous qkv and 16-byte aligned bases")
+    ptrs = [p.data_ptr() for p in norm] or [None] * 4
     out = torch.empty((b, out_t, c3), device=dev, dtype=qkv.dtype)
-    kn_sq = torch.zeros((b * num_heads,), device=dev, dtype=torch.float32)
-    block_t = 64
-    grid = (-(-out_t // block_t), num_heads, b)
-    _triton_kernel()[grid](
-        qkv, cos, sin, *norm, out, kn_sq,
-        t, out_t, num_heads, float(eps), HEAD_DIM**-0.5 * LOG2_E,
-        HAS_NORM=has_norm, WANT_KN=return_k_norms, BLOCK_T=block_t, D=HEAD_DIM,
-        num_warps=4,
+    kn_sq = torch.zeros((b * num_heads,), device=dev, dtype=torch.float32) if return_k_norms else None
+    code = _kernel()(
+        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), *ptrs, out.data_ptr(),
+        None if kn_sq is None else kn_sq.data_ptr(), b, t, out_t, num_heads, float(eps),
+        HEAD_DIM**-0.5 * LOG2_E, dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
+    check_launch(code, "qkv_rope_producer")
     qkv_rope_producer.launches += 1
     if return_k_norms:
         return out, kn_sq.sqrt()

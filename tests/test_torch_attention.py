@@ -106,13 +106,13 @@ def test_sdpa_matches_jax(rng, tq, tk, d):
 
 
 @pytest.mark.parametrize("tq,d", [(300, 192), (700, 256), (4100, 192), (4100, 256), (300, 320),
-                                  (4100, 320)])
+                                  (4100, 320), (300, 384), (300, 512)])
 def test_wide_head_dims_match_jax(rng, tq, d):
     """Head dims 192 and 256 (the card's TMA + wgmma loop at its widest
-    tiles) and 320 (the column-sliced kernel): sdpa and the kernels' plain
-    version (what flash_attention and attention_single_pass run on a CPU
-    tensor) against the JAX sdpa (its XLA route, or blockwise attention at
-    T >= 4096)."""
+    tiles) and 320, 384, 512 (its wide variant: one slice of O, then two):
+    sdpa and the kernels' plain version (what flash_attention and
+    attention_single_pass run on a CPU tensor) against the JAX sdpa (its XLA
+    route, or blockwise attention at T >= 4096)."""
     q, k, v = _qkv(rng, 1, tq, 2, d)
     want = np.asarray(jax_attention.sdpa(*map(jnp.asarray, (q, k, v))))
     assert sdpa_route(tq, d, True) == ("flash" if tq > 1280 else "single_pass")
@@ -143,6 +143,20 @@ def test_sdpa_route_follows_the_jax_dispatch(monkeypatch, t, d, on_device):
     assert sdpa_route(t, d, on_device) == jax_attention.sdpa(x, x, x)
 
 
+@pytest.mark.parametrize("t", [300, 2572, 4096])
+@pytest.mark.parametrize("d", [1152, 4096])
+def test_sdpa_route_sends_every_wide_head_dim_to_the_kernels(monkeypatch, t, d):
+    """Head dims far above the main path's (the card's wide variant streams
+    Q and K through its ring, so no head dim is too wide): the kernels on
+    CUDA, as in the JAX dispatch (stubbed as above)."""
+    monkeypatch.setattr(jax_attention, "on_tpu_platform", lambda: True)
+    monkeypatch.setattr(jax_pallas, "flash_attention_tpu", lambda *a, **kw: "flash")
+    monkeypatch.setattr(jax_pallas, "attention_single_pass_tpu", lambda *a, **kw: "single_pass")
+    x = jax.ShapeDtypeStruct((1, t, 1, d), jnp.float32)
+    assert sdpa_route(t, d, True) == jax_attention.sdpa(x, x, x)
+    assert sdpa_route(t, d, True) in ("flash", "single_pass")
+
+
 def test_score_matrix_matches_jax(rng):
     frames, tokens = 3, 40
     q, k, _ = _qkv(rng, 2, frames * tokens, 2, 32)
@@ -170,7 +184,7 @@ def _kernel_bf16_p(q, k, v):
     return o.transpose(1, 2).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 512])
 def test_chip_bounds_pass_kernel_arithmetic_and_reject_wrong_outputs(rng, d):
     q, k, v = (_t(a).to(torch.bfloat16) for a in _qkv(rng, 2, 300, 2, d, 170))
     got = _kernel_bf16_p(q, k, v)

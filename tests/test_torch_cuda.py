@@ -27,6 +27,7 @@ from pi3_slam_tpu_torch.ops.compare import (
     compare,
 )
 from pi3_slam_tpu_torch.ops.dots_attention import dots_attention, dots_attention_plain
+from pi3_slam_tpu_torch.ops.attention import sdpa
 from pi3_slam_tpu_torch.ops.flash_attention import (
     attention_single_pass,
     blockwise_attention,
@@ -77,6 +78,92 @@ def _packed(gen, b, t, h):
         k_norm_bias=0.1 * torch.randn(D, generator=gen, device="cuda"),
     )
     return qkv, cos, sin, norm
+
+
+def _producer_input(gen, b, t, h):
+    """Raw qkv at head dim 64 and the RoPE tables of a (1, t) patch grid."""
+    qkv = _randn(gen, b, t, 3 * h * D)
+    cos, sin = rope_tables(make_patch_positions(b, 1, t, offset=1, device="cuda"), D)
+    return qkv, cos, sin
+
+
+def _producer_norm(gen):
+    return dict(
+        q_norm_scale=1 + 0.1 * torch.randn(D, generator=gen, device="cuda"),
+        q_norm_bias=0.1 * torch.randn(D, generator=gen, device="cuda"),
+        k_norm_scale=1 + 0.1 * torch.randn(D, generator=gen, device="cuda"),
+        k_norm_bias=0.1 * torch.randn(D, generator=gen, device="cuda"),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_norm", [True, False])
+@pytest.mark.parametrize("pad", [0, 37])
+@pytest.mark.parametrize("t", [1, 63, 643, 4100])
+@pytest.mark.parametrize("h", [2, 5, 6, 16, 20])
+def test_producer_heads_and_lengths_match_plain(gen, h, t, pad, with_norm):
+    """H 5 and 6 mask the last 512-byte pass of a row, H 16 fills four, H 20
+    adds a second grid row of heads, partly masked; T 1 is one row, 63 and
+    643 ragged, 4100 many rows a warp; out_t = T + pad, rows past T zero."""
+    b = 1 if t == 4100 else 2
+    qkv, cos, sin = _producer_input(gen, b, t, h)
+    kw = _producer_norm(gen) if with_norm else {}
+    got, kn = qkv_rope_producer(qkv, cos, sin, h, t + pad, return_k_norms=True, **kw)
+    ref, kn_ref = qkv_rope_producer_plain(qkv, cos, sin, h, t + pad, return_k_norms=True, **kw)
+    c = h * D
+    for i in range(3):  # q, k, v
+        _assert_close(got[:, :t, i * c:(i + 1) * c], ref[:, :t, i * c:(i + 1) * c],
+                      **PRODUCER)
+    assert torch.equal(got[:, :t, 2 * c:], qkv[..., 2 * c:])  # v copied bit for bit
+    assert not got[:, t:].any()
+    _assert_close(kn, kn_ref, max_rel=1e-5, l2_rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_producer_repeats_bit_for_bit(gen):
+    """kn's atomic maxima do not depend on the order the warps reach them."""
+    qkv, cos, sin = _producer_input(gen, 3, 643, 16)
+    norm = _producer_norm(gen)
+    first = qkv_rope_producer(qkv, cos, sin, 16, 643, return_k_norms=True, **norm)
+    second = qkv_rope_producer(qkv, cos, sin, 16, 643, return_k_norms=True, **norm)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [0, 21])
+def test_producer_reads_no_row_past_t(gen, pad):
+    """qkv cut from a longer buffer whose rows past T hold NaN: the output and
+    kn equal those of a clean copy bit for bit, rows past T zero."""
+    h, t = 6, 301
+    buf = _randn(gen, 1, t + 64, 3 * h * D)
+    clean = buf[:, :t].clone()
+    buf[:, t:] = float("nan")
+    qkv = buf[:, :t]
+    assert qkv.is_contiguous()
+    cos, sin = rope_tables(make_patch_positions(1, 1, t, offset=1, device="cuda"), D)
+    norm = _producer_norm(gen)
+    got = qkv_rope_producer(qkv, cos, sin, h, t + pad, return_k_norms=True, **norm)
+    want = qkv_rope_producer(clean, cos, sin, h, t + pad, return_k_norms=True, **norm)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not got[0][:, t:].any()
+
+
+@pytest.mark.cuda
+def test_producer_refuses_what_the_kernel_does_not_take(gen):
+    qkv, cos, sin = _producer_input(gen, 1, 70, 2)
+    before = launch_counts()
+    with pytest.raises(TypeError):
+        qkv_rope_producer(qkv.float(), cos, sin, 2, 70)
+    wide = _randn(gen, 1, 70, 3 * 2 * 128)  # head dim 128
+    cos128, sin128 = rope_tables(make_patch_positions(1, 1, 70, offset=1, device="cuda"), 128)
+    with pytest.raises(ValueError):
+        qkv_rope_producer(wide, cos128, sin128, 2, 70)
+    strided = _randn(gen, 1, 70, 2 * 3 * 2 * D)[..., ::2]  # not contiguous
+    with pytest.raises(ValueError):
+        qkv_rope_producer(strided, cos, sin, 2, 70)
+    assert launch_counts() == before
+    qkv_rope_producer(qkv, cos, sin, 2, 70)
+    assert launch_counts()["qkv_rope_producer"] == before["qkv_rope_producer"] + 1
 
 
 @pytest.mark.cuda
@@ -255,13 +342,14 @@ def _bthd_views(gen, b, tq, tk, h, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 192, 256, 320])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 512])
 @pytest.mark.parametrize("tq,tk", [(301, 301), (301, 150), (130, 333), (70, 1)])
 def test_bthd_attention_matches_plain(gen, d, tq, tk):
     """Tk < Tq and Tk > Tq, neither a multiple of a key tile (128 keys at D
-    64 / 128, 64 at D 192 / 256) nor of the 128-row query block; strided q /
-    k / v read in place through their tensor maps. Head dim 320 takes the
-    column-sliced wide kernel (64-wide slices of O)."""
+    64 / 128, 64 at D 192 and up) nor of the query block; strided q / k / v
+    read in place through their tensor maps. Head dims 320, 384 and 512 take
+    the wide variant: one slice of O at 320, two at 384 (192 wide) and 512
+    (256 wide)."""
     q, k, v = _bthd_views(gen, 2, tq, tk, 3, d)
     assert not q.is_contiguous() and not k.is_contiguous()
     ref = blockwise_attention(q, k, v)
@@ -270,12 +358,26 @@ def test_bthd_attention_matches_plain(gen, d, tq, tk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("d", [448, 576, 640, 1088, 1152, 2048])
+def test_wide_head_dims_cover_every_tile(gen, d):
+    """The wide variant's other plans: a last slice partly past D (448: two
+    of 256; 640: three of 256), three slices of 192 (576), and Q too wide to
+    stay in shared memory (1088: four boxes resident, thirteen streamed
+    beside K; 1152 and 2048 likewise), with Tk > Tq."""
+    q, k, v = _bthd_views(gen, 2, 130, 333, 2, d)
+    ref = blockwise_attention(q, k, v)
+    _assert_close(flash_attention(q, k, v), ref, **ATTENTION)
+    _assert_close(attention_single_pass(q, k, v), ref, **ATTENTION)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 512])
 @pytest.mark.parametrize("t", [129, 643, 4100])
 def test_bthd_attention_ragged_batches(gen, d, t):
     """B 2 and H 6 at ragged T: one query row and key past a 128 tile, the
-    frame length, and 33 (D 64 / 128) or 65 (D 192 / 256) key tiles, so the
-    ring of K / V stages wraps many times; contiguous q / k / v."""
+    frame length, and 33 (D 64 / 128) or 65 (D 192 and up) key tiles, so the
+    ring of K / V stages (of K's boxes, in the wide variant) wraps many
+    times; contiguous q / k / v."""
     q, k, v = (_randn(gen, 2, t, 6, d) for _ in range(3))
     ref = blockwise_attention(q, k, v)
     _assert_close(flash_attention(q, k, v), ref, **ATTENTION)
@@ -291,7 +393,7 @@ def _nan_tail(x, t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 320, 384, 512])
 @pytest.mark.parametrize("entry", [flash_attention, attention_single_pass])
 def test_bthd_attention_reads_no_row_past_the_length(gen, entry, d):
     """q (Tq 301) and k / v (Tk 150) cut from longer buffers whose rows past
@@ -338,6 +440,10 @@ def test_bthd_wrappers_count_launches_and_refuse_what_the_kernel_does_not_take(g
     with pytest.raises(ValueError):
         flash_attention(odd_d, odd_d, odd_d)
     assert launch_counts() == after
+    # a head dim far past the main path's still takes the kernel, through sdpa too
+    q, k, v = (_randn(gen, 1, 300, 1, 1152) for _ in range(3))
+    _assert_close(sdpa(q, k, v), blockwise_attention(q, k, v), **ATTENTION)
+    assert launch_counts()["attention_single_pass"] == after["attention_single_pass"] + 1
 
 
 @pytest.mark.cuda

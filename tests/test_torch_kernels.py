@@ -70,6 +70,7 @@ def _tables(b, t, with_rope):
         (2, 300, 4, 384, True, True),  # decoder block: norm + rope, zero rows to out_t
         (3, 260, 2, 260, False, True),  # head block: rope only, unpadded
         (1, 384, 4, 512, True, False),  # norm only
+        (2, 190, 6, 256, True, True),  # H 6 (C 384): the kernel masks its last pass
     ],
 )
 def test_producer_plain_matches_pallas(rng, b, t, h, out_t, with_norm, with_rope):
