@@ -28,24 +28,35 @@ Phases, each of which raises (exit code 1) on failure:
    flash_attention and attention_single_pass run above head dim 256 (keys
    past Tk NaN at the first shape, bit-identical); the kernels line reports
    them under the entry's "routes". The producer's record also gives its effective TB/s
-   (its bytes over its time).
+   (its bytes over its time). Then the dots-only probe kernel (the
+   products-only mode of the (B, T, H, D) loop) at (1, 65536, 3072), and the
+   fp32 entries of every other kernel at the main paths' shapes, against
+   their fp32 plain versions (TF32 off) with the bounds of ops/compare.FP32,
+   each also shown to reject the bf16 entry's output on the same inputs;
+   their bound is the products over 3xTF32's 165 TFLOP/s (or the bytes), the
+   library yardstick fp32 SDPA or the two fp32 cuBLAS products.
 3. Full-width forwards with random weights (seed 0): Pi3 on a 4-frame chunk
-   at 308x406, exact and with global_kv_merge=2, MoGe-2 (ViT-S backbone) on
-   one 308x406 frame, the cross-attention block at Pi3's decoder widths over
-   one frame's and four frames' tokens, and two Blocks off the packed kernels'
-   widths (8 heads of 128; C 320); the kernel path (bf16 on the card)
-   against the plain path (fp32 on the host CPU), with each run's launch
-   counts (counts set to 0 just before it).
+   at 308x406, exact and with global_kv_merge=2, in bf16 and in fp32, MoGe-2
+   (ViT-S backbone, fp32 trunk as MoGeRunner builds it) on one 308x406
+   frame, the cross-attention block at Pi3's decoder widths over one frame's
+   and four frames' tokens (bf16 and fp32), and two Blocks off the packed
+   kernels' widths (8 heads of 128; C 320); the kernel path on the card
+   against the plain path (fp32 on the host CPU): bf16 within 5e-2, fp32
+   within 1e-3, with each run's launch counts (counts set to 0 just before
+   it).
 4. The main paths through the port's CLI over 130 synthetic 640x480 frames,
    chunks of 100 with overlap 20, 400 grid keypoints: with MoGe-2 metric
    scale from a random-weight MoGe npz (the 7-Scenes evaluation protocol),
-   and with --global-kv-merge 2 --no-metric-depth. Each: two chunk files and
+   with --global-kv-merge 2 --no-metric-depth, and with --compute-dtype
+   float32 (MoGe-2 as in the first). Each: two chunk files and
    a manifest with the JAX creator's keys and finite values, the seconds and
    frames/s of each chunk, and the kernel launch counts of the run (counts
    set to 0 just before it).
 5. sol: the speed-of-light probe through its entry point
    (pi3_slam_tpu_torch.tools.perf_lab sol): a square 8192^3 bf16 matmul,
-   dots_attention, flash_attention_packed and block_mlp at (1, 65536, ...),
+   dots_attention, flash_attention_packed, flash_attention over the same
+   q / k / v views (the loop dots_attention runs, with its softmax) and
+   block_mlp at (1, 65536, ...),
    with the run's launch counts and each kernel's TFLOP/s as a share of the
    matmul's; then SDPA's time and the packed kernel's two bounds at the
    probe's attention shape.
@@ -106,36 +117,69 @@ KERNELS = {
     "dots_attention": (
         "cuda", "pi3_slam_tpu_torch/csrc/dots_attention.cu", "tools/perf_lab.py:107"),
 }
+# the loop a kernel runs, where its source does not say it alone
+LOOPS = {"dots_attention": "pi3_slam_tpu_torch/csrc/bthd_attention.cuh (products-only mode)"}
+# the fp32 entries (an fp32 model's activations: --compute-dtype float32,
+# MoGe-2's encoder), each its own kernel beside the bf16 one of its wrapper
+F32_SOURCES = {
+    "qkv_rope_producer": "pi3_slam_tpu_torch/csrc/qkv_producer.cu",
+    "block_mlp": "pi3_slam_tpu_torch/csrc/gemm_f32.cuh",
+    "mlp": "pi3_slam_tpu_torch/csrc/gemm_f32.cuh",
+}
+KERNELS.update({
+    f"{name}_fp32": ("cuda", F32_SOURCES.get(name, "pi3_slam_tpu_torch/csrc/attention_f32.cu"),
+                     replaces)
+    for name, (_, _, replaces) in list(KERNELS.items()) if name != "dots_attention"})
 # the card's peaks (H100 SXM data sheet): bf16 tensor cores, fp32 outside
-# them, device memory
+# them, device memory; the fp32 entries' products run on the tensor cores in
+# TF32 (495 TFLOP/s) three times over (3xTF32)
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+PEAK_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 # exp2 on the special-function units (FlashAttention-3, Shah et al. 2024, §3):
 # at head dim 64 one exp2 per logit weighs as much as the two products
 PEAK_EXP2 = 3.9e12
 # launches of one Pi3 forward over a chunk: 36 decoder + 15 head producer
 # passes; 24 encoder + 18 frame + 15 head single-pass; 18 global; 75 block MLPs
+# (the nonzero counts of a run; an fp32 model runs the same counts on the
+# <name>_fp32 entries)
 PI3_LAUNCHES = {
     "qkv_rope_producer": 51,
     "attention_single_pass_packed": 57,
     "flash_attention_packed": 18,
-    "flash_attention_partial": 0,
     "block_mlp": 75,
-    "flash_attention": 0,
-    "attention_single_pass": 0,
-    "mlp": 0,
-    "dots_attention": 0,
 }
 # with global_kv_merge > 1 the 18 global blocks do qk-norm and RoPE in plain
 # torch (no producer pass) and run the partial kernel
-PI3_KV_MERGE_LAUNCHES = dict(PI3_LAUNCHES, qkv_rope_producer=33, flash_attention_packed=0,
-                             flash_attention_partial=18)
-# MoGe-2's 12 ViT-S encoder blocks on the chunk's first frame
-MOGE_LAUNCHES = {"attention_single_pass_packed": 12, "block_mlp": 12}
+PI3_KV_MERGE_LAUNCHES = {"qkv_rope_producer": 33, "attention_single_pass_packed": 57,
+                         "flash_attention_partial": 18, "block_mlp": 75}
+# MoGe-2's 12 ViT-S encoder blocks on the chunk's first frame, in fp32 as the
+# JAX runner computes them
+MOGE_LAUNCHES = {"attention_single_pass_packed_fp32": 12, "block_mlp_fp32": 12}
+
+
+def fp32(counts: dict) -> dict:
+    """The same launches on the fp32 entries."""
+    return {f"{name}_fp32": n for name, n in counts.items()}
+
+
+def add(*counts: dict) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
 PATH_LAUNCHES = {  # launches per chunk of each main path through the CLI
-    "metric_depth": {k: v + MOGE_LAUNCHES.get(k, 0) for k, v in PI3_LAUNCHES.items()},
+    "metric_depth": add(PI3_LAUNCHES, MOGE_LAUNCHES),
     "kv_merge": PI3_KV_MERGE_LAUNCHES,
+    "float32": add(fp32(PI3_LAUNCHES), MOGE_LAUNCHES),
 }
 # launches of one forward of each phase-3 block (nonzero counts): the cross
 # block's self-attention takes the producer and a packed entry (single-pass
@@ -150,6 +194,8 @@ BLOCK_LAUNCHES = {
     "block_d128": {"attention_single_pass": 1, "block_mlp": 1},
     "block_c320": {"qkv_rope_producer": 1, "attention_single_pass_packed": 1},
 }
+BLOCK_LAUNCHES.update({f"{path}_fp32": fp32(c) for path, c in list(BLOCK_LAUNCHES.items())
+                       if path.startswith("cross")})
 FRAME_T = 643  # 638 patches (22 x 29 at 308x406) + 5 register tokens
 N_FRAMES = 100
 MOGE_T = 3537  # 52 x 68 patches of a 308x406 frame at 3600 tokens + cls
@@ -253,17 +299,36 @@ def gemm_bits(name: str, shape: str, x, fn) -> None:
 
 
 def products_ms(shape: str, x, w1, w2, iters: int) -> float:
-    """The two bare bf16 cuBLAS products of an MLP at x's shape
-    (F.linear(x, w1), F.linear(h, w2) with no bias): a yardstick for the
-    fused GEMMs that computes less than they do (not library_ms: no single
-    call computes the fused function)."""
+    """The two bare cuBLAS products of an MLP at x's shape and dtype
+    (F.linear(x, w1), F.linear(h, w2) with no bias; fp32 with TF32 off): a
+    yardstick for the fused GEMMs that computes less than they do (not
+    library_ms: no single call computes the fused function)."""
     import torch
     import torch.nn.functional as F
 
     h = torch.empty(*x.shape[:-1], w1.shape[0], device="cuda", dtype=x.dtype).normal_()
     ms = time_ms(lambda: (F.linear(x, w1), F.linear(h, w2)), iters)
-    log(f"  {'products yardstick':30s} {shape:28s} 2 x F.linear (bf16, no bias) {ms:9.3f} ms")
+    dt = str(x.dtype).replace("torch.", "")
+    log(f"  {'products yardstick':30s} {shape:28s} 2 x F.linear ({dt}, no bias) {ms:9.3f} ms")
     return ms
+
+
+def check_fp32(name: str, shape: str, got, ref, bf16_got, why: str, **bounds):
+    """An fp32 entry's output against its fp32 plain version (check), and the
+    same bounds against the bf16 entry's output on the same inputs, which
+    they must reject: the path is really fp32."""
+    import torch
+
+    from pi3_slam_tpu_torch.ops.compare import compare
+
+    if got.dtype != torch.float32:
+        raise RuntimeError(f"{name} {shape}: the fp32 entry returned {got.dtype}")
+    c = check(name, shape, got, ref, why, **bounds)
+    b = compare(bf16_got.float(), ref, **bounds)
+    log(f"  {name:32s} {shape:28s} the bf16 entry: {b} {'rejected, ok' if not b.ok else 'PASSES, FAIL'}")
+    if b.ok:
+        raise RuntimeError(f"{name} {shape}: the fp32 bounds pass the bf16 entry's output ({b})")
+    return c
 
 
 def phase_build() -> None:
@@ -272,7 +337,7 @@ def phase_build() -> None:
     from pi3_slam_tpu_torch.ops._build import build
 
     names = ("qkv_producer", "packed_attention", "partial_attention", "block_mlp", "attention",
-             "dots_attention")
+             "dots_attention", "attention_f32")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(build, names))
     for name, (so, seconds) in zip(names, built):
@@ -302,7 +367,7 @@ def phase_kernels() -> dict:
 
     from pi3_slam_tpu_torch.ops.block_mlp import block_mlp, block_mlp_plain
     from pi3_slam_tpu_torch.ops.compare import (
-        ATTENTION, DOTS, MLP, PARTIAL_L, PRODUCER, block_mlp_bounds)
+        ATTENTION, DOTS, FP32, MLP, PARTIAL_L, PRODUCER, block_mlp_bounds)
     from pi3_slam_tpu_torch.ops.dots_attention import dots_attention, dots_attention_plain
     from pi3_slam_tpu_torch.ops.flash_attention import (
         attention_single_pass, blockwise_attention, flash_attention)
@@ -628,19 +693,186 @@ def phase_kernels() -> dict:
             shape_name, x, w1, w2, 5)
         if shape[0] == 1:
             gemm_bits("mlp", shape_name, x, lambda a: mlp(a, w1, b1, w2, b2))
+    del x, w1, w2
+
+    # --- the fp32 entries at the main paths' shapes (--compute-dtype float32;
+    # MoGe-2's encoder on every metric-depth chunk): against the fp32 plain
+    # versions (TF32 off), each bound also shown to reject the bf16 entry's
+    # output on the same inputs. Bound: the products over 3xTF32's 165
+    # TFLOP/s; library: the same call in fp32 (SDPA, two cuBLAS products).
+    def randn32(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    why32 = "3xTF32 products, fp32 sums in another order"
+    produced32 = {}
+    for shape_name, (b, fpr) in (("(100, 643, 3072) fp32 norm", (N_FRAMES, 1)),
+                                 ("(1, 64300, 3072) fp32 norm", (1, N_FRAMES))):
+        t = fpr * FRAME_T
+        qkv = randn32(b, t, 3 * C)
+        cos, sin = rope_for(b, fpr)
+        want_kn = b == 1
+        run = lambda: qkv_rope_producer(qkv, cos, sin, H, t, return_k_norms=want_kn, **norm)
+        plain = lambda: qkv_rope_producer_plain(qkv, cos, sin, H, t, return_k_norms=want_kn,
+                                                **norm)
+        got, ref = run(), plain()
+        bf = qkv_rope_producer(qkv.to(bf16), cos, sin, H, t, return_k_norms=want_kn, **norm)
+        if want_kn:
+            (got, kn), (ref, kn_ref), (bf, _) = got, ref, bf
+            check("qkv_rope_producer_fp32 kn", shape_name, kn, kn_ref,
+                  "fp32 sums in another order", max_rel=1e-5, l2_rel=1e-5)
+        checks = [check_fp32(f"qkv_rope_producer_fp32 {part}", shape_name,
+                             got[..., i * C:(i + 1) * C], ref[..., i * C:(i + 1) * C],
+                             bf[..., i * C:(i + 1) * C], "fp32 in another order", **FP32)
+                  for i, part in enumerate("qk")]
+        same_bits("qkv_rope_producer_fp32 v", shape_name, got[..., 2 * C:], qkv[..., 2 * C:],
+                  "the input (copied)")
+        work = (2 * b * t * C * 11, 2 * qkv.numel() * 4 + 2 * cos.numel() * 4, PEAK_FP32)
+        record("qkv_rope_producer_fp32", shape_name, checks, time_ms(run, 10), time_ms(plain, 3),
+               work)
+        produced32[shape_name] = ref
+        del got, bf, qkv
+
+    def packed_work32(qkv):
+        b, t, c3 = qkv.shape
+        return (attention_flops(b, c3 // 192, t, t, 64), qkv.numel() * 4 + qkv.numel() // 3 * 4,
+                PEAK_3XTF32)
+
+    for shape_name, qkv, q_scale in (
+            ("(100, 643, 3072) fp32 producer", produced32["(100, 643, 3072) fp32 norm"], 1.0),
+            (f"(1, {MOGE_T}, 1152) fp32 q_scale", randn32(1, MOGE_T, 3 * 384), scale)):
+        h = qkv.shape[-1] // 192
+        run = lambda: attention_single_pass_packed(qkv, h, q_scale=q_scale)
+        plain = lambda: packed_attention_plain(qkv, h, q_scale=q_scale)
+        c = check_fp32("attention_single_pass_packed_fp32", shape_name, run(), plain(),
+                       attention_single_pass_packed(qkv.to(bf16), h, q_scale=q_scale), why32,
+                       **FP32)
+        record("attention_single_pass_packed_fp32", shape_name, [c], time_ms(run, 10),
+               time_ms(plain, 3), packed_work32(qkv), packed_sdpa_ms(qkv, q_scale, 10))
+    for q_scale in (0.0, -0.3):  # any scale, taken as it is by the fp32 kernel
+        check("attention_single_pass_packed_fp32", f"(1, {MOGE_T}, 1152) q_scale={q_scale}",
+              attention_single_pass_packed(qkv, 6, q_scale=q_scale),
+              packed_attention_plain(qkv, 6, q_scale=q_scale), why32, **FP32)
+    unpadded = produced32["(100, 643, 3072) fp32 norm"]
+    padded = torch.nn.functional.pad(unpadded, (0, 0, 0, 61))
+    padded[:, FRAME_T:] = float("nan")
+    same_bits("attention_single_pass_packed_fp32", "(100, 704, 3072) true_t=643, NaN rows",
+              attention_single_pass_packed(padded, H, true_t=FRAME_T),
+              attention_single_pass_packed(unpadded, H))
+    del padded, unpadded
+    qkv = produced32["(1, 64300, 3072) fp32 norm"]
+    shape_name = "(1, 64300, 3072) fp32"
+    run = lambda: flash_attention_packed(qkv, H)
+    plain = lambda: packed_attention_plain(qkv, H)
+    c = check_fp32("flash_attention_packed_fp32", shape_name, run(), plain(),
+                   flash_attention_packed(qkv.to(bf16), H), why32, **FP32)
+    record("flash_attention_packed_fp32", shape_name, [c], time_ms(run, 2), time_ms(plain, 1),
+           packed_work32(qkv), packed_sdpa_ms(qkv, 1.0, 2))
+    del qkv, produced32
+
+    tq, tk = N_FRAMES * FRAME_T, N_FRAMES // 2 * FRAME_T
+    q, k_full, v_full = randn32(1, tq, H, 64), randn32(1, tq, H, 64), randn32(1, tq, H, 64)
+    k, v = k_full[:, :tk].contiguous(), v_full[:, :tk].contiguous()
+    kn = k.square().sum(-1).amax(1).sqrt()
+    shape_name = f"(1, {tq}, 16, 64) x (1, {tk}, 16, 64) fp32"
+    run = lambda: flash_attention_partial(q, k, v, kn)
+    plain = lambda: partial_attention_plain(q, k, v, kn)
+    (acc, l), (acc_ref, l_ref) = run(), plain()
+    acc_bf, l_bf = flash_attention_partial(q.to(bf16), k.to(bf16), v.to(bf16), kn)
+    checks = [check_fp32("flash_attention_partial_fp32 acc", shape_name, acc, acc_ref, acc_bf,
+                         why32, **FP32),
+              check("flash_attention_partial_fp32 l", shape_name, l, l_ref, why32, **FP32),
+              check_fp32("flash_attention_partial_fp32 acc/l", shape_name, acc / l[..., None],
+                         acc_ref / l_ref[..., None], acc_bf / l_bf[..., None], why32, **FP32)]
+    del acc_bf, l_bf, acc_ref, l_ref
+    nan_rows(k_full, tk)
+    nan_rows(v_full, tk)
+    same_bits("flash_attention_partial_fp32", f"{shape_name}, NaN keys past Tk",
+              flash_attention_partial(q, k_full[:, :tk], v_full[:, :tk], kn), (acc, l))
+    del k_full, v_full, acc, l
+    work = (attention_flops(1, H, tq, tk, 64),
+            (q.numel() + k.numel() + v.numel()) * 4 + q.numel() * 4 + tq * H * 4, PEAK_3XTF32)
+    record("flash_attention_partial_fp32", shape_name, checks, time_ms(run, 2), time_ms(plain, 1),
+           work)
+    del q, k, v
+
+    def bthd32(name, shape_name, q, k, v, iters, plain_iters):
+        fn = flash_attention if name == "flash_attention_fp32" else attention_single_pass
+        run = lambda: fn(q, k, v)
+        plain = lambda: blockwise_attention(q, k, v)
+        c = check_fp32(name, shape_name, run(), plain(),
+                       fn(q.to(bf16), k.to(bf16), v.to(bf16)), why32, **FP32)
+        b, tq, h, d = q.shape
+        work = (attention_flops(b, h, tq, k.shape[1], d),
+                (2 * q.numel() + k.numel() + v.numel()) * 4, PEAK_3XTF32)
+        record(name, shape_name, [c], time_ms(run, iters), time_ms(plain, plain_iters), work,
+               sdpa_ms(q, k, v, d**-0.5, iters))
+
+    q, k, v = randn32(1, 8192, 3, 8, 128).unbind(2)
+    bthd32("flash_attention_fp32", "(1, 8192, 8, 128) fp32 views", q, k, v, 5, 2)
+    q, k, v = (randn32(1, 8192, 4, 256) for _ in range(3))
+    bthd32("flash_attention_fp32", "(1, 8192, 4, 256) fp32", q, k, v, 5, 2)
+    q, k, v = (randn32(N_FRAMES, FRAME_T, H, 64) for _ in range(3))
+    bthd32("attention_single_pass_fp32", f"({N_FRAMES}, {FRAME_T}, 16, 64) fp32", q, k, v, 5, 2)
+    bufs = [torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 61)) for x in (q, k, v)]
+    for buf in bufs:
+        nan_rows(buf, FRAME_T)
+    same_bits("attention_single_pass_fp32", f"({N_FRAMES}, {FRAME_T}, 16, 64) fp32, NaN rows past Tq",
+              attention_single_pass(*(buf[:, :FRAME_T] for buf in bufs)),
+              attention_single_pass(q, k, v))
+    del bufs
+    q, k, v = (randn32(N_FRAMES, FRAME_T, 4, 192) for _ in range(3))
+    bthd32("attention_single_pass_fp32", f"({N_FRAMES}, {FRAME_T}, 4, 192) fp32", q, k, v, 5, 2)
+    del q, k, v
+
+    w1, b1 = randn32(4 * C, C, scale=0.02), randn32(4 * C, scale=0.1)
+    w2, b2 = randn32(C, 4 * C, scale=0.02), randn32(C, scale=0.1)
+    norm_ls = (1 + 0.1 * randn32(C), 0.1 * randn32(C), 1 + 0.1 * randn32(C))
+    c_s = 384
+    moge_w = (randn32(4 * c_s, c_s, scale=0.05), randn32(4 * c_s, scale=0.1),
+              randn32(c_s, 4 * c_s, scale=0.05), randn32(c_s, scale=0.1))
+    moge_norm_ls = (1 + 0.1 * randn32(c_s), 0.1 * randn32(c_s), 1 + 0.1 * randn32(c_s))
+    for shape_name, shape, (nw, nb, ls), (fw1, fb1, fw2, fb2) in (
+            ("(1, 64300, 1024) fp32", (1, N_FRAMES * FRAME_T, C), norm_ls, (w1, b1, w2, b2)),
+            ("(100, 643, 1024) fp32", (N_FRAMES, FRAME_T, C), norm_ls, (w1, b1, w2, b2)),
+            (f"(1, {MOGE_T}, {c_s}) fp32", (1, MOGE_T, c_s), moge_norm_ls, moge_w)):
+        x = randn32(*shape)
+        fn = lambda a, *p: block_mlp(a, nw, nb, *p, ls=ls)
+        run = lambda: fn(x, fw1, fb1, fw2, fb2)
+        plain = lambda: block_mlp_plain(x, nw, nb, fw1, fb1, fw2, fb2, ls=ls)
+        ref = plain()
+        c = check_fp32("block_mlp_fp32 branch", shape_name, run(), ref,
+                       fn(x.to(bf16), *(p.to(bf16) for p in (fw1, fb1, fw2, fb2))), why32,
+                       **block_mlp_bounds(x, ref))
+        lib = products_ms(shape_name, x, fw1, fw2, 5)
+        record("block_mlp_fp32", shape_name, [c], time_ms(run, 5), time_ms(plain, 5),
+               (*mlp_work(x, fw1), PEAK_3XTF32), library_ms=lib)
+        if shape[0] == 1 and shape[1] > MOGE_T:
+            gemm_bits("block_mlp_fp32", shape_name, x, lambda a: fn(a, fw1, fb1, fw2, fb2))
+    x = randn32(1, N_FRAMES * FRAME_T, C)
+    shape_name = "(1, 64300, 1024) fp32"
+    run = lambda: mlp(x, w1, b1, w2, b2)
+    plain = lambda: mlp_plain(x, w1, b1, w2, b2)
+    c = check_fp32("mlp_fp32", shape_name, run(), plain(),
+                   mlp(x.to(bf16), *(p.to(bf16) for p in (w1, b1, w2, b2))), why32, **FP32)
+    lib = products_ms(shape_name, x, w1, w2, 5)
+    record("mlp_fp32", shape_name, [c], time_ms(run, 5), time_ms(plain, 5),
+           (*mlp_work(x, w1), PEAK_3XTF32), library_ms=lib)
+    gemm_bits("mlp_fp32", shape_name, x, lambda a: mlp(a, w1, b1, w2, b2))
     return results
 
 
 def mlp_work(x, w1) -> tuple[float, float]:
     """(flops, bytes) of fc2(GELU(fc1 x)) (the block MLP's LayerNorm and
-    residual add only bytes): x read and the output written in bf16, both
-    weights once, the fp32 vectors."""
+    residual add only bytes): x read and the output written in x's dtype,
+    both weights once, the fp32 vectors."""
     hidden, c = w1.shape
     m = x.numel() // c
-    return 4.0 * m * c * hidden, 2 * m * c * 2 + 2 * w1.numel() * 2 + (hidden + 4 * c) * 4
+    e = x.element_size()
+    return 4.0 * m * c * hidden, 2 * m * c * e + 2 * w1.numel() * e + (hidden + 4 * c) * 4
 
 
-def compare_outputs(what: str, got: dict, want: dict, keys, tol: float) -> None:
+def compare_outputs(what: str, got: dict, want: dict, keys, tol: float,
+                    label: str = "bf16 kernels vs fp32 plain") -> None:
     """Relative L2 of card outputs against host ones, each within tol."""
     import torch
 
@@ -650,16 +882,16 @@ def compare_outputs(what: str, got: dict, want: dict, keys, tol: float) -> None:
             raise RuntimeError(f"{what} {key}: not finite")
         rel = ((a - b).norm() / b.norm()).item()
         ok = rel <= tol
-        log(f"  {what} {key:14s} {tuple(a.shape)} rel L2 (bf16 kernels vs fp32 plain) = {rel:.3e}  "
+        log(f"  {what} {key:14s} {tuple(a.shape)} rel L2 ({label}) = {rel:.3e}  "
             f"max abs {(a - b).abs().max().item():.3e}  tol {tol:.0e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"{what} {key}: relative error {rel} exceeds {tol}")
 
 
-def phase_model() -> None:
-    """Full-width forwards: kernel path (bf16, card) vs plain path (fp32, CPU)."""
-    import dataclasses
-
+def phase_model() -> dict:
+    """Full-width forwards: the kernel path on the card (bf16 and fp32 Pi3,
+    fp32 MoGe-2) vs the plain path (fp32, host CPU). Returns each run's
+    launch counts (set to 0 just before it)."""
     import numpy as np
     import torch
 
@@ -673,46 +905,59 @@ def phase_model() -> None:
     state = pi3_state_from_jax(init_pi3_params(0, Pi3Config()))
     log(f"  random full-width Pi3 weights (seed 0) in {time.perf_counter() - t0:.1f}s")
     imgs = np.random.default_rng(0).random((1, 4, 3, 308, 406), dtype=np.float32)
-    # a bf16 trunk of 75 blocks against an fp32 one: relative L2 error 5e-2
-    for merge, want_counts in ((1, PI3_LAUNCHES), (2, PI3_KV_MERGE_LAUNCHES)):
+    keys = ("points", "local_points", "conf", "camera_poses")
+    by_path = {}
+    for merge, want in ((1, PI3_LAUNCHES), (2, PI3_KV_MERGE_LAUNCHES)):
         cfg = Pi3Config(global_kv_merge=merge)
-        gpu = build_pi3(cfg, state, torch.device("cuda"), torch.bfloat16)
-        reset_launch_counts()
-        with torch.no_grad():
-            out_gpu = {k: v.cpu() for k, v in gpu(torch.from_numpy(imgs).cuda()).items()}
-        counts = launch_counts()
-        del gpu
-        torch.cuda.empty_cache()
-        if counts != want_counts:
-            raise RuntimeError(f"global_kv_merge={merge}: launch counts {counts} != {want_counts}")
+        outs = {}
+        for dtype, want_counts in ((torch.bfloat16, want), (torch.float32, fp32(want))):
+            gpu = build_pi3(cfg, state, torch.device("cuda"), dtype)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                outs[dtype] = {k: v.cpu() for k, v in gpu(torch.from_numpy(imgs).cuda()).items()}
+            seconds = time.perf_counter() - t0
+            counts = nonzero(launch_counts())
+            del gpu
+            torch.cuda.empty_cache()
+            path = f"pi3_merge{merge}_{str(dtype).replace('torch.', '')}"
+            by_path[path] = counts
+            log(f"  {path}: launches {counts}, forward on the card {seconds:.2f}s")
+            if counts != want_counts:
+                raise RuntimeError(f"{path}: launch counts {counts} != {want_counts}")
         cpu = build_pi3(cfg, state, torch.device("cpu"), torch.float32)
         t0 = time.perf_counter()
         with torch.no_grad():
             out_cpu = cpu(torch.from_numpy(imgs))
-        log(f"  global_kv_merge={merge}: launches {counts}; plain fp32 forward on the CPU in "
+        log(f"  global_kv_merge={merge}: plain fp32 forward on the CPU in "
             f"{time.perf_counter() - t0:.1f}s")
-        compare_outputs(f"pi3 merge={merge}", out_gpu, out_cpu,
-                        ("points", "local_points", "conf", "camera_poses"), 5e-2)
-        del cpu, out_cpu
+        # a bf16 trunk of 75 blocks against an fp32 one: relative L2 error
+        # 5e-2; the fp32 trunk (3xTF32 products) as the host's within 1e-3
+        compare_outputs(f"pi3 merge={merge}", outs[torch.bfloat16], out_cpu, keys, 5e-2)
+        compare_outputs(f"pi3 merge={merge}", outs[torch.float32], out_cpu, keys, 1e-3,
+                        "fp32 kernels vs fp32 plain")
+        del cpu, out_cpu, outs
     del state
 
     # full-width ViT-S backbone, 1200-3600 tokens; the neck and head widths
-    # are a reduction (the published ones are not in the repository)
+    # are a reduction (the published ones are not in the repository). The
+    # trunk in fp32, as MoGeRunner (and the JAX runner) runs it.
     cfg = moge_vits_config()
     state = moge_state_from_jax(init_moge_params(0, cfg))
     image = torch.from_numpy(np.random.default_rng(1).random((1, 3, 308, 406), dtype=np.float32))
     tokens = cfg.num_tokens_range[1]
-    gpu = build_moge(cfg, state, torch.device("cuda"), torch.bfloat16)
+    gpu = build_moge(cfg, state, torch.device("cuda"), torch.float32)
     reset_launch_counts()
     with torch.no_grad():
         out_gpu = {k: v.cpu() for k, v in gpu(image.cuda(), tokens).items()}
-    counts = {k: v for k, v in launch_counts().items() if v}
+    counts = nonzero(launch_counts())
+    by_path["moge"] = counts
     if counts != MOGE_LAUNCHES:
         raise RuntimeError(f"MoGe launch counts {counts} != {MOGE_LAUNCHES}")
     image_gpu = image.cuda()
     with torch.no_grad():
         ms = time_ms(lambda: gpu(image_gpu, tokens), 5)
-    log(f"  MoGe-2 forward on the card: {ms:.3f} ms")
+    log(f"  MoGe-2 forward on the card (fp32 trunk): {ms:.3f} ms")
     del gpu
     cpu = build_moge(cfg, state, torch.device("cpu"))
     t0 = time.perf_counter()
@@ -720,9 +965,12 @@ def phase_model() -> None:
         out_cpu = cpu(image, tokens)
     log(f"  MoGe-2 ViT-S at {tokens} tokens: launches {counts}; plain fp32 forward on the CPU in "
         f"{time.perf_counter() - t0:.1f}s")
-    # a bf16 encoder of 12 blocks (the neck and heads fp32 on both sides); a
-    # CPU simulation with bf16 plain blocks gave 8.9e-3 / 6.9e-3 / 3.7e-3
-    compare_outputs("moge", out_gpu, out_cpu, ("points", "mask", "metric_scale"), 5e-2)
+    # the fp32 encoder of 12 blocks (the neck and heads fp32 on both sides);
+    # the bf16 encoder it replaced read 8.5e-3 (points) and 1.55e-2
+    # (metric_scale) here
+    compare_outputs("moge", out_gpu, out_cpu, ("points", "mask", "metric_scale"), 1e-3,
+                    "fp32 kernels vs fp32 plain")
+    return by_path
 
 
 def phase_blocks() -> dict:
@@ -755,11 +1003,12 @@ def phase_blocks() -> dict:
         # rounded to bf16 once, so that both sides start from the same values
         return (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)) * scale).bfloat16()
 
-    def drive(path, make, x, why):
+    def drive(path, make, x, why, dtype=torch.bfloat16, tol=5e-2):
         """make(device, dtype) -> run, run(x) the block's forward there. The
-        card's branch out - x is held to the host's within 5e-2 relative L2,
-        and the card run's launch counts to BLOCK_LAUNCHES[path]."""
-        run = make(torch.device("cuda"), torch.bfloat16)
+        card's branch out - x (in dtype) is held to the host's within tol
+        relative L2, and the card run's launch counts to
+        BLOCK_LAUNCHES[path]."""
+        run = make(torch.device("cuda"), dtype)
         reset_launch_counts()
         with torch.no_grad():
             got = run(x.cuda()).cpu()
@@ -774,15 +1023,16 @@ def phase_blocks() -> dict:
             raise RuntimeError(f"{path}: not finite")
         branch, branch_want = got.double() - x.double(), want.double() - x.double()
         rel = ((branch - branch_want).norm() / branch_want.norm()).item()
-        ok = rel <= 5e-2
-        nonzero = {k: v for k, v in counts.items() if v}
-        log(f"  {path}: {tuple(got.shape)} branch out - x rel L2 (bf16 kernels vs fp32 plain on "
-            f"the host, {host_s:.1f}s) = {rel:.3e}  tol 5e-2 ({why}) {'ok' if ok else 'FAIL'}; "
-            f"launches {nonzero}")
+        ok = rel <= tol
+        ran = nonzero(counts)
+        dt = str(dtype).replace("torch.", "")
+        log(f"  {path}: {tuple(got.shape)} branch out - x rel L2 ({dt} kernels vs fp32 plain on "
+            f"the host, {host_s:.1f}s) = {rel:.3e}  tol {tol:.0e} ({why}) {'ok' if ok else 'FAIL'}; "
+            f"launches {ran}")
         if not ok:
-            raise RuntimeError(f"{path}: relative error {rel} exceeds 5e-2")
-        if nonzero != BLOCK_LAUNCHES[path]:
-            raise RuntimeError(f"{path}: launch counts {nonzero} != {BLOCK_LAUNCHES[path]}")
+            raise RuntimeError(f"{path}: relative error {rel} exceeds {tol}")
+        if ran != BLOCK_LAUNCHES[path]:
+            raise RuntimeError(f"{path}: launch counts {ran} != {BLOCK_LAUNCHES[path]}")
         return counts
 
     def cross(y, p):
@@ -817,6 +1067,14 @@ def phase_blocks() -> dict:
     why = "bf16 weights and activations; the plain versions in bf16 on a CPU gave 1.3e-2"
     for path, c, heads in (("block_d128", 1024, 8), ("block_c320", 320, 5)):
         by_path[path] = drive(path, block(c, heads), randn(4, FRAME_T, c), why)
+    # the cross block in fp32: the fp32 entries of the packed, (B, T, H, D)
+    # and MLP kernels, the card within 1e-3 of the host
+    why = "fp32 kernels, 3xTF32 products"
+    for path, y, x, p in (("cross_block_frame_fp32", randn(4, FRAME_T, 1024, scale=1 / 64),
+                           randn(4, FRAME_T, 1024, scale=1 / 64), pos),
+                          ("cross_block_global_fp32", randn(1, n, 1024, scale=1 / 64),
+                           randn(1, n, 1024, scale=1 / 64), pos.reshape(1, n, 2))):
+        by_path[path] = drive(path, cross(y, p), x.float(), why, torch.float32, 1e-3)
     return by_path
 
 
@@ -852,7 +1110,7 @@ def run_cli(name: str, frames: str, out: str, extra: list) -> tuple[dict, list]:
     t0 = time.perf_counter()
     records = create_chunks(argv)
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = nonzero(launch_counts())
     with open(os.path.join(out, "chunks_manifest.json")) as f:
         manifest = json.load(f)
     if [m["num_frames"] for m in manifest] != [100, 50]:
@@ -880,7 +1138,7 @@ def run_cli(name: str, frames: str, out: str, extra: list) -> tuple[dict, list]:
                 raise RuntimeError("unexpected target size")
     fps = [r["fps"] for r in records]
     seconds = [r["infer_s"] for r in records]
-    per_chunk = [r["launches"] for r in records]
+    per_chunk = [nonzero(r["launches"]) for r in records]
     want = {kernel: per * len(manifest) for kernel, per in per_chunk_want.items()}
     log(f"  {name}: chunks {[m['file'] for m in manifest]}, seconds per chunk {seconds}, "
         f"frames/s per chunk {fps}, CLI wall {wall:.1f}s")
@@ -912,6 +1170,10 @@ def phase_cli(tmp: str) -> dict:
     by_path = {"metric_depth": counts}
     by_path["kv_merge"], _ = run_cli("kv_merge", frames, os.path.join(tmp, "kv_merge"),
                                      ["--global-kv-merge", "2", "--no-metric-depth"])
+    # the fp32 model (the JAX creator computes it on its device): every block
+    # through the kernels' fp32 entries, MoGe-2 as in the default run
+    by_path["float32"], _ = run_cli("float32", frames, os.path.join(tmp, "float32"),
+                                    ["--compute-dtype", "float32", "--moge-path", moge])
     return by_path
 
 
@@ -922,14 +1184,15 @@ def phase_sol() -> dict:
     from pi3_slam_tpu_torch.tools.perf_lab import ITERS, SOL_H, SOL_T, probe
 
     # one warm-up and ITERS timed calls of each kernel
-    want = {k: ITERS + 1 for k in ("dots_attention", "flash_attention_packed", "block_mlp")}
+    want = {k: ITERS + 1 for k in ("dots_attention", "flash_attention_packed", "flash_attention",
+                                   "block_mlp")}
     reset_launch_counts()
     results = probe(["sol"])
     counts = launch_counts()
-    nonzero = {k: v for k, v in counts.items() if v}
-    log(f"  sol: launches {nonzero}")
-    if nonzero != want:
-        raise RuntimeError(f"sol: launch counts {nonzero} != {want}")
+    ran = nonzero(counts)
+    log(f"  sol: launches {ran}")
+    if ran != want:
+        raise RuntimeError(f"sol: launch counts {ran} != {want}")
     for name, r in results.items():
         if not (math.isfinite(r["ms"]) and r["ms"] > 0):
             raise RuntimeError(f"sol: {name} took {r['ms']} ms")
@@ -1236,14 +1499,16 @@ def main() -> int:
     log("[1] build")
     phase_build()
     log(f"  kernels built in {time.perf_counter() - t0:.1f}s")
-    log("[2] kernels vs plain, bf16, main-path shapes")
+    log("[2] kernels vs plain, bf16 and the fp32 entries, main-path shapes")
     results = phase_kernels()
-    log("[3] full-width forwards: Pi3 (4 frames, exact and kv-merge 2), MoGe-2 (1 frame), "
+    log("[3] full-width forwards: Pi3 (4 frames, exact and kv-merge 2, bf16 and fp32), MoGe-2 "
+        "(1 frame, fp32), "
         "the cross-attention block (1 and 4 frames), Blocks at head dim 128 and C 320")
-    phase_model()
-    by_path = phase_blocks()
+    by_path = phase_model()
+    by_path.update(phase_blocks())
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4] main paths: port CLI over 130 frames, with metric depth and with kv-merge 2")
+        log("[4] main paths: port CLI over 130 frames, with metric depth, with kv-merge 2 and "
+            "with --compute-dtype float32")
         by_path.update(phase_cli(tmp))
         log("[5] sol: the speed-of-light probe (python -m pi3_slam_tpu_torch.tools.perf_lab sol)")
         by_path["sol"] = phase_sol()
@@ -1252,7 +1517,7 @@ def main() -> int:
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]
-        launches = {path: counts[name] for path, counts in by_path.items()}
+        launches = {path: counts.get(name, 0) for path, counts in by_path.items()}
         if not sum(launches.values()):
             raise RuntimeError(f"{name}: no launch on any path ({launches})")
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
@@ -1262,7 +1527,8 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": r["shape"], **({"routes": r["routes"]} if r["routes"] else {}),
                         **({"products_ms": r["products_ms"]} if "products_ms" in r else {}),
-                        **({"tb_per_s": r["tb_per_s"]} if "tb_per_s" in r else {})})
+                        **({"tb_per_s": r["tb_per_s"]} if "tb_per_s" in r else {}),
+                        **({"loop": LOOPS[name]} if name in LOOPS else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

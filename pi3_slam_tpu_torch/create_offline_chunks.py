@@ -71,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--skip-end", type=int, default=0)
     parser.add_argument("--pixel-limit", type=int, default=255000 // 2)
     parser.add_argument("--compute-dtype", default="bfloat16", choices=["bfloat16", "float32"],
-                        help="float32 runs only with --device cpu (the GPU kernels take bfloat16)")
+                        help="Model dtype; float32 runs the kernels' fp32 entries on the GPU")
     parser.add_argument("--resume", action="store_true", help="Skip chunks already on disk")
     parser.add_argument("--save-dense", action="store_true",
                         help="Store strided dense per-pixel maps alongside the sparse tracks")

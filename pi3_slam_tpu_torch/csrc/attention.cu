@@ -82,17 +82,17 @@ extern "C" int pi3_attention(const void* q, const void* k, const void* v, void* 
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return launch_bthd_attention<64, false>(q, k, v, out, nullptr, nullptr, B, Tq, Tk, H, qs, ks,
-                                              vs, scale_log2, s);
+      return launch_bthd_attention<64, kSoftmax>(q, k, v, out, nullptr, nullptr, B, Tq, Tk, H,
+                                                   qs, ks, vs, scale_log2, s);
     case 128:
-      return launch_bthd_attention<128, false>(q, k, v, out, nullptr, nullptr, B, Tq, Tk, H, qs,
-                                               ks, vs, scale_log2, s);
+      return launch_bthd_attention<128, kSoftmax>(q, k, v, out, nullptr, nullptr, B, Tq, Tk, H,
+                                                   qs, ks, vs, scale_log2, s);
     case 192:
-      return launch_bthd_attention<192, false>(q, k, v, out, nullptr, nullptr, B, Tq, Tk, H, qs,
-                                               ks, vs, scale_log2, s);
+      return launch_bthd_attention<192, kSoftmax>(q, k, v, out, nullptr, nullptr, B, Tq, Tk, H,
+                                                   qs, ks, vs, scale_log2, s);
     case 256:
-      return launch_bthd_attention<256, false>(q, k, v, out, nullptr, nullptr, B, Tq, Tk, H, qs,
-                                               ks, vs, scale_log2, s);
+      return launch_bthd_attention<256, kSoftmax>(q, k, v, out, nullptr, nullptr, B, Tq, Tk, H,
+                                                   qs, ks, vs, scale_log2, s);
     default:
       if (D <= 256 || D % 64) return (int)cudaErrorInvalidValue;
       return launch_wide(q, k, v, out, B, Tq, Tk, H, D, qs, ks, vs, scale_log2, s);

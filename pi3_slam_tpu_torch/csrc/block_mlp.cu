@@ -26,10 +26,15 @@
 // out = hidden W2^T + b2 (two launches). The hidden round trip costs ~1.05
 // GB per call (~0.3 ms at 3.35 TB/s). The GEMMs are TMA + wgmma loops
 // (gemm.cuh's header has the design).
+//
+// pi3_block_mlp_f32 and pi3_mlp_f32 are the fp32 entries (an fp32 model's
+// blocks, as the JAX package runs the same Pallas kernels on fp32 input):
+// the same launches with the LayerNorm pass in fp32 out and the GEMMs of
+// gemm_f32.cuh, fp32 throughout (the hidden activation too).
 
 #include <math.h>
 
-#include "gemm.cuh"
+#include "gemm_f32.cuh"
 
 namespace {
 
@@ -81,6 +86,43 @@ layernorm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ 
   }
 }
 
+// LayerNorm of fp32 rows, fp32 out: one warp per row, the same sums as
+// layernorm_kernel.
+__global__ void __launch_bounds__(256)
+layernorm_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                     const float* __restrict__ beta, float* __restrict__ y, int M, int C,
+                     float eps) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const float* xr = x + (size_t)row * C;
+  float sum = 0.f;
+  for (int c = lane * 4; c < C; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(xr + c);
+    sum += v.x + v.y + v.z + v.w;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  const float mean = sum / C;
+  float sq = 0.f;
+  for (int c = lane * 4; c < C; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(xr + c);
+    const float d[4] = {v.x - mean, v.y - mean, v.z - mean, v.w - mean};
+    sq += d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + d[3] * d[3];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  const float rstd = rsqrtf(sq / C + eps);
+  float* yr = y + (size_t)row * C;
+  for (int c = lane * 4; c < C; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(xr + c);
+    *reinterpret_cast<float4*>(yr + c) = make_float4(
+        (v.x - mean) * rstd * gamma[c] + beta[c], (v.y - mean) * rstd * gamma[c + 1] + beta[c + 1],
+        (v.z - mean) * rstd * gamma[c + 2] + beta[c + 2],
+        (v.w - mean) * rstd * gamma[c + 3] + beta[c + 3]);
+  }
+}
+
 }  // namespace
 
 // x: (M, C) bf16; gamma, beta, b2, ls: (C,) fp32; w1: (hidden, C) bf16;
@@ -127,6 +169,47 @@ extern "C" int pi3_mlp(const void* x, const void* w1, const void* b1, const void
   return pi3::launch_gemm<pi3::kBias>(
       hb, static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2), nullptr, nullptr,
       static_cast<__nv_bfloat16*>(out), M, C, hidden, s);
+}
+
+// The fp32 entries: every tensor above fp32 (x, the weights, the scratch xn
+// and hid, out), the same widths; x, w1 and w2 16-byte aligned.
+extern "C" int pi3_block_mlp_f32(const void* x, const void* gamma, const void* beta, const void* w1,
+                                 const void* b1, const void* w2, const void* b2, const void* ls,
+                                 void* xn, void* hid, void* out, int M, int C, int hidden,
+                                 float eps, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto* xf = static_cast<const float*>(x);
+  auto* xnf = static_cast<float*>(xn);
+  auto* hf = static_cast<float*>(hid);
+  layernorm_f32_kernel<<<(M + 7) / 8, 256, 0, s>>>(xf, static_cast<const float*>(gamma),
+                                                   static_cast<const float*>(beta), xnf, M, C, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  int code = pi3::launch_gemm_f32<pi3::kGelu>(xnf, static_cast<const float*>(w1),
+                                              static_cast<const float*>(b1), nullptr, nullptr, hf,
+                                              M, hidden, C, s);
+  if (code != 0) return code;
+  return pi3::launch_gemm_f32<pi3::kResidual>(
+      hf, static_cast<const float*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(ls), xf, static_cast<float*>(out), M, C, hidden, s);
+}
+
+extern "C" int pi3_mlp_f32(const void* x, const void* w1, const void* b1, const void* w2,
+                           const void* b2, void* hid, void* out, int M, int C, int hidden,
+                           int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  auto* hf = static_cast<float*>(hid);
+  int code = pi3::launch_gemm_f32<pi3::kGelu>(
+      static_cast<const float*>(x), static_cast<const float*>(w1), static_cast<const float*>(b1),
+      nullptr, nullptr, hf, M, hidden, C, s);
+  if (code != 0) return code;
+  return pi3::launch_gemm_f32<pi3::kBias>(hf, static_cast<const float*>(w2),
+                                          static_cast<const float*>(b2), nullptr, nullptr,
+                                          static_cast<float*>(out), M, C, hidden, s);
 }
 
 // The GEMM's dynamic shared memory a block, in bytes.

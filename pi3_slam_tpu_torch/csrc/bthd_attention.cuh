@@ -1,9 +1,10 @@
 // The TMA + wgmma attention loop over (B, T, H, D) q / k / v for Hopper
 // (sm_90a), shared by attention.cu (softmax(q.k^T * D^-1/2) . v, normalised,
-// bf16 out; head dims above 256 in the wide variant at the end of this file)
-// and partial_attention.cu (the bound-shift partial sums acc and l, fp32
-// out). It is packed_attention.cu's loop with one tensor map per operand in
-// place of one map over the packed projection:
+// bf16 out; head dims above 256 in the wide variant at the end of this file),
+// partial_attention.cu (the bound-shift partial sums acc and l, fp32 out) and
+// dots_attention.cu (the products alone, bf16(sum bf16(q.k^T) v): no max, no
+// exp2, no row sum, unnormalised). It is packed_attention.cu's loop with one
+// tensor map per operand in place of one map over the packed projection:
 //
 // * Loads. q, k and v each get a 4D tensor map (D columns, H heads, T rows,
 //   B) over their own byte strides, so strided views (the q / k / v of a qkv
@@ -114,11 +115,22 @@ __device__ __forceinline__ void bthd_issue_pv(float (&o)[D / 2], const uint32_t 
   wgmma_commit();
 }
 
-// kPartial = false: out (B, Tq, H, D) bf16 contiguous, normalised by the row
-// sum. kPartial = true (D 64): out = acc (B, Tq, H, 64) and lsum = l (B, Tq,
-// H), fp32 contiguous, both scaled by 2^-mh with mh = min(|q| scale_log2
-// kn[b, h] + 1, 120) (see partial_attention.cu).
-template <int D, bool kPartial>
+// What the loop computes and writes. The products-only mode keeps the ring,
+// tiles, warpgroups, ping-pong and issue order of the others, so its time
+// beside theirs is the softmax's cost on this loop.
+enum BthdMode {
+  // out (B, Tq, H, D) bf16 contiguous, normalised by the row sum
+  kSoftmax = 0,
+  // (D 64) out = acc (B, Tq, H, 64) and lsum = l (B, Tq, H), fp32 contiguous,
+  // both scaled by 2^-mh with mh = min(|q| scale_log2 kn[b, h] + 1, 120) (see
+  // partial_attention.cu)
+  kPartialSums = 1,
+  // out = bf16(sum_k bf16(S) V) (B, Tq, H, D) bf16 contiguous: P is S rounded
+  // to nearest even, no max, exp2 or row sum; zero-filled keys past Tk give
+  // logits of 0 against v rows of 0, so no mask is needed
+  kProductsOnly = 2,
+};
+template <int D, int kMode>
 __global__ void __launch_bounds__(kBthdThreads, 1)
 bthd_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
@@ -206,8 +218,12 @@ bthd_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   bar_arrive(other_bar);
   wgmma_wait<0>();
   fence_regs(acc);
-  softmax_tile<N>(r, acc, 0, Tk, t4, scale_log2);
-  finish_tile<N, D>(r, o, p, acc);
+  if constexpr (kMode == kProductsOnly) {
+    pack_p<N>(p, acc);
+  } else {
+    softmax_tile<N>(r, acc, 0, Tk, t4, scale_log2);
+    finish_tile<N, D>(r, o, p, acc);
+  }
 
   for (int j = 1; j < n_tiles; ++j) {
     const int s = j % S;
@@ -223,12 +239,13 @@ bthd_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     bar_arrive(other_bar);
     wgmma_wait<1>();  // S_j done; P_{j-1} V_{j-1} may still run
     fence_regs(acc);
-    softmax_tile<N>(r, acc, j * N, Tk, t4, scale_log2);
+    if constexpr (kMode != kProductsOnly) softmax_tile<N>(r, acc, j * N, Tk, t4, scale_log2);
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(p);
     if (lane == 0) mbar_arrive(&sm.empty[prev]);  // K and V of tile j-1 consumed
-    finish_tile<N, D>(r, o, p, acc);
+    if constexpr (kMode == kProductsOnly) pack_p<N>(p, acc);
+    else finish_tile<N, D>(r, o, p, acc);
   }
 
   const int last = (n_tiles - 1) % S;
@@ -252,7 +269,7 @@ bthd_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   const size_t ra = ((size_t)b * Tq + row_a) * H + h;  // (b, row, h) of (B, Tq, H)
   const size_t rb = ra + (size_t)8 * H;
 
-  if constexpr (kPartial) {
+  if constexpr (kMode == kPartialSums) {
     static_assert(D == 64, "the partial epilogue is written for head dim 64");
     // |q|^2 of rows r0 and r0 + 8 from Q in shared memory: each thread of the
     // quad sums two of a row's eight 16-byte chunks. The swizzle permutes the
@@ -304,8 +321,9 @@ bthd_attention_kernel(const __grid_constant__ CUtensorMap q_map,
       if (row_b < Tq) lsum[rb] = l1 * f1;
     }
   } else {
-    const float inv0 = 1.f / l0;
-    const float inv1 = 1.f / l1;
+    // normalised by the row sum, or (products only) as summed
+    const float inv0 = kMode == kSoftmax ? 1.f / l0 : 1.f;
+    const float inv1 = kMode == kSoftmax ? 1.f / l1 : 1.f;
     __nv_bfloat16* oa = static_cast<__nv_bfloat16*>(out) + ra * D + 2 * t4;
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out) + rb * D + 2 * t4;
 #pragma unroll
@@ -344,7 +362,7 @@ inline bool encode_bthd_map(CUtensorMap* map, const void* base, int B, int T, in
 // Encodes the three maps and launches the kernel on stream (grid: 128-row
 // query blocks x H x B). Returns a cudaError_t; cudaErrorInvalidValue if a
 // map cannot be encoded (a stride or base the TMA does not take).
-template <int D, bool kPartial>
+template <int D, int kMode>
 int launch_bthd_attention(const void* q, const void* k, const void* v, void* out, const float* kn,
                           float* lsum, int B, int Tq, int Tk, int H, BthdStrides qs,
                           BthdStrides ks, BthdStrides vs, float scale_log2, cudaStream_t stream) {
@@ -355,11 +373,11 @@ int launch_bthd_attention(const void* q, const void* k, const void* v, void* out
       !encode_bthd_map(&v_map, v, B, Tk, H, D, vs, N))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = bthd_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(bthd_attention_kernel<D, kPartial>,
+  cudaError_t err = cudaFuncSetAttribute(bthd_attention_kernel<D, kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + kBthdBlockM - 1) / kBthdBlockM, H, B);
-  bthd_attention_kernel<D, kPartial><<<grid, kBthdThreads, smem, stream>>>(
+  bthd_attention_kernel<D, kMode><<<grid, kBthdThreads, smem, stream>>>(
       q_map, k_map, v_map, out, kn, lsum, Tq, Tk, H, scale_log2);
   return (int)cudaGetLastError();
 }

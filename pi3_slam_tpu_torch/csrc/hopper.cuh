@@ -353,9 +353,22 @@ __device__ __forceinline__ void softmax_tile(Rows& r, float (&acc)[N / 2], int k
   r.rs1 = rs1;
 }
 
-// After the product in flight has finished: rescale O (64 x D) and the row
-// sums, and round P to bf16 (keys 16kk .. 16kk+15 are accumulator columns
+// P = the accumulators rounded to bf16 (round to nearest even) as the A
+// operand of the P V product (keys 16kk .. 16kk+15 are accumulator columns
 // 2kk, 2kk+1: the A-operand layout of k-step kk).
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[N / 16][4], const float (&acc)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    p[kk][0] = pack_float2(acc[8 * kk], acc[8 * kk + 1]);
+    p[kk][1] = pack_float2(acc[8 * kk + 2], acc[8 * kk + 3]);
+    p[kk][2] = pack_float2(acc[8 * kk + 4], acc[8 * kk + 5]);
+    p[kk][3] = pack_float2(acc[8 * kk + 6], acc[8 * kk + 7]);
+  }
+}
+
+// After the product in flight has finished: rescale O (64 x D) and the row
+// sums, and round P to bf16.
 template <int N, int D>
 __device__ __forceinline__ void finish_tile(Rows& r, float (&o)[D / 2], uint32_t (&p)[N / 16][4],
                                             const float (&acc)[N / 2]) {
@@ -368,13 +381,7 @@ __device__ __forceinline__ void finish_tile(Rows& r, float (&o)[D / 2], uint32_t
     o[4 * n + 2] *= r.a1;
     o[4 * n + 3] *= r.a1;
   }
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    p[kk][0] = pack_float2(acc[8 * kk], acc[8 * kk + 1]);
-    p[kk][1] = pack_float2(acc[8 * kk + 2], acc[8 * kk + 3]);
-    p[kk][2] = pack_float2(acc[8 * kk + 4], acc[8 * kk + 5]);
-    p[kk][3] = pack_float2(acc[8 * kk + 6], acc[8 * kk + 7]);
-  }
+  pack_p<N>(p, acc);
 }
 
 // --- host

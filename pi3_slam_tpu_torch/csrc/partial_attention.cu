@@ -44,7 +44,7 @@ extern "C" int pi3_partial_attention(const void* q, const void* k, const void* v
                                      float scale_log2, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return launch_bthd_attention<64, true>(
+  return launch_bthd_attention<64, kPartialSums>(
       q, k, v, acc, static_cast<const float*>(kn), static_cast<float*>(l), B, Tq, Tk, H,
       BthdStrides{q_sb, q_st, q_sh}, BthdStrides{k_sb, k_st, k_sh}, BthdStrides{v_sb, v_st, v_sh},
       scale_log2, (cudaStream_t)stream);

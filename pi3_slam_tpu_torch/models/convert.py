@@ -173,8 +173,9 @@ def build_moge(
     trunk_dtype: torch.dtype = torch.float32,
 ) -> MoGe:
     """A ``MoGe`` holding ``state`` on ``device``: everything in fp32 but the
-    encoder blocks, which are held in ``trunk_dtype`` (bf16 on the GPU, where
-    they run through the hand-written kernels)."""
+    encoder blocks, which are held in ``trunk_dtype`` (the runner keeps fp32,
+    as the JAX runner computes; on the GPU they run through the hand-written
+    kernels in either dtype)."""
     model = MoGe(cfg, device="meta")
     model.load_state_dict(state, strict=True, assign=True)
     model = model.to(device=device, dtype=torch.float32).eval()

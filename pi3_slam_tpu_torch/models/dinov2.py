@@ -62,8 +62,8 @@ class DinoVisionTransformer(nn.Module):
 
     def _embed(self, images: torch.Tensor) -> torch.Tensor:
         """Patch tokens, cls, position embedding and registers, computed in the
-        patch embedding's dtype and handed to the blocks in theirs (MoGe-2 on
-        the GPU keeps its patch embedding in fp32 and its blocks in bf16)."""
+        patch embedding's dtype and handed to the blocks in theirs (MoGe-2
+        keeps its patch embedding in fp32, its blocks in ``trunk_dtype``)."""
         cfg = self.cfg
         dtype = self.patch_embed.weight.dtype
         p = cfg.patch_size

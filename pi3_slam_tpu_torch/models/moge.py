@@ -27,16 +27,15 @@ class MoGeRunner:
     """infer_depth((3, H, W) float in [0, 1], or uint8) -> (H, W) metric depth,
     inf outside MoGe's validity mask.
 
-    On the GPU the encoder blocks run in bf16 through the hand-written kernels
-    and the rest in fp32; on the CPU everything runs in fp32 (see
-    ``moge_model.py``)."""
+    Everything runs in fp32, as the JAX runner computes it
+    (``compute_dtype=jnp.float32``): on the GPU the encoder blocks through the
+    fp32 entries of the hand-written kernels (see ``moge_model.py``)."""
 
     def __init__(self, checkpoint_path: str | None, device: torch.device):
         if checkpoint_path is None:
             raise FileNotFoundError(MISSING_CHECKPOINT)
         tree, self.cfg = load_moge_checkpoint(checkpoint_path)
-        trunk = torch.bfloat16 if device.type == "cuda" else torch.float32
-        self.model = build_moge(self.cfg, moge_state_from_jax(tree), device, trunk)
+        self.model = build_moge(self.cfg, moge_state_from_jax(tree), device, torch.float32)
         self.device = device
 
     @torch.no_grad()

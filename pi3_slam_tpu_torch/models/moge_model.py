@@ -10,10 +10,10 @@ Inside, maps are NCHW (PyTorch's convolution layout; the JAX package ran
 NHWC); the public outputs keep the JAX layout: ``points`` (B, H, W, 3),
 ``mask`` (B, H, W), ``normal`` (B, H, W, 3), ``metric_scale`` (B,). The
 convolutions run in fp32 with TF32 off (cuDNN's default would be TF32). The
-encoder blocks run in the dtype they are held in: fp32 on the CPU, bf16 on
-the GPU, where they go through the hand-written attention and block-MLP
-kernels (which take bf16 only); the patch embedding, the neck, the heads
-and the scale head stay fp32.
+encoder blocks run in the dtype they are held in (fp32 as the creator builds
+them, as the JAX runner computes; on the GPU through the fp32 entries of the
+hand-written attention and block-MLP kernels); the patch embedding, the
+neck, the heads and the scale head stay fp32.
 
 The model configuration travels with a converted checkpoint (JSON inside the
 npz), so any MoGe-2 variant (ViT-S / B / L) loads without code changes.

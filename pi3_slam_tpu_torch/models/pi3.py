@@ -7,8 +7,10 @@ pixel-shuffled dense maps, exp-z local points, SVD-orthogonalised camera
 poses, world points = pose @ local.
 
 The trunk (encoder, decoder, head decoders) runs in the module's dtype
-(bf16 on the GPU); the final point / confidence / camera heads run in fp32
-with the weights upcast, as the reference runs them outside autocast.
+(``--compute-dtype``: bf16 by default, or fp32, each through the kernels'
+entries of that dtype on the GPU); the final point / confidence / camera
+heads run in fp32 with the weights upcast, as the reference runs them outside
+autocast.
 """
 
 from __future__ import annotations

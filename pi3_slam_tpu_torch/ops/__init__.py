@@ -2,7 +2,9 @@
 
 Each kernel wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), incremented where it launches its kernel and nowhere
-else, so a run can show that the main path went through the kernels.
+else, so a run can show that the main path went through the kernels. A
+wrapper with an fp32 entry counts that kernel's launches apart
+(``wrapper.launches_fp32``, reported as ``<name>_fp32``).
 """
 
 from .block_mlp import block_mlp
@@ -26,10 +28,18 @@ KERNEL_WRAPPERS = {
 }
 
 
+# the wrappers with an fp32 entry (every one but the bf16 probe's)
+FP32_ENTRIES = tuple(name for name in KERNEL_WRAPPERS if name != "dots_attention")
+
+
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    counts = {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    counts.update({f"{name}_fp32": KERNEL_WRAPPERS[name].launches_fp32 for name in FP32_ENTRIES})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    for name in FP32_ENTRIES:
+        KERNEL_WRAPPERS[name].launches_fp32 = 0

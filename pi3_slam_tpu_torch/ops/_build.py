@@ -24,6 +24,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -98,3 +100,20 @@ def load_library(name: str) -> ctypes.CDLL:
 def check_launch(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}")
+
+
+def count_launch(wrapper, fp32: bool) -> None:
+    """One launch of a wrapper's fp32 kernel (``launches_fp32``) or of its
+    bf16 one (``launches``)."""
+    if fp32:
+        wrapper.launches_fp32 += 1
+    else:
+        wrapper.launches += 1
+
+
+def is_fp32(x: torch.Tensor, what: str) -> bool:
+    """Whether a CUDA operand takes its kernel's fp32 entry (True) or its
+    bf16 one (False); any other dtype raises (fp16 has no entry)."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} kernel takes bfloat16 or float32, got {x.dtype}")
+    return x.dtype == torch.float32

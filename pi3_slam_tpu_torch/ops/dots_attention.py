@@ -10,7 +10,8 @@ with both products accumulated in fp32, no softmax and no scale. q, k and v
 sit at column offsets 0, H*64 and 2*H*64.
 
 On a CUDA tensor :func:`dots_attention` launches the hand-written kernel
-``csrc/dots_attention.cu`` (see its header); on a CPU tensor it runs
+``csrc/dots_attention.cu`` (see its header: the products-only mode of the
+TMA + ``wgmma`` loop of ``csrc/bthd_attention.cuh``); on a CPU tensor it runs
 :func:`dots_attention_plain`, two ``torch.matmul`` calls per 1024-query block
 over the whole key range (bf16 in, fp32 accumulate, bf16 logits and output:
 the contract's rounding). On the card those two calls are cuBLAS's, so the

@@ -8,13 +8,14 @@ routes to by sequence length:
 * :func:`attention_single_pass` — ``attention_single_pass_tpu``
   (256 <= T <= 1280).
 
-On a CUDA tensor both launch one hand-written kernel, ``csrc/attention.cu``
-(see its header), which reads q, k and v through their strides (a
-unit-stride last dim and 16-byte aligned rows, such as the q / k / v views of
-a qkv projection) and takes bf16 at every head dim that is a multiple of 64:
-64 to 256 on the TMA + ``wgmma`` loop of ``csrc/bthd_attention.cuh``, wider
-head dims on its wide variant (column slices of O). On a CPU tensor both run
-:func:`blockwise_attention`, the kernel's plain version.
+On a CUDA tensor both launch a hand-written kernel that reads q, k and v
+through their strides (a unit-stride last dim and 16-byte aligned rows, such
+as the q / k / v views of a qkv projection): bf16 ``csrc/attention.cu`` (see
+its header) at every head dim that is a multiple of 64, 64 to 256 on the TMA
++ ``wgmma`` loop of ``csrc/bthd_attention.cuh``, wider head dims on its wide
+variant (column slices of O); fp32 ``csrc/attention_f32.cu`` at head dims 64
+to 256 (wider ones raise: ROADMAP.md Queue 3). Any other dtype raises. On a
+CPU tensor both run :func:`blockwise_attention`, the kernel's plain version.
 
 Keys are masked by length, so Tk may differ from Tq on every route. The JAX
 kernels and ``blockwise_attention`` assume Tk == Tq (they pad k to q's
@@ -29,7 +30,8 @@ import math
 
 import torch
 
-from ._build import check_launch, load_library
+from ._build import check_launch, count_launch, is_fp32, load_library
+from .attention_f32 import attention_f32
 
 LOG2_E = math.log2(math.e)
 
@@ -97,10 +99,14 @@ def _strides(x: torch.Tensor, name: str, device: torch.device, what: str) -> tup
     return x.stride(0), x.stride(1), x.stride(2)
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> torch.Tensor:
+def _launch(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> torch.Tensor:
     b, tq, h, d = q.shape
     if d % 64:
         raise ValueError(f"the {what} kernel takes head dims that are multiples of 64, got {d}")
+    if is_fp32(q, what):
+        out = attention_f32(q, k, v, d**-0.5 * LOG2_E, what)
+        count_launch(entry, True)
+        return out
     dev = q.device
     strides = [s for x, name in ((q, "q"), (k, "k"), (v, "v")) for s in _strides(x, name, dev, what)]
     out = torch.empty((b, tq, h, d), device=dev, dtype=q.dtype)
@@ -109,19 +115,18 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> tor
         *strides, float(d**-0.5 * LOG2_E), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch(code, what)
+    count_launch(entry, False)
     return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """q (B, Tq, H, D), k / v (B, Tk, H, D) -> (B, Tq, H, D); the long
     sequences (T > 1280) of ``sdpa``. CUDA tensors must be bfloat16 with
-    D a multiple of 64."""
+    D a multiple of 64, or float32 with D 64 to 256."""
     _check(q, k, v)
     if not q.is_cuda:
         return blockwise_attention(q, k, v)
-    out = _launch(q, k, v, "flash_attention")
-    flash_attention.launches += 1
-    return out
+    return _launch(flash_attention, q, k, v, "flash_attention")
 
 
 def attention_single_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -131,10 +136,10 @@ def attention_single_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     _check(q, k, v)
     if not q.is_cuda:
         return blockwise_attention(q, k, v)
-    out = _launch(q, k, v, "attention_single_pass")
-    attention_single_pass.launches += 1
-    return out
+    return _launch(attention_single_pass, q, k, v, "attention_single_pass")
 
 
 flash_attention.launches = 0
 attention_single_pass.launches = 0
+flash_attention.launches_fp32 = 0
+attention_single_pass.launches_fp32 = 0

@@ -3,8 +3,9 @@
 Replaces ``pi3_slam_tpu/ops/pallas_mlp.py::mlp_fused_tpu``, the drop-in for
 ``models/layers.mlp``. On a CUDA tensor whose widths meet the kernel's rule
 (:func:`mlp_kernel_supported`: C and hidden multiples of 128) it launches the
-hand-written GEMMs of ``csrc/block_mlp.cu`` (entry ``pi3_mlp``: fc1 with the
-bias + GELU epilogue, then fc2 with bias); other widths run
+hand-written GEMMs of ``csrc/block_mlp.cu`` (entry ``pi3_mlp``, or
+``pi3_mlp_f32`` for fp32 x: fc1 with the bias + GELU epilogue, then fc2 with
+bias); other widths run
 :func:`mlp_plain` on the card, as the JAX package runs XLA there. A CPU tensor
 runs :func:`mlp_plain`. Weights use torch's ``nn.Linear`` layout: fc1
 (hidden, C), fc2 (C, hidden).
@@ -18,7 +19,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ._build import check_launch, load_library
+from ._build import check_launch, count_launch, is_fp32, load_library
 from .block_mlp import check_kernel_operands
 
 
@@ -42,8 +43,8 @@ def mlp_plain(
 
 
 @functools.cache
-def _kernel():
-    fn = load_library("block_mlp").pi3_mlp
+def _kernel(name: str):
+    fn = getattr(load_library("block_mlp"), name)
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -58,8 +59,8 @@ def mlp(
 ) -> torch.Tensor:
     """x (..., C) -> fc2(GELU_erf(fc1(x))) (..., C).
 
-    CUDA tensors must be bfloat16; the kernel runs when C and hidden are
-    multiples of 128, and then x must meet
+    CUDA tensors must be bfloat16 or float32; the kernel runs when C and
+    hidden are multiples of 128, and then x must meet
     :func:`~.block_mlp.check_kernel_operands` (contiguous, 16-byte aligned)."""
     c = x.shape[-1]
     hidden = fc1_weight.shape[0]
@@ -67,26 +68,26 @@ def mlp(
         raise ValueError("fc1/fc2 weights must be (hidden, C) / (C, hidden)")
     if not x.is_cuda:
         return mlp_plain(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"mlp on the card takes bfloat16, got {x.dtype}")
+    is_fp32(x, "mlp")
     if not mlp_kernel_supported(c, hidden):
         return mlp_plain(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias)
     dev = x.device
-    w1 = fc1_weight.to(device=dev, dtype=torch.bfloat16).contiguous()
-    w2 = fc2_weight.to(device=dev, dtype=torch.bfloat16).contiguous()
-    check_kernel_operands(x, w1, w2, "mlp")
+    w1 = fc1_weight.to(device=dev, dtype=x.dtype).contiguous()
+    w2 = fc2_weight.to(device=dev, dtype=x.dtype).contiguous()
+    fp32 = check_kernel_operands(x, w1, w2, "mlp")
     b1 = fc1_bias.to(device=dev, dtype=torch.float32).contiguous()
     b2 = fc2_bias.to(device=dev, dtype=torch.float32).contiguous()
     m = x.numel() // c
-    hid = torch.empty((m, hidden), device=dev, dtype=torch.bfloat16)
+    hid = torch.empty((m, hidden), device=dev, dtype=x.dtype)
     out = torch.empty_like(x)
-    code = _kernel()(
+    code = _kernel("pi3_mlp_f32" if fp32 else "pi3_mlp")(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), hid.data_ptr(),
         out.data_ptr(), m, c, hidden, dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch(code, "mlp")
-    mlp.launches += 1
+    count_launch(mlp, fp32)
     return out
 
 
 mlp.launches = 0
+mlp.launches_fp32 = 0

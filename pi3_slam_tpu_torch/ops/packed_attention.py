@@ -9,9 +9,12 @@ Two entry points with the contracts of the TPU kernels they replace
   the encoder, frame and head blocks (T = 643), with an optional ``q_scale``
   on the fp32 logits for callers whose q is not pre-scaled.
 
-On a CUDA tensor both launch one hand-written kernel,
-``csrc/packed_attention.cu`` (see its header for the design); on a CPU
-tensor they run the plain PyTorch version beside it. The softmax is base 2:
+On a CUDA tensor both launch a hand-written kernel: bf16 qkv
+``csrc/packed_attention.cu`` (see its header for the design), fp32 qkv the
+fp32 kernel ``csrc/attention_f32.cu`` over the projection's q / k / v views
+(``ops/attention_f32.py``), as the JAX package runs its Pallas kernels on an
+fp32 model's activations; any other dtype raises. On a CPU tensor they run
+the plain PyTorch version beside them. The softmax is base 2:
 the producer pre-scales q by D**-0.5 * log2(e), or ``q_scale`` carries it.
 Keys at index >= ``true_t`` (the producer's zero padding) are ignored and the
 output has ``true_t`` rows.
@@ -24,7 +27,8 @@ import functools
 
 import torch
 
-from ._build import check_launch, load_library
+from ._build import check_launch, count_launch, is_fp32, load_library
+from .attention_f32 import attention_f32
 
 HEAD_DIM = 64
 
@@ -79,11 +83,13 @@ def _kernel():
 
 
 def _launch(qkv: torch.Tensor, num_heads: int, t_valid: int, scale_log2: float, what: str):
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"{what} kernel takes bfloat16, got {qkv.dtype}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(f"{what}: qkv must be contiguous and 16-byte aligned")
     b, t, _ = qkv.shape
+    if is_fp32(qkv, what):
+        q, k, v = qkv.view(b, t, 3, num_heads, HEAD_DIM)[:, :t_valid].unbind(2)
+        out = attention_f32(q, k, v, scale_log2, what)
+        return out.view(b, t_valid, num_heads * HEAD_DIM)
     out = torch.empty((b, t_valid, num_heads * HEAD_DIM), device=qkv.device, dtype=qkv.dtype)
     code = _kernel()(
         qkv.data_ptr(), out.data_ptr(), b, t, num_heads, t_valid, float(scale_log2),
@@ -111,7 +117,7 @@ def flash_attention_packed(
     if not qkv.is_cuda:
         return packed_attention_plain(qkv, num_heads, t_valid)
     out = _launch(qkv, num_heads, t_valid, 1.0, "flash_attention_packed")
-    flash_attention_packed.launches += 1
+    count_launch(flash_attention_packed, qkv.dtype == torch.float32)
     return out
 
 
@@ -141,15 +147,18 @@ def attention_single_pass_packed(
 ) -> torch.Tensor:
     """Frame / encoder / head-block attention over packed qkv; ``q_scale``
     multiplies the fp32 logits (the encoder passes D**-0.5 * log2(e)) and
-    may take any value (:func:`positive_scale`)."""
+    may take any value (in bf16 through :func:`positive_scale`)."""
     t_valid = _check(qkv, num_heads, true_t)
     if not qkv.is_cuda:
         return packed_attention_plain(qkv, num_heads, t_valid, q_scale)
-    qkv, q_scale = positive_scale(qkv, q_scale)
+    if qkv.dtype == torch.bfloat16:  # the fp32 kernel scales before its max: any scale
+        qkv, q_scale = positive_scale(qkv, q_scale)
     out = _launch(qkv, num_heads, t_valid, q_scale, "attention_single_pass_packed")
-    attention_single_pass_packed.launches += 1
+    count_launch(attention_single_pass_packed, qkv.dtype == torch.float32)
     return out
 
 
 flash_attention_packed.launches = 0
 attention_single_pass_packed.launches = 0
+flash_attention_packed.launches_fp32 = 0
+attention_single_pass_packed.launches_fp32 = 0

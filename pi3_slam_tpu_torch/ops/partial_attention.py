@@ -13,12 +13,13 @@ key loop (Cauchy-Schwarz: s_rj <= mh_r - 1), so partials over key shards that
 share ``kn`` sum exactly and the caller divides once; ``acc`` and ``l``
 themselves, not only their ratio, are the contract.
 
-On a CUDA tensor :func:`flash_attention_partial` launches the hand-written
-kernel ``csrc/partial_attention.cu`` (see its header; the TMA + ``wgmma``
-loop of ``csrc/bthd_attention.cuh`` with its own epilogue), which reads q, k
-and v through their strides (any view with a unit-stride last dim and 16-byte
-aligned rows, such as the qkv projection's q / k / v slices); on a CPU tensor
-it runs :func:`partial_attention_plain`.
+On a CUDA tensor :func:`flash_attention_partial` launches a hand-written
+kernel that reads q, k and v through their strides (any view with a
+unit-stride last dim and 16-byte aligned rows, such as the qkv projection's
+q / k / v slices): in bf16 ``csrc/partial_attention.cu`` (see its header; the
+TMA + ``wgmma`` loop of ``csrc/bthd_attention.cuh`` with its own epilogue),
+in fp32 the partial entry of ``csrc/attention_f32.cu``; any other dtype
+raises. On a CPU tensor it runs :func:`partial_attention_plain`.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import math
 
 import torch
 
-from ._build import check_launch, load_library
+from ._build import check_launch, count_launch, is_fp32, load_library
+from .attention_f32 import partial_attention_f32
 
 HEAD_DIM = 64
 LOG2_E = math.log2(math.e)
@@ -102,11 +104,15 @@ def flash_attention_partial(
     """q (B, Tq, H, D) unscaled, k / v (B, Tk, H, D), kn (B, H) the global
     per-head max |k| -> (acc (B, Tq, H, D), l (B, Tq, H)), both fp32.
 
-    CUDA tensors must be bfloat16 with D = 64."""
+    CUDA tensors must be bfloat16 or float32 with D = 64."""
     _check(q, k, v, kn)
     if not q.is_cuda:
         return partial_attention_plain(q, k, v, kn)
     b, tq, h, d = q.shape
+    if is_fp32(q, "flash_attention_partial"):
+        out = partial_attention_f32(q, k, v, kn, d**-0.5 * LOG2_E)
+        count_launch(flash_attention_partial, True)
+        return out
     if d != HEAD_DIM:
         raise ValueError(f"the partial attention kernel takes head dim {HEAD_DIM}, got {d}")
     dev = q.device
@@ -120,8 +126,9 @@ def flash_attention_partial(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch(code, "flash_attention_partial")
-    flash_attention_partial.launches += 1
+    count_launch(flash_attention_partial, False)
     return acc, l
 
 
 flash_attention_partial.launches = 0
+flash_attention_partial.launches_fp32 = 0

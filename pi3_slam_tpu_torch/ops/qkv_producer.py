@@ -5,7 +5,8 @@ Replaces the Pallas TPU kernel ``pi3_slam_tpu/ops/pallas_producer.py::
 qkv_rope_producer_tpu`` (kernel ``_producer_kernel``). On a CUDA tensor
 :func:`qkv_rope_producer` launches the hand-written kernel of
 ``csrc/qkv_producer.cu`` (its header has the design and the bound: bytes,
-one read and one write of the tensor); on a CPU tensor it runs
+one read and one write of the tensor), in bf16 or, for an fp32 model's rows,
+its fp32 entry (any other dtype raises); on a CPU tensor it runs
 :func:`qkv_rope_producer_plain`.
 
 On the GPU the producer emits ``out_t = T`` (the attention kernel masks by
@@ -21,7 +22,7 @@ import math
 
 import torch
 
-from ._build import check_launch, load_library
+from ._build import check_launch, count_launch, is_fp32, load_library
 
 LOG2_E = math.log2(math.e)
 HEAD_DIM = 64
@@ -77,14 +78,13 @@ def qkv_rope_producer_plain(
 
 
 @functools.cache
-def _kernel():
-    fn = load_library("qkv_producer").pi3_qkv_producer
+def _kernel(name: str):
+    fn = getattr(load_library("qkv_producer"), name)
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [
         ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
-
 
 
 def qkv_rope_producer(
@@ -109,10 +109,10 @@ def qkv_rope_producer(
     ``return_k_norms`` also the per-head max |k| (B*H,) fp32 (post-norm;
     RoPE preserves norms).
 
-    A CUDA tensor runs the kernel of ``csrc/qkv_producer.cu`` (bfloat16,
-    head dim 64, qkv and the fp32 tables and norm parameters contiguous on
-    16-byte aligned bases; anything else raises); a CPU tensor runs
-    :func:`qkv_rope_producer_plain`.
+    A CUDA tensor runs the kernel of ``csrc/qkv_producer.cu`` (bfloat16 or
+    float32, head dim 64, qkv and the fp32 tables and norm parameters
+    contiguous on 16-byte aligned bases; anything else raises); a CPU tensor
+    runs :func:`qkv_rope_producer_plain`.
     """
     if not qkv.is_cuda:
         return qkv_rope_producer_plain(
@@ -121,8 +121,7 @@ def qkv_rope_producer(
         )
     if _check(qkv, cos, sin, num_heads, out_t) != HEAD_DIM:
         raise ValueError(f"qkv_rope_producer kernel takes head dim {HEAD_DIM}")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"qkv_rope_producer kernel takes bfloat16, got {qkv.dtype}")
+    fp32 = is_fp32(qkv, "qkv_rope_producer")
     b, t, c3 = qkv.shape
     dev = qkv.device
     cos, sin = (x.to(device=dev, dtype=torch.float32).contiguous() for x in (cos, sin))
@@ -135,16 +134,17 @@ def qkv_rope_producer(
     ptrs = [p.data_ptr() for p in norm] or [None] * 4
     out = torch.empty((b, out_t, c3), device=dev, dtype=qkv.dtype)
     kn_sq = torch.zeros((b * num_heads,), device=dev, dtype=torch.float32) if return_k_norms else None
-    code = _kernel()(
+    code = _kernel("pi3_qkv_producer_f32" if fp32 else "pi3_qkv_producer")(
         qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), *ptrs, out.data_ptr(),
         None if kn_sq is None else kn_sq.data_ptr(), b, t, out_t, num_heads, float(eps),
         HEAD_DIM**-0.5 * LOG2_E, dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch(code, "qkv_rope_producer")
-    qkv_rope_producer.launches += 1
+    count_launch(qkv_rope_producer, fp32)
     if return_k_norms:
         return out, kn_sq.sqrt()
     return out
 
 
 qkv_rope_producer.launches = 0
+qkv_rope_producer.launches_fp32 = 0

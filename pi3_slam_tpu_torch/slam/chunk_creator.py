@@ -40,6 +40,15 @@ from .config import OfflineCreatorConfig
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def compute_dtype(name: str) -> torch.dtype:
+    """The model dtype of ``--compute-dtype``, on any device: the kernels
+    have bf16 and fp32 entries, as the JAX package computes either on its
+    device."""
+    if name not in _DTYPES:
+        raise ValueError(f"--compute-dtype {name!r}: choose one of {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
 def make_chunk_step(
     model: Pi3,
     conf_threshold: float,
@@ -134,12 +143,7 @@ class OfflineChunkCreator:
     def __init__(self, config: OfflineCreatorConfig, pi3_config: Pi3Config | None = None):
         self.config = config
         self.device = select_device(config.device)
-        dtype = _DTYPES[config.compute_dtype]
-        if self.device.type == "cuda" and dtype != torch.bfloat16:
-            raise ValueError(
-                "--compute-dtype float32 is not supported on the GPU: the hand-written "
-                "kernels take bfloat16 (see ROADMAP.md)"
-            )
+        dtype = compute_dtype(config.compute_dtype)
         ckpt_cfg = None
         if config.checkpoint_path:
             print(f"Loading Pi3 weights: {config.checkpoint_path}")

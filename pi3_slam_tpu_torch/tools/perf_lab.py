@@ -9,16 +9,19 @@ and prints ms and TFLOP/s of:
 
 * a square 8192^3 bf16 ``torch.matmul``: the card's practical bf16 peak, a
   yardstick;
-* ``dots_attention`` at (1, 65536, 3*16*64): the ``mma.sync`` tile loop of
-  ``csrc/flash_tile.cuh`` with the softmax taken out
-  (``csrc/dots_attention.cu``);
-* ``flash_attention_packed`` at the same shape: the TMA + ``wgmma`` kernel
-  with its online softmax (``csrc/packed_attention.cu``);
+* ``dots_attention`` at (1, 65536, 3*16*64): the TMA + ``wgmma`` loop of
+  ``csrc/bthd_attention.cuh`` with the softmax taken out (its products-only
+  mode, ``csrc/dots_attention.cu``);
+* ``flash_attention_packed`` at the same shape: the same design with its
+  online softmax (``csrc/packed_attention.cu``);
+* ``flash_attention`` over the same q / k / v views: that loop itself with
+  its online softmax (``csrc/attention.cu``), so its time less the dots
+  kernel's is the softmax's cost on the loop;
 * ``block_mlp`` at (1, 65536, 1024) with hidden 4096 (``csrc/block_mlp.cu``).
 
 Each against the matmul yardstick says how far its loop is from the tensor
-cores' practical rate. The two attention kernels run different loops, so
-their difference is not the cost of a softmax.
+cores' practical rate. The three attention kernels run one loop design (ring,
+tiles, warpgroups, issue order).
 
 ``mlp`` times, at the main paths' MLP shapes (Pi3's (1, 64300, 1024) and
 (100, 643, 1024) with hidden 4096, MoGe-2's (1, 3537, 384) with 1536), the
@@ -59,13 +62,14 @@ def _time_ms(fn, iters: int = ITERS) -> float:
 
 
 def bench_sol() -> dict:
-    """Run the four probes on the current CUDA device; returns
+    """Run the five probes on the current CUDA device; returns
     {name: {"ms", "tflops", "flops", "shape"}} and prints one line each.
     Inputs are N(0, 0.05^2) in bf16, drawn on the card from seed 0."""
     if not torch.cuda.is_available():
         raise RuntimeError("the speed-of-light probe needs an NVIDIA GPU")
     from ..ops.block_mlp import block_mlp
     from ..ops.dots_attention import dots_attention
+    from ..ops.flash_attention import flash_attention
     from ..ops.packed_attention import flash_attention_packed
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -88,11 +92,14 @@ def bench_sol() -> dict:
     qkv = mk(1, SOL_T, 3 * SOL_H * SOL_D)
     aflops = 4.0 * SOL_H * SOL_T * SOL_T * SOL_D
     shape = f"(1, {SOL_T}, {3 * SOL_H * SOL_D})"
-    run("dots_attention (the mma.sync loop without softmax)", shape,
+    run("dots_attention (the TMA + wgmma loop without softmax)", shape,
         lambda: dots_attention(qkv, SOL_H), aflops)
     run("flash_attention_packed (TMA + wgmma, online softmax)", shape,
         lambda: flash_attention_packed(qkv, SOL_H), aflops)
-    del qkv
+    q, k, v = qkv.view(1, SOL_T, 3, SOL_H, SOL_D).unbind(2)
+    run("flash_attention (the same loop as dots, softmax)", shape,
+        lambda: flash_attention(q, k, v), aflops)
+    del qkv, q, k, v
 
     x = mk(1, SOL_T, MLP_C)
     w1, w2 = mk(MLP_HIDDEN, MLP_C), mk(MLP_C, MLP_HIDDEN)

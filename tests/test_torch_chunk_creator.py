@@ -168,3 +168,19 @@ def test_metric_scale_stored_exactly_with_moge(runs, request):
             assert ("metric_scale" in chunk) == metric
             if metric:
                 assert np.isfinite(chunk["metric_scale"]) and chunk["metric_scale"] > 0
+
+
+@pytest.mark.parametrize("name", ["bfloat16", "float32", "float16"])
+def test_compute_dtype_is_not_refused_on_the_card(name):
+    """--compute-dtype float32 runs on the GPU (the kernels' fp32 entries),
+    as the JAX creator computes it on its device; the creator's check is the
+    same on every device and refuses only names without an entry."""
+    import torch
+
+    from pi3_slam_tpu_torch.slam.chunk_creator import compute_dtype
+
+    if name == "float16":
+        with pytest.raises(ValueError):
+            compute_dtype(name)
+    else:
+        assert compute_dtype(name) == getattr(torch, name)

@@ -1,6 +1,6 @@
 """The port's hand-written kernels against their plain PyTorch versions on an
-NVIDIA GPU, in bf16, at small ragged shapes (chip_smoke.py covers the main
-path's shapes). Every test here carries the ``cuda`` marker and skips where
+NVIDIA GPU, in bf16 and (their fp32 entries) in fp32, at small ragged shapes
+(chip_smoke.py covers the main path's shapes). Every test here carries the ``cuda`` marker and skips where
 there is no GPU. The file imports no JAX, so it also runs where JAX is not
 installed:
 
@@ -20,6 +20,7 @@ from pi3_slam_tpu_torch.ops.block_mlp import block_mlp, block_mlp_plain
 from pi3_slam_tpu_torch.ops.compare import (
     ATTENTION,
     DOTS,
+    FP32,
     MLP,
     PARTIAL_L,
     PRODUCER,
@@ -152,8 +153,8 @@ def test_producer_reads_no_row_past_t(gen, pad):
 def test_producer_refuses_what_the_kernel_does_not_take(gen):
     qkv, cos, sin = _producer_input(gen, 1, 70, 2)
     before = launch_counts()
-    with pytest.raises(TypeError):
-        qkv_rope_producer(qkv.float(), cos, sin, 2, 70)
+    with pytest.raises(TypeError):  # fp16 has no entry
+        qkv_rope_producer(qkv.half(), cos, sin, 2, 70)
     wide = _randn(gen, 1, 70, 3 * 2 * 128)  # head dim 128
     cos128, sin128 = rope_tables(make_patch_positions(1, 1, 70, offset=1, device="cuda"), 128)
     with pytest.raises(ValueError):
@@ -247,6 +248,9 @@ def test_block_mlp_matches_plain(gen, with_ls):
 
 @pytest.mark.cuda
 def test_wrappers_count_launches_and_refuse_fp32(gen):
+    """bf16 launches count on the bf16 entries; fp16, which has no entry, is
+    refused (fp32 takes the fp32 entries since they exist:
+    test_fp32_entries_count_launches_and_refuse_fp16)."""
     qkv, cos, sin, norm = _packed(gen, 1, 70, 2)
     before = launch_counts()
     packed = qkv_rope_producer(qkv, cos, sin, 2, 70, **norm)
@@ -257,9 +261,9 @@ def test_wrappers_count_launches_and_refuse_fp32(gen):
     assert after["flash_attention_packed"] == before["flash_attention_packed"] + 1
     assert after["attention_single_pass_packed"] == before["attention_single_pass_packed"] + 1
     with pytest.raises(TypeError):
-        attention_single_pass_packed(packed.float(), 2)
+        attention_single_pass_packed(packed.half(), 2)
     with pytest.raises(TypeError):
-        qkv_rope_producer(qkv.float(), cos, sin, 2, 70)
+        qkv_rope_producer(qkv.half(), cos, sin, 2, 70)
 
 
 @pytest.mark.cuda
@@ -329,6 +333,8 @@ def test_partial_wrapper_counts_launches_and_refuses_fp32(gen):
     before = launch_counts()["flash_attention_partial"]
     flash_attention_partial(q, k, v, kn)
     assert launch_counts()["flash_attention_partial"] == before + 1
+    with pytest.raises(TypeError):  # fp16 has no entry; q fp32 with bf16 k / v mixes two
+        flash_attention_partial(q.half(), k.half(), v.half(), kn)
     with pytest.raises(TypeError):
         flash_attention_partial(q.float(), k, v, kn)
 
@@ -433,6 +439,8 @@ def test_bthd_wrappers_count_launches_and_refuse_what_the_kernel_does_not_take(g
     assert after["attention_single_pass"] == before["attention_single_pass"] + 1
     with pytest.raises(TypeError):
         flash_attention(q.float(), k, v)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
     odd = _randn(gen, 1, 70, 2, 68)[..., :64]  # row stride 68: not 16-byte aligned
     with pytest.raises(ValueError):
         attention_single_pass(odd, odd, odd)
@@ -532,10 +540,13 @@ def test_mlp_outside_kernel_widths_runs_plain_on_the_card(gen):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,h", [(1, 1000, 3), (2, 301, 2), (1, 64, 1)])
+@pytest.mark.parametrize("b,t,h", [(1, 1000, 3), (2, 301, 2), (1, 64, 1), (1, 4100, 2),
+                                   (2, 129, 4)])
 def test_dots_attention_matches_plain(gen, b, t, h):
-    """T not a multiple of the 64-row tile; entries at the probe's N(0, 0.05^2)
-    and at unit variance (logits far from 1)."""
+    """The products-only mode of the TMA + wgmma loop (128-key tiles, 128-row
+    blocks): T not a multiple of the tile, less than one tile, 33 key tiles
+    (the ring of 3 stages wraps), one key and one query past a tile; entries
+    at the probe's N(0, 0.05^2) and at unit variance (logits far from 1)."""
     for scale in (0.05, 1.0):
         qkv = _randn(gen, b, t, 3 * h * D, scale=scale)
         before = launch_counts()["dots_attention"]
@@ -637,3 +648,210 @@ def test_chunk_bundle_adjust_is_bit_reproducible_on_the_card(gen):
                               ftol=0.0) for _ in range(2)]
     for name in ("rotations", "centers", "points"):
         assert torch.equal(getattr(runs[0], name), getattr(runs[1], name)), name
+
+
+# --- the fp32 entries (csrc/attention_f32.cu, the fp32 producer, the fp32
+# GEMMs): each against its plain version in fp32 with ops/compare.FP32, a
+# bound that must also reject the bf16 entry's output on the same inputs
+
+
+def _randn32(gen, *shape, scale=1.0):
+    return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+
+def _assert_fp32(got, ref, bf16_got, **bounds):
+    """got (an fp32 entry's output) within bounds of ref; the bounds reject
+    the bf16 entry's output (upcast), so the path is really fp32."""
+    assert got.dtype == torch.float32
+    _assert_close(got, ref, **bounds)
+    c = compare(bf16_got.float(), ref, **bounds)
+    assert not c.ok, f"the fp32 bounds pass the bf16 entry's output: {c}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,true_t,h", [(2, 301, None, 4), (2, 384, 301, 4), (2, 70, 1, 4),
+                                          (2, 643, None, 6), (1, 4100, None, 2)])
+@pytest.mark.parametrize("q_scale", [1.0, 0.18033688011112042, 0.0, -0.3])
+def test_fp32_packed_attention_matches_plain(gen, b, t, true_t, h, q_scale):
+    """Both packed entries on fp32 qkv: ragged T, rows past true_t, MoGe-2's 6
+    heads, 65 key tiles; any logit scale (the fp32 kernel scales before its
+    max), the producer's 1, the encoder's D^-1/2 log2(e), 0 and negative."""
+    qkv = _randn32(gen, b, t, 3 * h * D)
+    ref = packed_attention_plain(qkv, h, true_t=true_t, q_scale=q_scale)
+    bf16 = attention_single_pass_packed(qkv.bfloat16(), h, true_t=true_t, q_scale=q_scale)
+    before = launch_counts()
+    got = attention_single_pass_packed(qkv, h, true_t=true_t, q_scale=q_scale)
+    _assert_fp32(got, ref, bf16, **FP32)
+    if q_scale == 1.0:
+        _assert_fp32(flash_attention_packed(qkv, h, true_t=true_t), ref, bf16, **FP32)
+    after = launch_counts()
+    assert after["attention_single_pass_packed_fp32"] == before["attention_single_pass_packed_fp32"] + 1
+    assert after["attention_single_pass_packed"] == before["attention_single_pass_packed"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", [flash_attention_packed, attention_single_pass_packed])
+def test_fp32_packed_attention_reads_no_row_past_true_t(gen, entry):
+    b, t, h, true_t = 2, 704, 6, 643
+    qkv = _randn32(gen, b, t, 3 * h * D)
+    qkv[:, true_t:] = float("nan")
+    got = entry(qkv, h, true_t=true_t)
+    assert torch.equal(got, entry(qkv[:, :true_t].contiguous(), h))
+    _assert_close(got, packed_attention_plain(qkv, h, true_t=true_t), **FP32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("tq,tk", [(301, 301), (301, 150), (130, 333), (70, 1)])
+def test_fp32_bthd_attention_matches_plain(gen, d, tq, tk):
+    """Strided (B, T, H, D) views at every fp32 head dim (64-key tiles up to
+    D 128, 32 above), Tk below and above Tq, neither a multiple of a tile."""
+    q = _randn32(gen, 2, tq, 3, 3, d)[:, :, 0]
+    kv = _randn32(gen, 2, tk, 2, 3, d)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    ref = blockwise_attention(q, k, v)
+    bf16 = flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    _assert_fp32(flash_attention(q, k, v), ref, bf16, **FP32)
+    _assert_fp32(attention_single_pass(q, k, v), ref, bf16, **FP32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 256])
+def test_fp32_bthd_attention_reads_no_row_past_the_length(gen, d):
+    b, h, tq, tk, t = 2, 3, 301, 150, 400
+    q, k, v = (_randn32(gen, b, t, h, d) for _ in range(3))
+    clean = flash_attention(q[:, :tq], k[:, :tk], v[:, :tk])
+    got = flash_attention(_nan_tail(q, tq), _nan_tail(k, tk), _nan_tail(v, tk))
+    assert torch.equal(got, clean)
+    _assert_close(got, blockwise_attention(q[:, :tq], k[:, :tk], v[:, :tk]), **FP32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk", [(301, 150), (64, 64), (130, 1)])
+def test_fp32_partial_attention_matches_plain(gen, tq, tk):
+    q = _randn32(gen, 2, tq, 3, 4, D)[:, :, 0]
+    k, v = _randn32(gen, 2, tk, 4, D), _randn32(gen, 2, tk, 4, D)
+    kn = k.square().sum(-1).amax(1).sqrt()
+    (acc, l), (acc_ref, l_ref) = flash_attention_partial(q, k, v, kn), partial_attention_plain(q, k, v, kn)
+    acc_bf16, l_bf16 = flash_attention_partial(q.bfloat16(), k.bfloat16(), v.bfloat16(), kn)
+    _assert_fp32(acc, acc_ref, acc_bf16, **FP32)
+    _assert_close(l, l_ref, **FP32)
+    _assert_fp32(acc / l[..., None], acc_ref / l_ref[..., None], acc_bf16 / l_bf16[..., None], **FP32)
+    # NaN behind Tq / Tk: the same bits as finite tails
+    big = _randn32(gen, 2, 400, 4, D)
+    big[:, :tk] = k
+    got = flash_attention_partial(q, _nan_tail(big, tk), _nan_tail(big, tk), kn)
+    assert torch.equal(got[0], flash_attention_partial(q, k, k.clone(), kn)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_norm", [True, False])
+@pytest.mark.parametrize("pad", [0, 37])
+@pytest.mark.parametrize("t", [1, 63, 643, 4100])
+@pytest.mark.parametrize("h", [2, 5, 6, 16, 20])
+def test_fp32_producer_matches_plain(gen, h, t, pad, with_norm):
+    """The fp32 producer (4 columns a lane, 16 lanes a head, 2 heads a pass,
+    8 heads a grid row): H 5 and 6 mask a pass, H 16 fills two grid rows, 20
+    three; q, k and v within FP32, v copied bit for bit, rows past T zero,
+    kn to 1e-5; the bounds reject the bf16 producer's output."""
+    b = 1 if t == 4100 else 2
+    qkv = _randn32(gen, b, t, 3 * h * D)
+    cos, sin = rope_tables(make_patch_positions(b, 1, t, offset=1, device="cuda"), D)
+    kw = _producer_norm(gen) if with_norm else {}
+    got, kn = qkv_rope_producer(qkv, cos, sin, h, t + pad, return_k_norms=True, **kw)
+    ref, kn_ref = qkv_rope_producer_plain(qkv, cos, sin, h, t + pad, return_k_norms=True, **kw)
+    bf16, _ = qkv_rope_producer(qkv.bfloat16(), cos, sin, h, t + pad, return_k_norms=True, **kw)
+    c = h * D
+    for i in range(2):  # q, k
+        part = slice(i * c, (i + 1) * c)
+        _assert_fp32(got[:, :t, part], ref[:, :t, part], bf16[:, :t, part], **FP32)
+    assert torch.equal(got[:, :t, 2 * c:], qkv[..., 2 * c:])
+    assert not got[:, t:].any()
+    _assert_close(kn, kn_ref, max_rel=1e-5, l2_rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["block_mlp", "mlp"])
+@pytest.mark.parametrize("c,hidden", [(128, 512), (384, 1536), (1024, 4096)])
+@pytest.mark.parametrize("rows", [1, 44, 333, 643 * 2])
+def test_fp32_gemm_entries_match_plain(gen, entry, c, hidden, rows):
+    """Both MLP entries on fp32 x and weights: the fp32 LayerNorm pass and the
+    3xTF32 GEMMs with their epilogues, rows not a multiple of the 128-row
+    tile; the bounds reject the bf16 entry's output."""
+    x = _randn32(gen, 1, rows, c)
+    w = (_randn32(gen, hidden, c, scale=0.05), _randn32(gen, hidden, scale=0.1),
+         _randn32(gen, c, hidden, scale=0.05), _randn32(gen, c, scale=0.1))
+    if entry == "mlp":
+        run, plain, bounds = (lambda a, *p: mlp(a, *p)), (lambda a, *p: mlp_plain(a, *p)), None
+    else:
+        norm = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda"),
+                0.1 * torch.randn(c, generator=gen, device="cuda"))
+        ls = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        run = lambda a, *p: block_mlp(a, *norm, *p, ls=ls)
+        plain = lambda a, *p: block_mlp_plain(a, *norm, *p, ls=ls)
+    before = launch_counts()[f"{entry}_fp32"]
+    got = run(x, *w)
+    assert launch_counts()[f"{entry}_fp32"] == before + 1
+    ref = plain(x, *w)
+    bounds = FP32 if entry == "mlp" else block_mlp_bounds(x, ref)
+    _assert_fp32(got, ref, run(x.bfloat16(), *(p.bfloat16() for p in w)), **bounds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["block_mlp", "mlp"])
+def test_fp32_gemm_entries_read_no_row_past_m_and_repeat_bit_for_bit(gen, entry):
+    rows, c, hidden = 333, 384, 1536
+    buf = _randn32(gen, 1, rows + 200, c)
+    clean = buf[:, :rows].clone()
+    buf[:, rows:] = float("nan")
+    w = (_randn32(gen, hidden, c, scale=0.05), _randn32(gen, hidden, scale=0.1),
+         _randn32(gen, c, hidden, scale=0.05), _randn32(gen, c, scale=0.1))
+    if entry == "mlp":
+        run = lambda a: mlp(a, *w)
+    else:
+        ones, zeros = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+        run = lambda a: block_mlp(a, ones, zeros, *w, ls=ones)
+    got = run(buf[:, :rows])
+    assert torch.equal(got, run(clean))
+    assert torch.equal(got, run(buf[:, :rows]))
+
+
+@pytest.mark.cuda
+def test_fp32_entries_count_launches_and_refuse_fp16(gen):
+    """Each fp32 entry counts under <name>_fp32 and not under the bf16 name;
+    fp16 is refused by every wrapper before any launch; fp32 above head dim
+    256 is refused (ROADMAP.md Queue 3)."""
+    qkv = _randn32(gen, 1, 70, 3 * 2 * D)
+    cos, sin = rope_tables(make_patch_positions(1, 1, 70, offset=1, device="cuda"), D)
+    before = launch_counts()
+    packed = qkv_rope_producer(qkv, cos, sin, 2, 70, **_producer_norm(gen))
+    flash_attention_packed(packed, 2)
+    attention_single_pass_packed(packed, 2)
+    q, k, v = packed.view(1, 70, 3, 2, D).unbind(2)
+    flash_attention(q, k, v)
+    attention_single_pass(q, k, v)
+    flash_attention_partial(q, k, v, k.square().sum(-1).amax(1).sqrt())
+    x = _randn32(gen, 1, 70, 128)
+    w = (_randn32(gen, 512, 128), _randn32(gen, 512), _randn32(gen, 128, 512), _randn32(gen, 128))
+    mlp(x, *w)
+    block_mlp(x, torch.ones(128, device="cuda"), torch.zeros(128, device="cuda"), *w)
+    after = launch_counts()
+    for name in ("qkv_rope_producer", "flash_attention_packed", "attention_single_pass_packed",
+                 "flash_attention", "attention_single_pass", "flash_attention_partial", "mlp",
+                 "block_mlp"):
+        assert after[f"{name}_fp32"] == before[f"{name}_fp32"] + 1, name
+        assert after[name] == before[name], name
+    half = qkv.half()
+    for call in (lambda: qkv_rope_producer(half, cos, sin, 2, 70),
+                 lambda: attention_single_pass_packed(half, 2),
+                 lambda: flash_attention_packed(half, 2),
+                 lambda: flash_attention(*(a.half() for a in (q, k, v))),
+                 lambda: mlp(x.half(), *w),
+                 lambda: block_mlp(x.half(), torch.ones(128, device="cuda"),
+                                   torch.zeros(128, device="cuda"), *w)):
+        with pytest.raises(TypeError):
+            call()
+    wide = _randn32(gen, 1, 300, 1, 320)
+    with pytest.raises(ValueError):
+        flash_attention(wide, wide, wide)
+    assert launch_counts() == after

@@ -8,6 +8,13 @@ with numpy from a seed, through both. Shapes are small but keep D = 64 and
 an even H, the TPU kernels' contract. Tolerances are fp32 ones: both sides
 compute in fp32 and differ only in summation order.
 
+The fp32 entries (an fp32 model's activations: ``--compute-dtype float32``,
+MoGe-2's encoder) are held to the same plain versions on the card with the
+bounds of ``ops.compare.FP32`` (relative L2 1e-5, max |err| 1e-4 of the
+output's size). Here the plain versions meet those bounds against the Pallas
+functions with fp32 inputs (rows 1-5 and 8), and the bounds pass the fp32
+kernels' 3xTF32 arithmetic (simulated) and reject the bf16 entries'.
+
 The hand-written kernels themselves are compared with these plain versions
 on the GPU by tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -20,16 +27,21 @@ import torch
 from pi3_slam_tpu.ops.pallas_attention import (
     attention_single_pass_packed_tpu,
     flash_attention_packed_tpu,
+    flash_attention_partial_tpu,
     flash_packed_lattice,
 )
-from pi3_slam_tpu.ops.pallas_mlp import block_mlp_fused_tpu
+from pi3_slam_tpu.ops.pallas_mlp import block_mlp_fused_tpu, mlp_fused_tpu
 from pi3_slam_tpu.ops.pallas_producer import qkv_rope_producer_tpu
 from pi3_slam_tpu.ops.rope import make_patch_positions as jax_positions
 from pi3_slam_tpu.ops.rope import rope_tables as jax_rope_tables
 
 from pi3_slam_tpu_torch.ops import launch_counts
+from pi3_slam_tpu_torch.ops._build import is_fp32
+from pi3_slam_tpu_torch.ops.attention_f32 import HEAD_DIMS, attention_f32
 from pi3_slam_tpu_torch.ops.block_mlp import block_mlp, block_mlp_plain
-from pi3_slam_tpu_torch.ops.compare import ATTENTION, PRODUCER, block_mlp_bounds, compare
+from pi3_slam_tpu_torch.ops.compare import ATTENTION, FP32, PRODUCER, block_mlp_bounds, compare
+from pi3_slam_tpu_torch.ops.mlp import mlp
+from pi3_slam_tpu_torch.ops.partial_attention import flash_attention_partial
 from pi3_slam_tpu_torch.ops.packed_attention import (
     attention_single_pass_packed,
     flash_attention_packed,
@@ -231,11 +243,53 @@ def _block_mlp_fp32_hidden(x, nw, nb, w1, b1, w2, b2, ls):
     return (x.float() + (h.float() @ w2.float().T + b2.float()) * ls).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("case", ["producer", "attention", "attention_q_scale", "block_mlp"])
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero:
+    cvt.rna.tf32.f32)."""
+    return ((x.float().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the fp32 kernels compute it: both operands split into TF32
+    big + small parts, big.big + big.small + small.big, the products exact
+    and summed (here in fp64), the result fp32."""
+    ab, bb = _tf32(a), _tf32(b)
+    asm, bsm = _tf32(a.float() - ab), _tf32(b.float() - bb)
+    d = torch.float64
+    return (ab.to(d) @ bb.to(d) + ab.to(d) @ bsm.to(d) + asm.to(d) @ bb.to(d)).float()
+
+
+def _attention_3xtf32(qkv, h, q_scale=1.0):
+    """The fp32 attention kernel's arithmetic on the CPU: 3xTF32 logits,
+    scaled, the base-2 softmax and P in fp32, 3xTF32 P V."""
+    b, t, _ = qkv.shape
+    x = qkv.view(b, t, 3, h, D)
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    s = _mm_3xtf32(q, k.transpose(-1, -2)) * q_scale
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    o = _mm_3xtf32(p, v) / p.sum(-1, keepdim=True)
+    return o.transpose(1, 2).reshape(b, t, h * D)
+
+
+def _block_mlp_3xtf32(x, nw, nb, w1, b1, w2, b2, ls):
+    """The fp32 block MLP's arithmetic: fp32 LayerNorm, 3xTF32 products,
+    fp32 GELU (the hidden kept in fp32), bias, LayerScale and residual."""
+    xn = torch.nn.functional.layer_norm(x, x.shape[-1:], nw, nb, 1e-6)
+    h = torch.nn.functional.gelu(_mm_3xtf32(xn, w1.T) + b1)
+    return x + (_mm_3xtf32(h, w2.T) + b2) * ls
+
+
+@pytest.mark.parametrize("case", ["producer", "attention", "attention_q_scale", "block_mlp",
+                                  "producer_fp32", "attention_fp32", "attention_q_scale_fp32",
+                                  "block_mlp_fp32"])
 def test_chip_bounds_pass_kernel_arithmetic_and_reject_wrong_outputs(rng, case):
     """The bounds chip_smoke.py and the GPU tests hold the kernels to accept
     the kernels' bf16 arithmetic (simulated here) and fail an all-zero
-    output and one 10% off."""
+    output and one 10% off. The fp32 entries' bounds accept their 3xTF32
+    arithmetic (simulated) and also reject the bf16 entry's output on the
+    same inputs."""
+    if case.endswith("_fp32"):
+        return _check_fp32_bounds(rng, case[:-5])
     bf16 = torch.bfloat16
     base = None
     if case == "producer":
@@ -269,6 +323,141 @@ def test_chip_bounds_pass_kernel_arithmetic_and_reject_wrong_outputs(rng, case):
     off = 1.1 * ref.float() if base is None else base.float() + 1.1 * (ref.float() - base.float())
     assert not compare(zero, ref, **bounds).ok
     assert not compare(off, ref, **bounds).ok
+
+
+def _mlp_args(rng, c, hidden):
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32))
+
+    return (1 + randn(c, scale=0.1), randn(c, scale=0.1), randn(hidden, c, scale=0.05),
+            randn(hidden, scale=0.1), randn(c, hidden, scale=0.05), randn(c, scale=0.1),
+            1 + randn(c, scale=0.1))
+
+
+def _check_fp32_bounds(rng, case):
+    bf16 = torch.bfloat16
+    base = None
+    if case == "producer":
+        qkv = torch.from_numpy(rng.standard_normal((2, 300, 3 * 4 * D)).astype(np.float32))
+        cos, sin = (_t(a) for a in _tables(2, 300, True))
+        norm = {k: _t(v) for k, v in _norm_params(rng).items()}
+        ref = qkv_rope_producer_plain(qkv, cos, sin, 4, 300, **norm)[..., :256]  # q
+        # the same fp32 operations in another order: within an fp32 rounding
+        got = qkv_rope_producer_plain(qkv.double(), cos.double(), sin.double(), 4, 300,
+                                      **{k: v.double() for k, v in norm.items()})[..., :256].float()
+        bf = qkv_rope_producer_plain(qkv.to(bf16), cos, sin, 4, 300, **norm)[..., :256]
+        bounds = FP32
+    elif case.startswith("attention"):
+        if case == "attention":
+            qkv, q_scale = _packed_input(rng, 2, 300, 4, 300), 1.0
+        else:
+            qkv = torch.from_numpy(rng.standard_normal((2, 300, 3 * 4 * D)).astype(np.float32))
+            q_scale = D**-0.5 * np.log2(np.e)
+        got, bounds = _attention_3xtf32(qkv, 4, q_scale), FP32
+        ref = packed_attention_plain(qkv, 4, q_scale=q_scale)
+        bf = _attention_bf16_p(qkv.to(bf16), 4, q_scale)
+    else:
+        base = torch.from_numpy(rng.standard_normal((1, 500, 256)).astype(np.float32))
+        nw, nb, w1, b1, w2, b2, ls = _mlp_args(rng, 256, 1024)
+        got = _block_mlp_3xtf32(base, nw, nb, w1, b1, w2, b2, ls)
+        ref = block_mlp_plain(base, nw, nb, w1, b1, w2, b2, ls=ls)
+        bf = _block_mlp_fp32_hidden(base.to(bf16), nw, nb, w1.to(bf16), b1.to(bf16),
+                                    w2.to(bf16), b2.to(bf16), ls)
+        bounds = block_mlp_bounds(base, ref)
+    assert got.dtype == ref.dtype == torch.float32
+    c = compare(got, ref, **bounds)
+    assert c.ok and c.rejects_wrong, c
+    assert not compare(bf.float(), ref, **bounds).ok  # the bf16 entry's output is rejected
+    zero = torch.zeros_like(ref) if base is None else base
+    off = 1.1 * ref if base is None else base + 1.1 * (ref - base)
+    assert not compare(zero, ref, **bounds).ok
+    assert not compare(off, ref, **bounds).ok
+
+
+@pytest.mark.parametrize("row", ["producer", "single_pass", "single_pass_q_scale", "flash",
+                                 "partial", "block_mlp", "mlp"])
+def test_fp32_plain_matches_pallas(rng, row):
+    """Rows 1-5 and 8 with fp32 inputs: the Pallas function in interpret mode
+    against the port's wrapper on the CPU (the plain version the fp32 entry
+    is held to on the card), fp32 out, within ops.compare.FP32 (relative L2
+    1e-5, max |err| 1e-4 of the output's size): fp32 on both sides in
+    another summation order."""
+    j = jnp.asarray
+    h, t = 2, 300
+    if row == "producer":
+        qkv = rng.standard_normal((2, t, 3 * h * D)).astype(np.float32)
+        cos, sin = _tables(2, t, True)
+        norm = _norm_params(rng)
+        want = qkv_rope_producer_tpu(j(qkv), j(cos), j(sin), h, t, eps=1e-5, interpret=True,
+                                     **{k: j(v) for k, v in norm.items()})
+        got = qkv_rope_producer(_t(qkv), _t(cos), _t(sin), h, t, eps=1e-5,
+                                **{k: _t(v) for k, v in norm.items()})
+        pairs = [(got[..., i * h * D:(i + 1) * h * D], np.asarray(want)[..., i * h * D:(i + 1) * h * D])
+                 for i in range(3)]
+    elif row in ("single_pass", "flash"):
+        packed = _packed_input(rng, 1, t, h, t)
+        fn = attention_single_pass_packed_tpu if row == "single_pass" else flash_attention_packed_tpu
+        kw = {} if row == "single_pass" else dict(blk_q=128, blk_k=128)
+        want = fn(j(packed.numpy()), h, interpret=True, **kw)
+        entry = attention_single_pass_packed if row == "single_pass" else flash_attention_packed
+        pairs = [(entry(packed, h), np.asarray(want))]
+    elif row == "single_pass_q_scale":
+        qkv = rng.standard_normal((2, 270, 3 * h * D)).astype(np.float32)
+        s = D**-0.5 * np.log2(np.e)
+        want = attention_single_pass_packed_tpu(j(qkv), h, q_scale=s, interpret=True)
+        pairs = [(attention_single_pass_packed(_t(qkv), h, q_scale=s), np.asarray(want))]
+    elif row == "partial":
+        q, k, v = (rng.standard_normal((1, t, h, D)).astype(np.float32) for _ in range(3))
+        kn = np.sqrt((k**2).sum(-1).max(axis=1)).astype(np.float32)
+        want = flash_attention_partial_tpu(j(q), j(k), j(v), j(kn), blk_q=128, blk_k=128,
+                                           n_interleave=1, interpret=True)
+        got = flash_attention_partial(_t(q), _t(k), _t(v), _t(kn))
+        pairs = list(zip(got, (np.asarray(w) for w in want)))
+        pairs[1] = (pairs[1][0], pairs[1][1].reshape(pairs[1][0].shape))
+    else:
+        c, hidden = 256, 1024
+        x = rng.standard_normal((2, 150, c)).astype(np.float32)
+        nw, nb, w1, b1, w2, b2, ls = (a.numpy() for a in _mlp_args(rng, c, hidden))
+        if row == "mlp":
+            want = mlp_fused_tpu(j(x), j(w1.T), j(b1), j(w2.T), j(b2), blk_rows=128,
+                                 interpret=True)
+            got = mlp(_t(x), _t(w1), _t(b1), _t(w2), _t(b2))
+            pairs = [(got, np.asarray(want))]
+        else:
+            want = block_mlp_fused_tpu(j(x), j(nw), j(nb), j(w1.T), j(b1), j(w2.T), j(b2),
+                                       ls=j(ls), eps=1e-6, blk_rows=128, interpret=True)
+            got = block_mlp(_t(x), _t(nw), _t(nb), _t(w1), _t(b1), _t(w2), _t(b2), ls=_t(ls),
+                            eps=1e-6)
+            pairs = [(got - _t(x), np.asarray(want) - x)]  # the branch, as block_mlp_bounds
+    for got, want in pairs:
+        assert got.dtype == torch.float32
+        c = compare(got, torch.from_numpy(np.array(want)), **FP32)
+        assert c.ok and c.rejects_wrong, (row, c)
+
+
+def test_fp32_operands_take_the_fp32_entries_and_fp16_is_refused():
+    """The checks the wrappers run on CUDA operands before a launch, here on
+    CPU tensors: bf16 takes the bf16 entry, fp32 the fp32 one, fp16 (no
+    entry) is refused; the fp32 attention kernel takes strided q / k / v
+    views of the packed projection at head dims 64-256 and refuses D 320
+    (ROADMAP.md Queue 3) and rows that are not 16-byte aligned."""
+    assert is_fp32(torch.zeros(4), "x") and not is_fp32(torch.zeros(4, dtype=torch.bfloat16), "x")
+    with pytest.raises(TypeError):
+        is_fp32(torch.zeros(4, dtype=torch.float16), "x")
+    from pi3_slam_tpu_torch.ops.attention_f32 import _operands
+
+    qkv = torch.zeros(2, 70, 3 * 2 * D)
+    q, k, v = qkv.view(2, 70, 3, 2, D).unbind(2)
+    assert _operands(q, k, v, "attention") == [70 * 3 * 2 * D, 3 * 2 * D, D] * 3
+    assert HEAD_DIMS == (64, 128, 192, 256)
+    with pytest.raises(TypeError):
+        _operands(q, k.to(torch.bfloat16), v, "attention")
+    wide = torch.zeros(1, 9, 1, 320)
+    with pytest.raises(ValueError, match="Queue 3"):
+        attention_f32(wide, wide, wide, 1.0, "attention")
+    odd = torch.zeros(1, 9, 2, 66)[..., :64]  # row stride 66 floats: 8-byte aligned rows
+    with pytest.raises(ValueError):
+        _operands(odd, odd, odd, "attention")
 
 
 def test_input_scaled_bound_is_flagged():

@@ -140,6 +140,34 @@ def test_gemm_operand_checks_take_the_main_path_operands():
     check_kernel_operands(torch.zeros(1, 50, 128, dtype=torch.bfloat16)[:, :7], w1, w2, "mlp")
 
 
+@pytest.mark.parametrize("case,error", [
+    ("fp32 operands", None),
+    ("fp32 x, first rows of a longer buffer", None),
+    ("fp16 operands", TypeError),
+    ("fp32 x, bf16 weights", TypeError),
+    ("fp32 x 4 bytes off 16", ValueError),
+])
+def test_gemm_operand_checks_take_fp32_and_refuse_fp16(case, error):
+    """The fp32 entries (pi3_block_mlp_f32, pi3_mlp_f32) take fp32 x with
+    fp32 weights of the same rules (contiguous, 16-byte aligned bases: their
+    cp.async loads); fp16 has no entry, and mixed dtypes are refused."""
+    c, hidden = 128, 512
+    dtype = torch.float16 if case.startswith("fp16") else torch.float32
+    x = torch.zeros(2, 7, c, dtype=dtype)
+    w1, w2 = torch.zeros(hidden, c, dtype=dtype), torch.zeros(c, hidden, dtype=dtype)
+    if case == "fp32 x, first rows of a longer buffer":
+        x = torch.zeros(1, 50, c)[:, :7]
+    elif case == "fp32 x, bf16 weights":
+        w1, w2 = w1.bfloat16(), w2.bfloat16()
+    elif case == "fp32 x 4 bytes off 16":
+        x = torch.zeros(14 * c + 1)[1:].view(2, 7, c)
+    if error is None:
+        assert check_kernel_operands(x, w1, w2, "mlp") is True  # the fp32 entry
+    else:
+        with pytest.raises(error):
+            check_kernel_operands(x, w1, w2, "mlp")
+
+
 def test_mlp_probe_needs_a_gpu():
     """``python -m pi3_slam_tpu_torch.tools.perf_lab mlp`` times the GEMM
     entries on the card only: without one it fails and prints no time."""

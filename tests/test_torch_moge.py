@@ -192,3 +192,20 @@ def test_port_written_npz_reads_back_in_jax(tree, tmp_path, image):
     assert depth.shape == (140, 140) and depth.dtype == np.float32
     with pytest.raises(FileNotFoundError, match="MoGe checkpoint not provided"):
         MoGeRunner(None, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_runner_builds_an_fp32_trunk_on_every_device(tree, tmp_path, monkeypatch, device):
+    """MoGeRunner computes in fp32 as the JAX runner does
+    (compute_dtype=jnp.float32): on the GPU its encoder blocks take the
+    kernels' fp32 entries, not a bf16 trunk. The model builder is replaced
+    here, so the CUDA case needs no GPU."""
+    import pi3_slam_tpu_torch.models.moge as runner_module
+
+    path = str(tmp_path / "moge.npz")
+    save_params_npz(path, tree)
+    built = []
+    monkeypatch.setattr(runner_module, "build_moge",
+                        lambda cfg, state, dev, trunk: built.append((dev.type, trunk)))
+    MoGeRunner(path, torch.device(device))
+    assert built == [(device, torch.float32)]
