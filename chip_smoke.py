@@ -34,7 +34,10 @@ Phases, each of which raises (exit code 1) on failure:
    their fp32 plain versions (TF32 off) with the bounds of ops/compare.FP32,
    each also shown to reject the bf16 entry's output on the same inputs;
    their bound is the products over 3xTF32's 165 TFLOP/s (or the bytes), the
-   library yardstick fp32 SDPA or the two fp32 cuBLAS products.
+   library yardstick fp32 SDPA or the two fp32 cuBLAS products. The fp32
+   (B, T, H, D) attention also runs at head dims 320, 384 and 512 at
+   (1, 4100, 2, D) and 320 at (100, 643, 2, D), its sliced variant (keys
+   past Tk NaN at D 512, bit-identical), reported under "routes" too.
 3. Full-width forwards with random weights (seed 0): Pi3 on a 4-frame chunk
    at 308x406, exact and with global_kv_merge=2, in bf16 and in fp32, MoGe-2
    (ViT-S backbone, fp32 trunk as MoGeRunner builds it) on one 308x406
@@ -348,8 +351,9 @@ def phase_build() -> None:
                 log(f"    ptxas: {line.strip()}")
     from pi3_slam_tpu_torch.ops._build import load_library
 
-    log(f"    block_mlp.cu GEMMs: {load_library('block_mlp').pi3_gemm_smem_bytes()} bytes of "
-        "dynamic shared memory a block")
+    lib = load_library("block_mlp")
+    log(f"    block_mlp.cu GEMMs: {lib.pi3_gemm_smem_bytes()} (bf16), "
+        f"{lib.pi3_gemm_f32_smem_bytes()} (fp32) bytes of dynamic shared memory a block")
 
 
 def rope_for(b: int, frames_per_row: int):
@@ -795,7 +799,7 @@ def phase_kernels() -> dict:
            work)
     del q, k, v
 
-    def bthd32(name, shape_name, q, k, v, iters, plain_iters):
+    def bthd32(name, shape_name, q, k, v, iters, plain_iters, route=None):
         fn = flash_attention if name == "flash_attention_fp32" else attention_single_pass
         run = lambda: fn(q, k, v)
         plain = lambda: blockwise_attention(q, k, v)
@@ -805,7 +809,7 @@ def phase_kernels() -> dict:
         work = (attention_flops(b, h, tq, k.shape[1], d),
                 (2 * q.numel() + k.numel() + v.numel()) * 4, PEAK_3XTF32)
         record(name, shape_name, [c], time_ms(run, iters), time_ms(plain, plain_iters), work,
-               sdpa_ms(q, k, v, d**-0.5, iters))
+               sdpa_ms(q, k, v, d**-0.5, iters), route=route)
 
     q, k, v = randn32(1, 8192, 3, 8, 128).unbind(2)
     bthd32("flash_attention_fp32", "(1, 8192, 8, 128) fp32 views", q, k, v, 5, 2)
@@ -822,7 +826,22 @@ def phase_kernels() -> dict:
     del bufs
     q, k, v = (randn32(N_FRAMES, FRAME_T, 4, 192) for _ in range(3))
     bthd32("attention_single_pass_fp32", f"({N_FRAMES}, {FRAME_T}, 4, 192) fp32", q, k, v, 5, 2)
-    del q, k, v
+    # head dims above 256: the fp32 kernel's sliced variant (DV 64 at 320,
+    # 128 at 384 and 512); keys past Tk NaN leave the output bit-identical
+    for d in (320, 384, 512):
+        q, k, v = (randn32(1, 4100, 2, d) for _ in range(3))
+        bthd32("flash_attention_fp32", f"(1, 4100, 2, {d}) fp32", q, k, v, 5, 2,
+               route="d_over_256")
+    tk = 2050
+    clean = flash_attention(q, k[:, :tk].clone(), v[:, :tk].clone())
+    nan_rows(k, tk)
+    nan_rows(v, tk)
+    same_bits("flash_attention_fp32", f"(1, 4100, 2, 512) x {tk} fp32, NaN keys past Tk",
+              flash_attention(q, k[:, :tk], v[:, :tk]), clean)
+    q, k, v = (randn32(N_FRAMES, FRAME_T, 2, 320) for _ in range(3))
+    bthd32("attention_single_pass_fp32", f"({N_FRAMES}, {FRAME_T}, 2, 320) fp32", q, k, v, 5, 2,
+           route="d_over_256")
+    del q, k, v, clean
 
     w1, b1 = randn32(4 * C, C, scale=0.02), randn32(4 * C, scale=0.1)
     w2, b2 = randn32(C, 4 * C, scale=0.02), randn32(C, scale=0.1)

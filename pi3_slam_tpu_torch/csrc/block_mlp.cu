@@ -30,7 +30,8 @@
 // pi3_block_mlp_f32 and pi3_mlp_f32 are the fp32 entries (an fp32 model's
 // blocks, as the JAX package runs the same Pallas kernels on fp32 input):
 // the same launches with the LayerNorm pass in fp32 out and the GEMMs of
-// gemm_f32.cuh, fp32 throughout (the hidden activation too).
+// gemm_f32.cuh (TMA + wgmma in TF32 with the 3xTF32 split), fp32 throughout
+// (the hidden activation too).
 
 #include <math.h>
 
@@ -212,5 +213,6 @@ extern "C" int pi3_mlp_f32(const void* x, const void* w1, const void* b1, const 
                                           static_cast<float*>(out), M, C, hidden, s);
 }
 
-// The GEMM's dynamic shared memory a block, in bytes.
+// The GEMMs' dynamic shared memory a block, in bytes: bf16, fp32.
 extern "C" int pi3_gemm_smem_bytes() { return pi3::kGemmSmemBytes; }
+extern "C" int pi3_gemm_f32_smem_bytes() { return pi3::kF32GemmSmemBytes; }

@@ -214,19 +214,22 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
   }
 }
 
-// The tensor map of a row-major (rows, cols) bf16 matrix (base 16-byte
-// aligned, cols a multiple of 8): boxes of 64 columns x box_rows, 128-byte
+// The tensor map of a row-major (rows, cols) bf16 matrix (or fp32 where
+// elem_bytes is 4; base 16-byte aligned, rows a multiple of 16 bytes): boxes
+// of one 128-byte row (64 bf16 or 32 fp32 columns) x box_rows, 128-byte
 // swizzle; rows >= rows load as zeros and are not stored.
 inline bool encode_matrix_map(CUtensorMap* map, const void* base, int rows, int cols,
-                              int box_rows) {
+                              int box_rows, int elem_bytes = 2) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUtensorMapDataType type =
+      elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels (packed_attention.cu;
 // attention.cu and partial_attention.cu through bthd_attention.cuh; block_mlp.cu
-// through gemm.cuh): mbarriers, TMA tile loads and stores, wgmma shared-memory
-// descriptors and products, named barriers, exp2, the base-2 online softmax
+// through gemm.cuh and gemm_f32.cuh): mbarriers, TMA tile loads and stores,
+// wgmma shared-memory descriptors and products (bf16, and tf32 for the fp32
+// GEMM), named barriers, exp2, the base-2 online softmax
 // on the wgmma accumulator layout, and the driver's tensor-map encoder.
 #pragma once
 
@@ -272,6 +273,56 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
       PI3_F8(0), PI3_F8(8), PI3_F8(16), PI3_F8(24), PI3_F8(32), PI3_F8(40), PI3_F8(48), PI3_F8(56),
       PI3_F8(64), PI3_F8(72), PI3_F8(80), PI3_F8(88), PI3_F8(96), PI3_F8(104), PI3_F8(112), PI3_F8(120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x N fp32) = [d +] A (64 x 8, smem) . B^T (N x 8, smem) in TF32,
+// both K-major fp32 tiles as TMA's 128-byte swizzle lays them out (rows of
+// 32 floats; a k8 step is 32 bytes, the descriptor advance of bf16's k16).
+// tf32 takes no transpose immediates. accumulate = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t desc_a,
+                                              uint64_t desc_b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<128>(float (&d)[64], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      :
+      PI3_F8(0), PI3_F8(8), PI3_F8(16), PI3_F8(24), PI3_F8(32), PI3_F8(40), PI3_F8(48), PI3_F8(56)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x N fp32) = [d +] A (64 x 8 tf32, registers: the m16n8k8 layout per
+// warp, a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4))
+// . B^T (N x 8, smem, K-major). The registers may hold any fp32 pattern: the
+// tensor cores read its top 19 bits.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+      PI3_F8(0), PI3_F8(8), PI3_F8(16), PI3_F8(24), PI3_F8(32), PI3_F8(40), PI3_F8(48), PI3_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 #undef PI3_F8

@@ -1,6 +1,7 @@
 // Shared helpers for the hand-written Hopper kernels: bf16 packing, and the
-// fp32 products of attention_f32.cu and gemm_f32.cuh on the tensor cores
-// (mma.sync m16n8k8 in TF32, three products per fp32 product: 3xTF32).
+// fp32 products of attention_f32.cu on the tensor cores (mma.sync m16n8k8 in
+// TF32, three products per fp32 product: 3xTF32; gemm_f32.cuh runs the same
+// split on wgmma).
 //
 // Fragment layouts of m16n8k8 in TF32, one fp32 register per element
 // (g = lane / 4, t = lane % 4):

@@ -4,8 +4,10 @@ of the attention wrappers (``packed_attention``, ``partial_attention``,
 
 One kernel over (B, T, H, D) q / k / v read through their strides (a
 unit-stride last dim, the other strides multiples of 4 elements, 16-byte
-aligned bases): the packed projection's q / k / v views need no copy. See
-the source's header for the design (3xTF32 products on the tensor cores).
+aligned bases): the packed projection's q / k / v views need no copy, at
+every head dim that is a multiple of 64: one pass up to 256, column slices
+of O above (:func:`slice_width`). See the source's header for the design
+(3xTF32 products on the tensor cores).
 """
 
 from __future__ import annotations
@@ -17,7 +19,19 @@ import torch
 
 from ._build import check_launch, load_library
 
-HEAD_DIMS = (64, 128, 192, 256)  # the head dims the fp32 kernel takes
+MAX_ONE_PASS_HEAD_DIM = 256  # above it the sliced variant runs
+
+
+def slice_width(d: int) -> int:
+    """The columns of O a block of the fp32 kernel owns at head dim d: all d
+    up to 256 (one pass), else the sliced variant's DV (128 where 128
+    divides d, else 64). Raises for d not a positive multiple of 64."""
+    if d <= 0 or d % 64:
+        raise ValueError(f"the fp32 attention kernel takes head dims that are multiples of 64, "
+                         f"got {d}")
+    if d <= MAX_ONE_PASS_HEAD_DIM:
+        return d
+    return 128 if d % 128 == 0 else 64
 
 
 @functools.cache
@@ -44,10 +58,7 @@ def _strides(x: torch.Tensor, name: str, device: torch.device, what: str) -> lis
 
 def _operands(q, k, v, what: str) -> list[int]:
     dev = q.device
-    d = q.shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the {what} fp32 kernel takes head dims {HEAD_DIMS}, got {d} "
-                         "(ROADMAP.md Queue 3: fp32 above head dim 256)")
+    slice_width(q.shape[-1])
     return [s for x, name in ((q, "q"), (k, "k"), (v, "v")) for s in _strides(x, name, dev, what)]
 
 

@@ -89,7 +89,8 @@ MLP = dict(max_rel=2.0**-6, l2_rel=2e-2)
 # The fp32 entries (3xTF32 products on the tensor cores, everything else in
 # fp32) against their fp32 plain versions (cuBLAS fp32 with TF32 off, or
 # elementwise torch): the same fp32 arithmetic in another order, with each
-# 3xTF32 product ~2^-22 of its size off (the dropped small x small term), so
+# 3xTF32 product ~2^-22 of its size off (the dropped small x small term;
+# ~2^-20 where big is x truncated to TF32, as in the wgmma GEMM), so
 # relative L2 1e-5 and max |err| 1e-4 of max |ref|. The bf16 entries' output
 # misses by bf16's 2^-9 rounding alone (~2e-3 of max |ref| at the largest
 # entry, relative L2 ~1e-3): each bound rejects it, which chip_smoke.py and

@@ -13,9 +13,10 @@ through their strides (a unit-stride last dim and 16-byte aligned rows, such
 as the q / k / v views of a qkv projection): bf16 ``csrc/attention.cu`` (see
 its header) at every head dim that is a multiple of 64, 64 to 256 on the TMA
 + ``wgmma`` loop of ``csrc/bthd_attention.cuh``, wider head dims on its wide
-variant (column slices of O); fp32 ``csrc/attention_f32.cu`` at head dims 64
-to 256 (wider ones raise: ROADMAP.md Queue 3). Any other dtype raises. On a
-CPU tensor both run :func:`blockwise_attention`, the kernel's plain version.
+variant (column slices of O); fp32 ``csrc/attention_f32.cu`` at the same head
+dims, 64 to 256 in one pass and wider ones in column slices of O. Any other
+dtype raises. On a CPU tensor both run :func:`blockwise_attention`, the
+kernel's plain version.
 
 Keys are masked by length, so Tk may differ from Tq on every route. The JAX
 kernels and ``blockwise_attention`` assume Tk == Tq (they pad k to q's
@@ -121,8 +122,8 @@ def _launch(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str)
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """q (B, Tq, H, D), k / v (B, Tk, H, D) -> (B, Tq, H, D); the long
-    sequences (T > 1280) of ``sdpa``. CUDA tensors must be bfloat16 with
-    D a multiple of 64, or float32 with D 64 to 256."""
+    sequences (T > 1280) of ``sdpa``. CUDA tensors must be bfloat16 or
+    float32 with D a multiple of 64."""
     _check(q, k, v)
     if not q.is_cuda:
         return blockwise_attention(q, k, v)

@@ -3,6 +3,7 @@ and ``bench_mlp`` from the JAX package's ``tools/perf_lab.py``.
 
     python -m pi3_slam_tpu_torch.tools.perf_lab sol
     python -m pi3_slam_tpu_torch.tools.perf_lab mlp
+    python -m pi3_slam_tpu_torch.tools.perf_lab tf32
 
 Times, with CUDA events (one warm-up call, then the mean of ``ITERS`` calls),
 and prints ms and TFLOP/s of:
@@ -28,7 +29,17 @@ tiles, warpgroups, issue order).
 two GEMM entries of ``csrc/block_mlp.cu`` (``block_mlp``, ``mlp``), their
 plain versions, and the two bare bf16 cuBLAS products (``F.linear`` without
 bias) of the same shapes: the products yardstick, which computes less than
-either entry. The JAX package's other probes (global, frame, block, packed,
+either entry.
+
+``tf32`` runs the two measurements behind the fp32 GEMM's design
+(``csrc/tf32_probe.cu``): which bits of an fp32 pattern the tensor cores read
+as TF32 (one wgmma tf32 on raw fp32 tiles, one-hot rows on one side, its
+output against the other side truncated to TF32 and rounded to TF32), and
+the fp32 GEMM's relative L2 error against an fp64 product at K 4096 for each
+accumulation depth (k8 steps in one wgmma accumulator), with its time at the
+global fc2 shape.
+
+The JAX package's other probes (global, frame, block, packed,
 stages, mlp-sweep, forward, refine, kv-accuracy, tsdf) are not ported
 (ROADMAP.md Queue 2, item 9).
 """
@@ -156,7 +167,106 @@ def bench_mlp() -> dict:
     return results
 
 
-PROBES = {"sol": bench_sol, "mlp": bench_mlp}
+TF32_DEPTHS = (4, 8, 16, 32, 0)  # k8 steps a group; 0: all of K in one accumulator
+TF32_SHAPE = (64300, 1024, 4096)  # fc2 at the global shape: M, N, K
+
+
+def _tf32_bits(x: torch.Tensor, rounding: str) -> torch.Tensor:
+    """x as TF32: its low 13 bits dropped ("truncate"), or rounded to
+    nearest with ties away ("rna") or to even ("rne")."""
+    i = x.view(torch.int32)
+    if rounding == "rna":
+        i = i + 0x1000
+    elif rounding == "rne":
+        i = i + 0xFFF + ((i >> 13) & 1)
+    return (i & -0x2000).view(torch.float32)
+
+
+def tf32_read() -> dict:
+    """One wgmma tf32 on raw fp32 tiles (``pi3_tf32_probe``), one-hot rows on
+    one side, values uniform in [1, 2) with every mantissa bit drawn on the
+    other: {side: {rounding: share of elements the output equals}} for the
+    values dropped to TF32 ("truncate"), rounded to nearest ties away
+    ("rna") or to even ("rne"), and left as they are ("raw fp32")."""
+    import ctypes
+
+    from ..ops._build import check_launch, load_library
+
+    fn = load_library("tf32_probe").pi3_tf32_probe
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+
+    def one_hot(rows):  # row r picks k = r % 8
+        x = torch.zeros(rows, 32, device="cuda")
+        x[torch.arange(rows), torch.arange(rows) % 8] = 1.0
+        return x
+
+    for side in ("A", "W"):
+        vals = 1 + torch.rand(64 if side == "A" else 128, 32, generator=g, device="cuda")
+        a, w = (vals, one_hot(128)) if side == "A" else (one_hot(64), vals)
+        out = torch.empty(64, 128, device="cuda")
+        check_launch(fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), torch.cuda.current_device(),
+                        torch.cuda.current_stream().cuda_stream), "tf32 probe")
+        torch.cuda.synchronize()
+        # out[i, n] = a[i, n % 8] (side A) or w[n, i % 8] (side W)
+        rows, cols = torch.meshgrid(torch.arange(64), torch.arange(128), indexing="ij")
+        want = a[rows, cols % 8] if side == "A" else w[cols, rows % 8]
+        results[side] = {r: (out == _tf32_bits(want, r)).float().mean().item()
+                         for r in ("truncate", "rna", "rne")}
+        results[side]["raw fp32"] = (out == want).float().mean().item()
+    return results
+
+
+def bench_tf32() -> dict:
+    """The TF32 read probe (:func:`tf32_read`) and the fp32 GEMM's
+    accumulation depth; returns {"read": ..., "depth": {g8: {"rel_l2",
+    "ms"}}, "cublas_rel_l2"} and prints one line each. GEMM inputs N(0, 1)
+    activations and N(0, 1/K) weights, from seed 0 on the card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the TF32 probe needs an NVIDIA GPU")
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from ..ops._build import check_launch, load_library
+
+    results = {"read": tf32_read(), "depth": {}}
+    for side, shares in results["read"].items():
+        print(f"tf32 read of {side}'s fp32 patterns: share of elements equal to "
+              + ", ".join(f"{r} {v:.4f}" for r, v in shares.items()), flush=True)
+    fn = load_library("tf32_probe").pi3_gemm_f32_depth
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device="cuda").manual_seed(0)
+    m, n, k = TF32_SHAPE
+    x = torch.randn(m, k, generator=g, device="cuda")
+    w = torch.randn(n, k, generator=g, device="cuda") * k**-0.5
+    bias = torch.zeros(n, device="cuda")
+    ref = F.linear(x.double(), w.double())
+    ref_norm = ref.norm().item()
+
+    def rel(y):
+        return ((y.double() - ref).norm() / ref_norm).item()
+
+    results["cublas_rel_l2"] = rel(F.linear(x, w))
+    print(f"cuBLAS fp32 F.linear ({m}, {k}) x ({n}, {k})^T: rel L2 vs fp64 "
+          f"{results['cublas_rel_l2']:.3e}", flush=True)
+    out = torch.empty(m, n, device="cuda")
+    for g8 in TF32_DEPTHS:
+        run = lambda: check_launch(fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                                      m, n, k, g8, torch.cuda.current_device(), stream),
+                                   "fp32 GEMM")
+        ms = _time_ms(run, MLP_ITERS)
+        err = rel(out)
+        results["depth"][g8] = {"rel_l2": err, "ms": ms}
+        label = f"{g8} k8 steps" if g8 else "all of K"
+        print(f"fp32 GEMM, groups of {label:12s} ({m}, {k}) x ({n}, {k})^T: rel L2 vs fp64 "
+              f"{err:.3e}, {ms:.3f} ms, {2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s", flush=True)
+    return results
+
+
+PROBES = {"sol": bench_sol, "mlp": bench_mlp, "tf32": bench_tf32}
 
 
 def probe(argv=None) -> dict:
@@ -169,7 +279,7 @@ def probe(argv=None) -> dict:
     args = parser.parse_args(argv)
     if args.probe not in PROBES:
         parser.error(f"probe {args.probe!r} is not ported (ROADMAP.md Queue 2, item 9); "
-                     f"only {' and '.join(map(repr, PROBES))} are")
+                     f"only {', '.join(map(repr, PROBES))} are")
     from ..device import select_device
 
     select_device("cuda")

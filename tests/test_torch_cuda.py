@@ -701,11 +701,13 @@ def test_fp32_packed_attention_reads_no_row_past_true_t(gen, entry):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 512])
 @pytest.mark.parametrize("tq,tk", [(301, 301), (301, 150), (130, 333), (70, 1)])
 def test_fp32_bthd_attention_matches_plain(gen, d, tq, tk):
-    """Strided (B, T, H, D) views at every fp32 head dim (64-key tiles up to
-    D 128, 32 above), Tk below and above Tq, neither a multiple of a tile."""
+    """Strided (B, T, H, D) views at fp32 head dims of both kernels (one pass:
+    64-key tiles up to D 128, 32 above; the sliced variant above 256: DV 64
+    at 320, 128 at 384 and 512), Tk below and above Tq, neither a multiple
+    of a tile."""
     q = _randn32(gen, 2, tq, 3, 3, d)[:, :, 0]
     kv = _randn32(gen, 2, tk, 2, 3, d)
     k, v = kv[:, :, 0], kv[:, :, 1]
@@ -716,7 +718,7 @@ def test_fp32_bthd_attention_matches_plain(gen, d, tq, tk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 256, 320, 384, 512])
 def test_fp32_bthd_attention_reads_no_row_past_the_length(gen, d):
     b, h, tq, tk, t = 2, 3, 301, 150, 400
     q, k, v = (_randn32(gen, b, t, h, d) for _ in range(3))
@@ -773,11 +775,12 @@ def test_fp32_producer_matches_plain(gen, h, t, pad, with_norm):
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["block_mlp", "mlp"])
 @pytest.mark.parametrize("c,hidden", [(128, 512), (384, 1536), (1024, 4096)])
-@pytest.mark.parametrize("rows", [1, 44, 333, 643 * 2])
+@pytest.mark.parametrize("rows", [1, 44, 333, 643 * 2, 3537])
 def test_fp32_gemm_entries_match_plain(gen, entry, c, hidden, rows):
     """Both MLP entries on fp32 x and weights: the fp32 LayerNorm pass and the
     3xTF32 GEMMs with their epilogues, rows not a multiple of the 128-row
-    tile; the bounds reject the bf16 entry's output."""
+    tile (3537: MoGe-2's tokens); the bounds reject the bf16 entry's
+    output."""
     x = _randn32(gen, 1, rows, c)
     w = (_randn32(gen, hidden, c, scale=0.05), _randn32(gen, hidden, scale=0.1),
          _randn32(gen, c, hidden, scale=0.05), _randn32(gen, c, scale=0.1))
@@ -817,10 +820,22 @@ def test_fp32_gemm_entries_read_no_row_past_m_and_repeat_bit_for_bit(gen, entry)
 
 
 @pytest.mark.cuda
+def test_tensor_cores_read_an_fp32_pattern_as_truncated_tf32(gen):
+    """The fp32 GEMM (csrc/gemm_f32.cuh) hands the raw fp32 tiles to wgmma as
+    the big parts of its 3xTF32 split: that holds only if the tensor cores
+    drop an fp32 pattern's low 13 bits, on both operands."""
+    from pi3_slam_tpu_torch.tools.perf_lab import tf32_read
+
+    for side, shares in tf32_read().items():
+        assert shares["truncate"] == 1.0 and shares["raw fp32"] < 1.0, (side, shares)
+
+
+@pytest.mark.cuda
 def test_fp32_entries_count_launches_and_refuse_fp16(gen):
     """Each fp32 entry counts under <name>_fp32 and not under the bf16 name;
     fp16 is refused by every wrapper before any launch; fp32 above head dim
-    256 is refused (ROADMAP.md Queue 3)."""
+    256 runs (the sliced variant) and counts as fp32; a head dim that is not a
+    multiple of 64 is refused."""
     qkv = _randn32(gen, 1, 70, 3 * 2 * D)
     cos, sin = rope_tables(make_patch_positions(1, 1, 70, offset=1, device="cuda"), D)
     before = launch_counts()
@@ -852,6 +867,11 @@ def test_fp32_entries_count_launches_and_refuse_fp16(gen):
         with pytest.raises(TypeError):
             call()
     wide = _randn32(gen, 1, 300, 1, 320)
+    flash_attention(wide, wide, wide)
+    counts = launch_counts()
+    assert counts["flash_attention_fp32"] == after["flash_attention_fp32"] + 1
+    assert counts["flash_attention"] == after["flash_attention"]
+    odd = _randn32(gen, 1, 300, 1, 96)
     with pytest.raises(ValueError):
-        flash_attention(wide, wide, wide)
-    assert launch_counts() == after
+        flash_attention(odd, odd, odd)
+    assert launch_counts() == counts

@@ -37,10 +37,11 @@ from pi3_slam_tpu.ops.rope import rope_tables as jax_rope_tables
 
 from pi3_slam_tpu_torch.ops import launch_counts
 from pi3_slam_tpu_torch.ops._build import is_fp32
-from pi3_slam_tpu_torch.ops.attention_f32 import HEAD_DIMS, attention_f32
+from pi3_slam_tpu_torch.ops.attention_f32 import _operands, slice_width
 from pi3_slam_tpu_torch.ops.block_mlp import block_mlp, block_mlp_plain
+from pi3_slam_tpu_torch.ops.flash_attention import blockwise_attention
 from pi3_slam_tpu_torch.ops.compare import ATTENTION, FP32, PRODUCER, block_mlp_bounds, compare
-from pi3_slam_tpu_torch.ops.mlp import mlp
+from pi3_slam_tpu_torch.ops.mlp import mlp, mlp_plain
 from pi3_slam_tpu_torch.ops.partial_attention import flash_attention_partial
 from pi3_slam_tpu_torch.ops.packed_attention import (
     attention_single_pass_packed,
@@ -249,14 +250,45 @@ def _tf32(x):
     return ((x.float().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _tf32_truncated(x):
+    """x's fp32 pattern as the tensor cores read it as TF32: the low 13 bits
+    dropped (the GEMM's big part: the raw tile)."""
+    return (x.float().view(torch.int32) & -0x2000).view(torch.float32)
+
+
 def _mm_3xtf32(a, b):
-    """a @ b as the fp32 kernels compute it: both operands split into TF32
-    big + small parts, big.big + big.small + small.big, the products exact
-    and summed (here in fp64), the result fp32."""
+    """a @ b as the fp32 attention kernel computes it: both operands split
+    into TF32 big + small parts, both rounded to nearest, big.big + big.small
+    + small.big, the products exact and summed (here in fp64), the result
+    fp32."""
     ab, bb = _tf32(a), _tf32(b)
     asm, bsm = _tf32(a.float() - ab), _tf32(b.float() - bb)
     d = torch.float64
     return (ab.to(d) @ bb.to(d) + ab.to(d) @ bsm.to(d) + asm.to(d) @ bb.to(d)).float()
+
+
+# k8 steps the fp32 GEMM sums in one wgmma accumulator (csrc/gemm_f32.cuh
+# kF32GroupK8)
+GEMM_GROUP_K8 = 4
+
+
+def _gemm_3xtf32(a, w):
+    """a @ w^T as the fp32 GEMM computes it: big = the raw fp32 pattern read
+    as TF32 (truncated), small = a - big rounded to TF32 (to nearest, ties
+    away); per group of GEMM_GROUP_K8 k8 steps the three products
+    small.big' + big.small' + big.big' exact (here in fp64) and rounded to
+    fp32, the groups added in order to an fp32 sum."""
+    ab, wb = _tf32_truncated(a), _tf32_truncated(w)
+    asm, wsm = _tf32(a.float() - ab), _tf32(w.float() - wb)
+    d = torch.float64
+    depth = 8 * GEMM_GROUP_K8
+    out = None
+    for k0 in range(0, a.shape[-1], depth):
+        ks = slice(k0, k0 + depth)
+        part = (asm[..., ks].to(d) @ wb[:, ks].to(d).T + ab[..., ks].to(d) @ wsm[:, ks].to(d).T
+                + ab[..., ks].to(d) @ wb[:, ks].to(d).T).float()
+        out = part if out is None else out + part
+    return out
 
 
 def _attention_3xtf32(qkv, h, q_scale=1.0):
@@ -271,17 +303,35 @@ def _attention_3xtf32(qkv, h, q_scale=1.0):
     return o.transpose(1, 2).reshape(b, t, h * D)
 
 
+def _bthd_attention_3xtf32(q, k, v):
+    """The fp32 (B, T, H, D) attention kernel's arithmetic at any head dim
+    (one pass or in column slices of O: the logits are the same sums),
+    softmax(q.k^T / sqrt(D)) v with 3xTF32 products, fp32 softmax and P."""
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    s = _mm_3xtf32(q, k.transpose(-1, -2)) * (q.shape[-1]**-0.5 * np.log2(np.e))
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    return (_mm_3xtf32(p, v) / p.sum(-1, keepdim=True)).transpose(1, 2)
+
+
 def _block_mlp_3xtf32(x, nw, nb, w1, b1, w2, b2, ls):
-    """The fp32 block MLP's arithmetic: fp32 LayerNorm, 3xTF32 products,
-    fp32 GELU (the hidden kept in fp32), bias, LayerScale and residual."""
+    """The fp32 block MLP's arithmetic: fp32 LayerNorm, the GEMM's 3xTF32
+    products, fp32 GELU (the hidden kept in fp32), bias, LayerScale and
+    residual."""
     xn = torch.nn.functional.layer_norm(x, x.shape[-1:], nw, nb, 1e-6)
-    h = torch.nn.functional.gelu(_mm_3xtf32(xn, w1.T) + b1)
-    return x + (_mm_3xtf32(h, w2.T) + b2) * ls
+    h = torch.nn.functional.gelu(_gemm_3xtf32(xn, w1) + b1)
+    return x + (_gemm_3xtf32(h, w2) + b2) * ls
+
+
+def _mlp_3xtf32(x, w1, b1, w2, b2):
+    """The fp32 MLP's arithmetic: the GEMM's 3xTF32 products, fp32 GELU and
+    bias."""
+    return _gemm_3xtf32(torch.nn.functional.gelu(_gemm_3xtf32(x, w1) + b1), w2) + b2
 
 
 @pytest.mark.parametrize("case", ["producer", "attention", "attention_q_scale", "block_mlp",
                                   "producer_fp32", "attention_fp32", "attention_q_scale_fp32",
-                                  "block_mlp_fp32"])
+                                  "block_mlp_fp32", "block_mlp_k4096_fp32", "mlp_k4096_fp32",
+                                  "attention_d320_fp32", "attention_d512_fp32"])
 def test_chip_bounds_pass_kernel_arithmetic_and_reject_wrong_outputs(rng, case):
     """The bounds chip_smoke.py and the GPU tests hold the kernels to accept
     the kernels' bf16 arithmetic (simulated here) and fail an all-zero
@@ -347,6 +397,14 @@ def _check_fp32_bounds(rng, case):
                                       **{k: v.double() for k, v in norm.items()})[..., :256].float()
         bf = qkv_rope_producer_plain(qkv.to(bf16), cos, sin, 4, 300, **norm)[..., :256]
         bounds = FP32
+    elif case in ("attention_d320", "attention_d512"):
+        # the sliced variant's head dims (DV 64 at 320, 128 at 512)
+        d = int(case[-3:])
+        q, k, v = (torch.from_numpy(rng.standard_normal((1, 150, 2, d)).astype(np.float32))
+                   for _ in range(3))
+        got, bounds = _bthd_attention_3xtf32(q, k, v), FP32
+        ref = blockwise_attention(q, k, v)
+        bf = blockwise_attention(q.to(bf16), k.to(bf16), v.to(bf16))
     elif case.startswith("attention"):
         if case == "attention":
             qkv, q_scale = _packed_input(rng, 2, 300, 4, 300), 1.0
@@ -356,9 +414,16 @@ def _check_fp32_bounds(rng, case):
         got, bounds = _attention_3xtf32(qkv, 4, q_scale), FP32
         ref = packed_attention_plain(qkv, 4, q_scale=q_scale)
         bf = _attention_bf16_p(qkv.to(bf16), 4, q_scale)
+    elif case == "mlp_k4096":  # fc2 at the global shape's depth
+        x = torch.from_numpy(rng.standard_normal((1, 64, 128)).astype(np.float32))
+        _, _, w1, b1, w2, b2, _ = _mlp_args(rng, 128, 4096)
+        got, ref, bounds = _mlp_3xtf32(x, w1, b1, w2, b2), mlp_plain(x, w1, b1, w2, b2), FP32
+        bf = mlp_plain(x.to(bf16), w1.to(bf16), b1.to(bf16), w2.to(bf16), b2.to(bf16))
     else:
-        base = torch.from_numpy(rng.standard_normal((1, 500, 256)).astype(np.float32))
-        nw, nb, w1, b1, w2, b2, ls = _mlp_args(rng, 256, 1024)
+        c, hidden = (128, 4096) if case == "block_mlp_k4096" else (256, 1024)
+        base = torch.from_numpy(rng.standard_normal((1, 500 if hidden == 1024 else 64, c))
+                                .astype(np.float32))
+        nw, nb, w1, b1, w2, b2, ls = _mlp_args(rng, c, hidden)
         got = _block_mlp_3xtf32(base, nw, nb, w1, b1, w2, b2, ls)
         ref = block_mlp_plain(base, nw, nb, w1, b1, w2, b2, ls=ls)
         bf = _block_mlp_fp32_hidden(base.to(bf16), nw, nb, w1.to(bf16), b1.to(bf16),
@@ -439,25 +504,41 @@ def test_fp32_operands_take_the_fp32_entries_and_fp16_is_refused():
     """The checks the wrappers run on CUDA operands before a launch, here on
     CPU tensors: bf16 takes the bf16 entry, fp32 the fp32 one, fp16 (no
     entry) is refused; the fp32 attention kernel takes strided q / k / v
-    views of the packed projection at head dims 64-256 and refuses D 320
-    (ROADMAP.md Queue 3) and rows that are not 16-byte aligned."""
+    views of the packed projection, head dims above 256 too (its sliced
+    variant), and refuses rows that are not 16-byte aligned."""
     assert is_fp32(torch.zeros(4), "x") and not is_fp32(torch.zeros(4, dtype=torch.bfloat16), "x")
     with pytest.raises(TypeError):
         is_fp32(torch.zeros(4, dtype=torch.float16), "x")
-    from pi3_slam_tpu_torch.ops.attention_f32 import _operands
-
     qkv = torch.zeros(2, 70, 3 * 2 * D)
     q, k, v = qkv.view(2, 70, 3, 2, D).unbind(2)
     assert _operands(q, k, v, "attention") == [70 * 3 * 2 * D, 3 * 2 * D, D] * 3
-    assert HEAD_DIMS == (64, 128, 192, 256)
     with pytest.raises(TypeError):
         _operands(q, k.to(torch.bfloat16), v, "attention")
     wide = torch.zeros(1, 9, 1, 320)
-    with pytest.raises(ValueError, match="Queue 3"):
-        attention_f32(wide, wide, wide, 1.0, "attention")
+    assert _operands(wide, wide, wide, "attention") == [9 * 320, 320, 320] * 3
     odd = torch.zeros(1, 9, 2, 66)[..., :64]  # row stride 66 floats: 8-byte aligned rows
     with pytest.raises(ValueError):
         _operands(odd, odd, odd, "attention")
+
+
+@pytest.mark.parametrize("d,width", [(64, 64), (128, 128), (192, 192), (256, 256), (320, 64),
+                                     (384, 128), (448, 64), (512, 128), (1152, 128),
+                                     (0, None), (96, None), (-64, None)])
+def test_fp32_attention_takes_every_multiple_of_64(d, width):
+    """The fp32 attention kernel's head-dim check: every positive multiple of
+    64 is taken, D <= 256 in one pass (O of the whole head a block), wider
+    ones by the sliced variant with DV 128 where 128 divides D, else 64 (the
+    same choice as csrc/attention_f32.cu's switch); others are refused
+    before any launch."""
+    if width is None:
+        with pytest.raises(ValueError, match="multiples of 64"):
+            slice_width(d)
+        t = torch.zeros(1, 9, 1, max(d, 1))
+        with pytest.raises(ValueError):
+            _operands(t, t, t, "attention")
+    else:
+        assert slice_width(d) == width
+        assert d % width == 0 and width <= max(128, min(d, 256))
 
 
 def test_input_scaled_bound_is_flagged():

@@ -179,3 +179,21 @@ def test_mlp_probe_needs_a_gpu():
     proc = subprocess.run([sys.executable, "-m", "pi3_slam_tpu_torch.tools.perf_lab", "mlp"],
                           capture_output=True, text=True, cwd=REPO, env=env, timeout=120)
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr and "ms" not in proc.stdout
+
+
+@pytest.mark.parametrize("value,truncate,rna,rne", [
+    (1 + 2**-12, 1.0, 1.0, 1.0),                               # a quarter TF32 ulp
+    (1 + 2**-11, 1.0, 1 + 2**-10, 1.0),                        # a tie, even below
+    (1 + 2**-10 + 2**-11, 1 + 2**-10, 1 + 2**-9, 1 + 2**-9),   # a tie, odd below
+    (1 + 2**-11 + 2**-23, 1.0, 1 + 2**-10, 1 + 2**-10),        # just above a tie
+])
+def test_tf32_probe_roundings(value, truncate, rna, rne):
+    """``perf_lab tf32`` tells the tensor cores' read of an fp32 pattern by
+    comparing it with these three TF32 roundings (10 mantissa bits); the
+    probe itself needs the card."""
+    x = torch.tensor([value], dtype=torch.float32)
+    for rounding, want in (("truncate", truncate), ("rna", rna), ("rne", rne)):
+        assert perf_lab._tf32_bits(x, rounding).item() == want, rounding
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="GPU"):
+            perf_lab.bench_tf32()
