@@ -34,10 +34,14 @@ Phases, each of which raises (exit code 1) on failure:
    their fp32 plain versions (TF32 off) with the bounds of ops/compare.FP32,
    each also shown to reject the bf16 entry's output on the same inputs;
    their bound is the products over 3xTF32's 165 TFLOP/s (or the bytes), the
-   library yardstick fp32 SDPA or the two fp32 cuBLAS products. The fp32
-   (B, T, H, D) attention also runs at head dims 320, 384 and 512 at
-   (1, 4100, 2, D) and 320 at (100, 643, 2, D), its sliced variant (keys
-   past Tk NaN at D 512, bit-identical), reported under "routes" too.
+   library yardstick fp32 SDPA or the two fp32 cuBLAS products. Every fp32
+   attention entry at head dim 64 (the TMA + wgmma loop of
+   csrc/bthd_attention_f32.cuh) repeats its output bit for bit on a second
+   call. The fp32 (B, T, H, D) attention runs at head dim 64 (the global
+   and frame shapes, route "d64"), 128-256 (its mma.sync kernel, route
+   "d128_256") and 320, 384 and 512 at (1, 4100, 2, D) and 320 at (100,
+   643, 2, D), its sliced variant (keys past Tk NaN at D 512,
+   bit-identical), each reported under "routes" too.
 3. Full-width forwards with random weights (seed 0): Pi3 on a 4-frame chunk
    at 308x406, exact and with global_kv_merge=2, in bf16 and in fp32, MoGe-2
    (ViT-S backbone, fp32 trunk as MoGeRunner builds it) on one 308x406
@@ -121,13 +125,22 @@ KERNELS = {
         "cuda", "pi3_slam_tpu_torch/csrc/dots_attention.cu", "tools/perf_lab.py:107"),
 }
 # the loop a kernel runs, where its source does not say it alone
-LOOPS = {"dots_attention": "pi3_slam_tpu_torch/csrc/bthd_attention.cuh (products-only mode)"}
+LOOPS = {"dots_attention": "pi3_slam_tpu_torch/csrc/bthd_attention.cuh (products-only mode)",
+         **{f"{name}_fp32": "pi3_slam_tpu_torch/csrc/bthd_attention_f32.cuh at head dim 64; "
+                            "csrc/attention_f32.cu's mma.sync kernels at 128-512 (routes)"
+            for name in ("flash_attention", "attention_single_pass")}}
 # the fp32 entries (an fp32 model's activations: --compute-dtype float32,
-# MoGe-2's encoder), each its own kernel beside the bf16 one of its wrapper
+# MoGe-2's encoder), each its own kernel beside the bf16 one of its wrapper;
+# every fp32 attention launch at head dim 64 (the packed and partial ones
+# always) runs the TMA + wgmma loop of bthd_attention_f32.cuh
+F32_LOOP = "pi3_slam_tpu_torch/csrc/bthd_attention_f32.cuh"
 F32_SOURCES = {
     "qkv_rope_producer": "pi3_slam_tpu_torch/csrc/qkv_producer.cu",
     "block_mlp": "pi3_slam_tpu_torch/csrc/gemm_f32.cuh",
     "mlp": "pi3_slam_tpu_torch/csrc/gemm_f32.cuh",
+    "attention_single_pass_packed": F32_LOOP,
+    "flash_attention_packed": F32_LOOP,
+    "flash_attention_partial": F32_LOOP,
 }
 KERNELS.update({
     f"{name}_fp32": ("cuda", F32_SOURCES.get(name, "pi3_slam_tpu_torch/csrc/attention_f32.cu"),
@@ -747,15 +760,20 @@ def phase_kernels() -> dict:
         h = qkv.shape[-1] // 192
         run = lambda: attention_single_pass_packed(qkv, h, q_scale=q_scale)
         plain = lambda: packed_attention_plain(qkv, h, q_scale=q_scale)
-        c = check_fp32("attention_single_pass_packed_fp32", shape_name, run(), plain(),
+        got = run()
+        c = check_fp32("attention_single_pass_packed_fp32", shape_name, got, plain(),
                        attention_single_pass_packed(qkv.to(bf16), h, q_scale=q_scale), why32,
                        **FP32)
+        same_bits("attention_single_pass_packed_fp32", shape_name, run(), got, "a second call")
         record("attention_single_pass_packed_fp32", shape_name, [c], time_ms(run, 10),
                time_ms(plain, 3), packed_work32(qkv), packed_sdpa_ms(qkv, q_scale, 10))
     for q_scale in (0.0, -0.3):  # any scale, taken as it is by the fp32 kernel
-        check("attention_single_pass_packed_fp32", f"(1, {MOGE_T}, 1152) q_scale={q_scale}",
-              attention_single_pass_packed(qkv, 6, q_scale=q_scale),
+        shape_name = f"(1, {MOGE_T}, 1152) q_scale={q_scale}"
+        got = attention_single_pass_packed(qkv, 6, q_scale=q_scale)
+        check("attention_single_pass_packed_fp32", shape_name, got,
               packed_attention_plain(qkv, 6, q_scale=q_scale), why32, **FP32)
+        same_bits("attention_single_pass_packed_fp32", shape_name,
+                  attention_single_pass_packed(qkv, 6, q_scale=q_scale), got, "a second call")
     unpadded = produced32["(100, 643, 3072) fp32 norm"]
     padded = torch.nn.functional.pad(unpadded, (0, 0, 0, 61))
     padded[:, FRAME_T:] = float("nan")
@@ -767,8 +785,11 @@ def phase_kernels() -> dict:
     shape_name = "(1, 64300, 3072) fp32"
     run = lambda: flash_attention_packed(qkv, H)
     plain = lambda: packed_attention_plain(qkv, H)
-    c = check_fp32("flash_attention_packed_fp32", shape_name, run(), plain(),
+    got = run()
+    c = check_fp32("flash_attention_packed_fp32", shape_name, got, plain(),
                    flash_attention_packed(qkv.to(bf16), H), why32, **FP32)
+    same_bits("flash_attention_packed_fp32", shape_name, run(), got, "a second call")
+    del got
     record("flash_attention_packed_fp32", shape_name, [c], time_ms(run, 2), time_ms(plain, 1),
            packed_work32(qkv), packed_sdpa_ms(qkv, 1.0, 2))
     del qkv, produced32
@@ -792,6 +813,7 @@ def phase_kernels() -> dict:
     nan_rows(v_full, tk)
     same_bits("flash_attention_partial_fp32", f"{shape_name}, NaN keys past Tk",
               flash_attention_partial(q, k_full[:, :tk], v_full[:, :tk], kn), (acc, l))
+    same_bits("flash_attention_partial_fp32", shape_name, run(), (acc, l), "a second call")
     del k_full, v_full, acc, l
     work = (attention_flops(1, H, tq, tk, 64),
             (q.numel() + k.numel() + v.numel()) * 4 + q.numel() * 4 + tq * H * 4, PEAK_3XTF32)
@@ -803,20 +825,30 @@ def phase_kernels() -> dict:
         fn = flash_attention if name == "flash_attention_fp32" else attention_single_pass
         run = lambda: fn(q, k, v)
         plain = lambda: blockwise_attention(q, k, v)
-        c = check_fp32(name, shape_name, run(), plain(),
+        got = run()
+        c = check_fp32(name, shape_name, got, plain(),
                        fn(q.to(bf16), k.to(bf16), v.to(bf16)), why32, **FP32)
+        if q.shape[-1] == 64:  # the TMA + wgmma loop: no split-K, no atomics
+            same_bits(name, shape_name, run(), got, "a second call")
+        del got
         b, tq, h, d = q.shape
         work = (attention_flops(b, h, tq, k.shape[1], d),
                 (2 * q.numel() + k.numel() + v.numel()) * 4, PEAK_3XTF32)
         record(name, shape_name, [c], time_ms(run, iters), time_ms(plain, plain_iters), work,
                sdpa_ms(q, k, v, d**-0.5, iters), route=route)
 
+    q, k, v = (randn32(1, N_FRAMES * FRAME_T, H, 64) for _ in range(3))
+    bthd32("flash_attention_fp32", f"(1, {N_FRAMES * FRAME_T}, 16, 64) fp32", q, k, v, 2, 1,
+           route="d64")
+    del q, k, v
     q, k, v = randn32(1, 8192, 3, 8, 128).unbind(2)
-    bthd32("flash_attention_fp32", "(1, 8192, 8, 128) fp32 views", q, k, v, 5, 2)
+    bthd32("flash_attention_fp32", "(1, 8192, 8, 128) fp32 views", q, k, v, 5, 2,
+           route="d128_256")
     q, k, v = (randn32(1, 8192, 4, 256) for _ in range(3))
-    bthd32("flash_attention_fp32", "(1, 8192, 4, 256) fp32", q, k, v, 5, 2)
+    bthd32("flash_attention_fp32", "(1, 8192, 4, 256) fp32", q, k, v, 5, 2, route="d128_256")
     q, k, v = (randn32(N_FRAMES, FRAME_T, H, 64) for _ in range(3))
-    bthd32("attention_single_pass_fp32", f"({N_FRAMES}, {FRAME_T}, 16, 64) fp32", q, k, v, 5, 2)
+    bthd32("attention_single_pass_fp32", f"({N_FRAMES}, {FRAME_T}, 16, 64) fp32", q, k, v, 5, 2,
+           route="d64")
     bufs = [torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 61)) for x in (q, k, v)]
     for buf in bufs:
         nan_rows(buf, FRAME_T)
@@ -825,7 +857,8 @@ def phase_kernels() -> dict:
               attention_single_pass(q, k, v))
     del bufs
     q, k, v = (randn32(N_FRAMES, FRAME_T, 4, 192) for _ in range(3))
-    bthd32("attention_single_pass_fp32", f"({N_FRAMES}, {FRAME_T}, 4, 192) fp32", q, k, v, 5, 2)
+    bthd32("attention_single_pass_fp32", f"({N_FRAMES}, {FRAME_T}, 4, 192) fp32", q, k, v, 5, 2,
+           route="d128_256")
     # head dims above 256: the fp32 kernel's sliced variant (DV 64 at 320,
     # 128 at 384 and 512); keys past Tk NaN leave the output bit-identical
     for d in (320, 384, 512):

@@ -1,6 +1,6 @@
 // Attention in float32 for Hopper (sm_90a): the fp32 entries of every
-// attention row of PERF.md's kernel table, one kernel over (B, T, H, D) q / k
-// / v read through their strides.
+// attention row of PERF.md's kernel table, over (B, T, H, D) q / k / v read
+// through their strides.
 //
 // Replaces, for float32 inputs, the Pallas TPU kernels of
 // pi3_slam_tpu/ops/pallas_attention.py, which take any input dtype (on the
@@ -21,10 +21,14 @@
 // The scale multiplies the logits before the running max, so any scale
 // (0 and negative ones too) is taken as it is.
 //
+// Head dim 64 (every fp32 launch of the main paths, the partial one too)
+// runs the TMA + wgmma tf32 loop of bthd_attention_f32.cuh. The wider head
+// dims run the mma.sync kernels below:
+//
 // Design: the products on the tensor cores in TF32 with the 3xTF32 split
 // (mma.cuh), which keeps fp32's accuracy; TF32 alone would keep ~3 digits.
 // A block of 4 warps owns 64 query rows of one head (16 a warp) and walks the
-// keys in tiles of N (64 at D <= 128, 32 above) through two shared-memory
+// keys in tiles of N (64 at D 128, 32 above) through two shared-memory
 // stages filled by cp.async (16-byte chunks; rows past the extent are
 // zero-filled and never read, so NaN behind the last row never loads). Q
 // stays in shared memory. Per tile: S = Q K^T (D/8 k-steps of m16n8k8, each
@@ -51,13 +55,12 @@
 //
 // Bound on the H100: operations, 4 Tq Tk D per (batch, head) over 3xTF32's
 // 165 TFLOP/s (a third of TF32's 495); at MoGe-2's encoder shape (1, 3537, 6
-// x 64) 1.9e10, 0.12 ms. This first fp32 kernel is written to be right:
-// mma.sync with synchronous stages, not the TMA + wgmma loop of the bf16
-// entries.
+// x 64) 1.9e10, 0.12 ms. The mma.sync kernels were written to be right:
+// synchronous stages, not the TMA + wgmma loop of head dim 64.
 
 #include <math.h>
 
-#include "mma.cuh"
+#include "bthd_attention_f32.cuh"
 
 using namespace pi3;
 
@@ -105,12 +108,11 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
   }
 }
 
-template <int D, bool kPartial>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, Strides qs, Strides ks, Strides vs,
-                     float* __restrict__ out, const float* __restrict__ kn,
-                     float* __restrict__ lsum, int Tq, int Tk, int H, float scale) {
+                     float* __restrict__ out, int Tq, int Tk, int H, float scale) {
   using Tiles = F32Tiles<D>;
   constexpr int N = Tiles::N;
   constexpr int kLd = Tiles::kLd;
@@ -234,33 +236,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int row_b = row_a + 8;
   const size_t ra = ((size_t)b * Tq + row_a) * H + h;  // (b, row, h) of (B, Tq, H)
   const size_t rb = ra + (size_t)8 * H;
-  float f0, f1;
-  if constexpr (kPartial) {
-    // |q|^2 of rows g and g + 8 from Q in shared memory, a quarter a thread
-    float qq0 = 0.f, qq1 = 0.f;
-#pragma unroll
-    for (int c = t * (D / 4); c < (t + 1) * (D / 4); ++c) {
-      qq0 += qw[c] * qw[c];
-      qq1 += qw[8 * kLd + c] * qw[8 * kLd + c];
-    }
-    qq0 += __shfl_xor_sync(0xffffffffu, qq0, 1);
-    qq0 += __shfl_xor_sync(0xffffffffu, qq0, 2);
-    qq1 += __shfl_xor_sync(0xffffffffu, qq1, 1);
-    qq1 += __shfl_xor_sync(0xffffffffu, qq1, 2);
-    const float knh = kn[b * H + h];
-    const float mh0 = fminf(sqrtf(qq0) * scale * knh + 1.f, 120.f);
-    const float mh1 = fminf(sqrtf(qq1) * scale * knh + 1.f, 120.f);
-    // from the running max to the fixed shift (m <= mh - 1 unless the clamp binds)
-    f0 = exp2f(m0 - mh0);
-    f1 = exp2f(m1 - mh1);
-    if (t == 0) {
-      if (row_a < Tq) lsum[ra] = l0 * f0;
-      if (row_b < Tq) lsum[rb] = l1 * f1;
-    }
-  } else {
-    f0 = 1.f / l0;
-    f1 = 1.f / l1;
-  }
+  const float f0 = 1.f / l0;
+  const float f1 = 1.f / l1;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     if (row_a < Tq)
@@ -478,17 +455,16 @@ attention_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__
                  row_a < Tq, row_b < Tq, t);
 }
 
-template <int D, bool kPartial>
+template <int D>
 int launch(const float* q, const float* k, const float* v, Strides qs, Strides ks, Strides vs,
-           float* out, const float* kn, float* lsum, int B, int Tq, int Tk, int H, float scale,
-           cudaStream_t stream) {
+           float* out, int B, int Tq, int Tk, int H, float scale, cudaStream_t stream) {
   constexpr int smem = F32Tiles<D>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(attention_f32_kernel<D, kPartial>,
+  cudaError_t err = cudaFuncSetAttribute(attention_f32_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + kRows - 1) / kRows, H, B);
-  attention_f32_kernel<D, kPartial><<<grid, kThreads, smem, stream>>>(
-      q, k, v, qs, ks, vs, out, kn, lsum, Tq, Tk, H, scale);
+  attention_f32_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, qs, ks, vs, out, Tq, Tk, H,
+                                                            scale);
   return (int)cudaGetLastError();
 }
 
@@ -512,8 +488,9 @@ int launch_wide(const float* q, const float* k, const float* v, Strides qs, Stri
 // (unit stride over D, the others multiples of 4, bases 16-byte aligned);
 // out (B, Tq, H, D) fp32, contiguous: softmax_2(scale * q.k^T) . v with keys
 // >= Tk masked. D must be a positive multiple of 64 (cudaErrorInvalidValue
-// otherwise): 64-256 in one pass, wider ones in slices of 128 columns where
-// 128 divides D, else of 64. Returns a cudaError_t.
+// otherwise): 64 on the TMA + wgmma loop, 128-256 in one pass, wider ones in
+// slices of 128 columns where 128 divides D, else of 64. Returns a
+// cudaError_t.
 extern "C" int pi3_attention_f32(const void* q, const void* k, const void* v, void* out, int B,
                                  int Tq, int Tk, int H, int D, long long q_sb, long long q_st,
                                  long long q_sh, long long k_sb, long long k_st, long long k_sh,
@@ -529,17 +506,15 @@ extern "C" int pi3_attention_f32(const void* q, const void* k, const void* v, vo
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return launch<64, false>(qp, kp, vp, qs, ks, vs, op, nullptr, nullptr, B, Tq, Tk, H, scale,
-                               s);
+      return launch_attention_f32_tma<kSoftmax>(qp, kp, vp, op, nullptr, nullptr, B, Tq, Tk, H,
+                                                {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh},
+                                                {v_sb, v_st, v_sh}, scale, s);
     case 128:
-      return launch<128, false>(qp, kp, vp, qs, ks, vs, op, nullptr, nullptr, B, Tq, Tk, H, scale,
-                               s);
+      return launch<128>(qp, kp, vp, qs, ks, vs, op, B, Tq, Tk, H, scale, s);
     case 192:
-      return launch<192, false>(qp, kp, vp, qs, ks, vs, op, nullptr, nullptr, B, Tq, Tk, H, scale,
-                               s);
+      return launch<192>(qp, kp, vp, qs, ks, vs, op, B, Tq, Tk, H, scale, s);
     case 256:
-      return launch<256, false>(qp, kp, vp, qs, ks, vs, op, nullptr, nullptr, B, Tq, Tk, H, scale,
-                               s);
+      return launch<256>(qp, kp, vp, qs, ks, vs, op, B, Tq, Tk, H, scale, s);
     default:
       if (D <= 0 || D % 64) return (int)cudaErrorInvalidValue;
       if (D % 128 == 0)
@@ -558,9 +533,9 @@ extern "C" int pi3_partial_attention_f32(const void* q, const void* k, const voi
                                          float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return launch<64, true>(static_cast<const float*>(q), static_cast<const float*>(k),
-                          static_cast<const float*>(v), Strides{q_sb, q_st, q_sh},
-                          Strides{k_sb, k_st, k_sh}, Strides{v_sb, v_st, v_sh},
-                          static_cast<float*>(acc), static_cast<const float*>(kn),
-                          static_cast<float*>(l), B, Tq, Tk, H, scale, (cudaStream_t)stream);
+  return launch_attention_f32_tma<kPartialSums>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(acc), static_cast<const float*>(kn), static_cast<float*>(l), B, Tq, Tk,
+      H, {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh}, scale,
+      (cudaStream_t)stream);
 }

@@ -341,20 +341,24 @@ struct BthdStrides {
   long long b, t, h;
 };
 
-// The tensor map of a (B, T, H, D) bf16 tensor: dims (D, H, T, B) over its
-// byte strides (each a multiple of 16, base 16-byte aligned), 128-byte
-// swizzle, boxes of 64 columns x 1 head x rows x 1. Rows >= T (and any
-// coordinate past its extent) load as zeros.
+// The tensor map of a (B, T, H, D) bf16 (elem_bytes 2) or fp32 (4) tensor:
+// dims (D, H, T, B) over its byte strides (each a multiple of 16, base
+// 16-byte aligned), 128-byte swizzle, boxes of one 128-byte row of columns
+// (64 bf16, 32 fp32) x 1 head x rows x 1. Rows >= T (and any coordinate past
+// its extent) load as zeros.
 inline bool encode_bthd_map(CUtensorMap* map, const void* base, int B, int T, int H, int D,
-                            BthdStrides st, int rows) {
+                            BthdStrides st, int rows, int elem_bytes = 2) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.t * 2, (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)(st.h * elem_bytes), (cuuint64_t)(st.t * elem_bytes),
+                                 (cuuint64_t)(st.b * elem_bytes)};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / elem_bytes), 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUtensorMapDataType type =
+      elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

@@ -80,12 +80,6 @@ struct __align__(1024) GemmF32Smem {
 constexpr int kF32GemmSmemBytes = sizeof(GemmF32Smem) + 1024;  // + slack to align the base
 static_assert(kF32GemmSmemBytes <= 232448, "the fp32 GEMM's rings exceed 227 KB of shared memory");
 
-// The small part of x's TF32 split as the tensor cores will read it.
-__device__ __forceinline__ float tf32_small(float x) {
-  const float big = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-  return __uint_as_float(__float_as_uint(x - big) + 0x1000u);
-}
-
 // Warps 1-3 of the producer warpgroup: each landed stage's small parts of W.
 __device__ __forceinline__ void gemm_f32_split(GemmF32Smem& sm, int kt, int sid, int lane) {
   for (int k = 0; k < kt; ++k) {

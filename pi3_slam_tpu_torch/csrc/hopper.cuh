@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels (packed_attention.cu;
 // attention.cu and partial_attention.cu through bthd_attention.cuh; block_mlp.cu
-// through gemm.cuh and gemm_f32.cuh): mbarriers, TMA tile loads and stores,
-// wgmma shared-memory descriptors and products (bf16, and tf32 for the fp32
-// GEMM), named barriers, exp2, the base-2 online softmax
-// on the wgmma accumulator layout, and the driver's tensor-map encoder.
+// through gemm.cuh and gemm_f32.cuh; attention_f32.cu at head dim 64 through
+// bthd_attention_f32.cuh): mbarriers, TMA tile loads and stores, wgmma
+// shared-memory descriptors and products (bf16, and tf32 for the fp32 GEMM
+// and attention), the 3xTF32 split, named barriers, exp2, the base-2 online
+// softmax on the wgmma accumulator layout, and the driver's tensor-map encoder.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
@@ -325,7 +326,32 @@ __device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+      PI3_F8(0), PI3_F8(8), PI3_F8(16), PI3_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 #undef PI3_F8
+
+// The small part of x's 3xTF32 split as the tensor cores will read it: big
+// is x's raw pattern (the tensor cores read an fp32 pattern as TF32 by
+// dropping its low 13 bits), small = x - big (exact), rounded to TF32 (to
+// nearest, ties away: half a TF32 ulp added to the pattern, whose low bits
+// the tensor cores then drop).
+__device__ __forceinline__ float tf32_small(float x) {
+  const float big = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  return __uint_as_float(__float_as_uint(x - big) + 0x1000u);
+}
 
 // Named barriers 1 and 2 order the two consumer warpgroups' products.
 __device__ __forceinline__ void bar_sync(uint32_t id) {

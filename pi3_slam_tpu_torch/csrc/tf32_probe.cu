@@ -8,7 +8,10 @@
 //     whether they drop an fp32 pattern's low 13 bits or round it.
 //   pi3_gemm_f32_depth: the GEMM with the kBias epilogue at a chosen group
 //     depth (k8 steps a wgmma accumulator sums before the fp32 add).
+//   pi3_attention_f32_depth: the fp32 attention loop at head dim 64
+//     (bthd_attention_f32.cuh) at group depth 4 or 8.
 
+#include "bthd_attention_f32.cuh"
 #include "gemm_f32.cuh"
 
 using namespace pi3;
@@ -86,6 +89,31 @@ extern "C" int pi3_gemm_f32_depth(const void* A, const void* W, const void* bias
     case 16: return launch_gemm_f32<kBias, 16>(a, w, b, nullptr, nullptr, o, M, N, K, s);
     case 32: return launch_gemm_f32<kBias, 32>(a, w, b, nullptr, nullptr, o, M, N, K, s);
     case 0: return launch_gemm_f32<kBias, 1 << 20>(a, w, b, nullptr, nullptr, o, M, N, K, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// out (B, Tq, H, 64) = softmax_2(scale q.k^T) v over contiguous fp32 (B, Tq,
+// H, 64) q and (B, Tk, H, 64) k / v through bthd_attention_f32.cuh's loop
+// with groups of g8 k8 steps (4: the kernel's, or 8).
+extern "C" int pi3_attention_f32_depth(const void* q, const void* k, const void* v, void* out,
+                                       int B, int Tq, int Tk, int H, float scale, int g8,
+                                       int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const auto* qp = static_cast<const float*>(q);
+  const auto* kp = static_cast<const float*>(k);
+  const auto* vp = static_cast<const float*>(v);
+  auto* o = static_cast<float*>(out);
+  const BthdStrides qs{(long long)Tq * H * 64, H * 64, 64}, ks{(long long)Tk * H * 64, H * 64, 64};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (g8) {
+    case 4:
+      return launch_attention_f32_tma<kSoftmax, 4>(qp, kp, vp, o, nullptr, nullptr, B, Tq, Tk, H,
+                                                   qs, ks, ks, scale, s);
+    case 8:
+      return launch_attention_f32_tma<kSoftmax, 8>(qp, kp, vp, o, nullptr, nullptr, B, Tq, Tk, H,
+                                                   qs, ks, ks, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,12 +2,14 @@
 of the attention wrappers (``packed_attention``, ``partial_attention``,
 ``flash_attention``), which call these launchers for fp32 CUDA tensors.
 
-One kernel over (B, T, H, D) q / k / v read through their strides (a
+Kernels over (B, T, H, D) q / k / v read through their strides (a
 unit-stride last dim, the other strides multiples of 4 elements, 16-byte
 aligned bases): the packed projection's q / k / v views need no copy, at
-every head dim that is a multiple of 64: one pass up to 256, column slices
-of O above (:func:`slice_width`). See the source's header for the design
-(3xTF32 products on the tensor cores).
+every head dim that is a multiple of 64 (:func:`kernel_for`): head dim 64 (every
+fp32 launch of the main paths, the partial one too) on the TMA + ``wgmma``
+loop of ``csrc/bthd_attention_f32.cuh``, 128-256 in one pass and wider ones
+in column slices of O (:func:`slice_width`) on ``mma.sync``. See the
+sources' headers for the designs (3xTF32 products on the tensor cores).
 """
 
 from __future__ import annotations
@@ -32,6 +34,16 @@ def slice_width(d: int) -> int:
     if d <= MAX_ONE_PASS_HEAD_DIM:
         return d
     return 128 if d % 128 == 0 else 64
+
+
+def kernel_for(d: int) -> str:
+    """The kernel that runs the fp32 attention at head dim d (the same
+    choice as ``csrc/attention_f32.cu``'s switch). Raises for d not a
+    positive multiple of 64."""
+    width = slice_width(d)
+    if d == 64:
+        return "attention_f32_tma_kernel"  # csrc/bthd_attention_f32.cuh
+    return "attention_f32_kernel" if width == d else "attention_f32_wide_kernel"
 
 
 @functools.cache

@@ -37,7 +37,12 @@ as TF32 (one wgmma tf32 on raw fp32 tiles, one-hot rows on one side, its
 output against the other side truncated to TF32 and rounded to TF32), and
 the fp32 GEMM's relative L2 error against an fp64 product at K 4096 for each
 accumulation depth (k8 steps in one wgmma accumulator), with its time at the
-global fc2 shape.
+global fc2 shape. Then the fp32 attention at head dim 64 at its main-path
+shapes: the time of ``flash_attention``'s fp32 entry
+(``csrc/bthd_attention_f32.cuh``), of the same loop at group depth 4 and 8
+(``pi3_attention_f32_depth``)
+and of fp32 SDPA, and at the global shape (1, 64300, 16, 64) each one's
+relative L2 error against an fp64 attention.
 
 The JAX package's other probes (global, frame, block, packed,
 stages, mlp-sweep, forward, refine, kv-accuracy, tsdf) are not ported
@@ -219,9 +224,11 @@ def tf32_read() -> dict:
 
 
 def bench_tf32() -> dict:
-    """The TF32 read probe (:func:`tf32_read`) and the fp32 GEMM's
-    accumulation depth; returns {"read": ..., "depth": {g8: {"rel_l2",
-    "ms"}}, "cublas_rel_l2"} and prints one line each. GEMM inputs N(0, 1)
+    """The TF32 read probe (:func:`tf32_read`), the fp32 GEMM's
+    accumulation depth and the fp32 attention's accuracy
+    (:func:`attention_f32_accuracy`); returns {"read": ..., "depth": {g8:
+    {"rel_l2", "ms"}}, "cublas_rel_l2", "attention": ...} and prints one
+    line each. GEMM inputs N(0, 1)
     activations and N(0, 1/K) weights, from seed 0 on the card."""
     if not torch.cuda.is_available():
         raise RuntimeError("the TF32 probe needs an NVIDIA GPU")
@@ -263,6 +270,84 @@ def bench_tf32() -> dict:
         label = f"{g8} k8 steps" if g8 else "all of K"
         print(f"fp32 GEMM, groups of {label:12s} ({m}, {k}) x ({n}, {k})^T: rel L2 vs fp64 "
               f"{err:.3e}, {ms:.3f} ms, {2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s", flush=True)
+    del x, w, ref, out
+    results["attention"] = attention_f32_accuracy()
+    return results
+
+
+# the fp32 attention's main-path shapes at head dim 64 (B, T, H): the global
+# blocks at 100 frames, the frame blocks, MoGe-2's encoder; accuracy against
+# fp64 at the first
+ATTN_SHAPES = ((1, 64300, 16), (100, 643, 16), (1, 3537, 6))
+# the loop's group depths (pi3_attention_f32_depth's k8 steps a group)
+ATTN_DEPTHS = {"groups of 4 (the kernel's)": 4, "groups of 8": 8}
+
+
+def _attention_f64(q, k, v, block: int = 4096) -> torch.Tensor:
+    """softmax(q.k^T / sqrt(D)) . v in fp64 over (B, T, H, D) q / k / v, a
+    head and a block of query rows at a time."""
+    b, t, h, d = q.shape
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for bi in range(b):
+        for hi in range(h):
+            kh, vh = k[bi, :, hi].double(), v[bi, :, hi].double()
+            for r0 in range(0, t, block):
+                s = q[bi, r0:r0 + block, hi].double() @ kh.T * d**-0.5
+                out[bi, r0:r0 + block, hi] = torch.softmax(s, -1) @ vh
+                del s
+    return out
+
+
+def attention_f32_accuracy(depths=ATTN_DEPTHS) -> dict:
+    """The fp32 attention at head dim 64 at each of ATTN_SHAPES (inputs
+    N(0, 1) from seed 0 on the card): {shape: {name: {"ms"[, "rel_l2"]}}}
+    for ``flash_attention``'s fp32 entry, the loop at ``depths`` (through
+    ``pi3_attention_f32_depth``) and fp32 SDPA (TF32 off), with the relative
+    L2 error against an fp64 attention at the first shape; prints a line
+    each."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from ..ops._build import check_launch, load_library
+    from ..ops.flash_attention import flash_attention
+
+    if depths:
+        fn = load_library("tf32_probe").pi3_attention_f32_depth
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] + \
+            [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    for b, t, h in ATTN_SHAPES:
+        shape = (b, t, h, 64)
+        q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
+        ref = _attention_f64(q, k, v) if not results else None
+        flops = 4.0 * b * h * t * t * 64
+        runs = {"flash_attention fp32 entry": lambda: flash_attention(q, k, v)}
+        out = torch.empty_like(q)
+        scale = 64**-0.5 * 1.4426950408889634  # log2(e): the kernel's base-2 softmax
+
+        def loop(g8):
+            check_launch(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, t, h,
+                            scale, g8, torch.cuda.current_device(),
+                            torch.cuda.current_stream().cuda_stream), "fp32 attention")
+            return out
+
+        for name, g8 in depths.items():
+            runs[f"loop, {name}"] = lambda g8=g8: loop(g8)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        runs["fp32 SDPA"] = lambda: F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2)
+        res = results[shape] = {}
+        for name, run in runs.items():
+            line = f"fp32 attention {str(shape):18s} {name:45s}:"
+            if ref is not None:
+                err = ((run().double() - ref).norm() / ref.norm()).item()
+                res[name] = {"rel_l2": err}
+                line += f" rel L2 vs fp64 {err:.3e},"
+            ms = _time_ms(run, ITERS if t > 10000 else MLP_ITERS)
+            res.setdefault(name, {})["ms"] = ms
+            print(f"{line} {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+        del q, k, v, qt, kt, vt, ref, out
     return results
 
 

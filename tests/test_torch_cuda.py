@@ -98,6 +98,51 @@ def _producer_norm(gen):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["flash_attention", "attention_single_pass",
+                                   "flash_attention_partial"])
+@pytest.mark.parametrize("tq,tk", [(301, 1), (301, 150), (130, 333)])
+def test_fp32_d64_loop_reads_no_row_past_the_lengths_and_repeats(gen, entry, tq, tk):
+    """The fp32 loop at head dim 64 (csrc/bthd_attention_f32.cuh) through the
+    (B, T, H, D) and partial entries: q, k and v cut from buffers with NaN
+    rows behind Tq and Tk (Tk 1, below and above Tq) give the bits of the
+    same call on finite copies, and a second call repeats them (no split-K,
+    no atomics)."""
+    b, h, t = 2, 3, 400
+    q, k, v = (_randn32(gen, b, t, h, D) for _ in range(3))
+    if entry == "flash_attention_partial":
+        kn = k[:, :tk].square().sum(-1).amax(1).sqrt()
+        run = lambda *qkv: flash_attention_partial(*qkv, kn)
+    else:
+        run = flash_attention if entry == "flash_attention" else attention_single_pass
+    before = launch_counts()[f"{entry}_fp32"]
+    clean = run(q[:, :tq].clone(), k[:, :tk].clone(), v[:, :tk].clone())
+    tails = (_nan_tail(q, tq), _nan_tail(k, tk), _nan_tail(v, tk))
+    got, again = run(*tails), run(*tails)
+    assert launch_counts()[f"{entry}_fp32"] == before + 3
+    as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
+    for a, c, r in zip(as_tuple(got), as_tuple(clean), as_tuple(again)):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        assert torch.equal(a, c), "a row past Tq or Tk was read"
+        assert torch.equal(a, r), "a second call differs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_scale", [1.0, 0.0, -0.3])
+def test_fp32_packed_attention_repeats_bit_for_bit(gen, q_scale):
+    """The packed single-pass entry on fp32 at MoGe-2's 6 heads, any logit
+    scale (0 and negative too): NaN rows past true_t give the bits of the
+    finite rows, a second call repeats them, and both are within FP32 of
+    the plain version."""
+    qkv = _randn32(gen, 2, 704, 3 * 6 * D)
+    qkv[:, 643:] = float("nan")
+    got = attention_single_pass_packed(qkv, 6, true_t=643, q_scale=q_scale)
+    assert torch.equal(got, attention_single_pass_packed(qkv[:, :643].contiguous(), 6,
+                                                         q_scale=q_scale))
+    assert torch.equal(got, attention_single_pass_packed(qkv, 6, true_t=643, q_scale=q_scale))
+    _assert_close(got, packed_attention_plain(qkv, 6, true_t=643, q_scale=q_scale), **FP32)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("with_norm", [True, False])
 @pytest.mark.parametrize("pad", [0, 37])
 @pytest.mark.parametrize("t", [1, 63, 643, 4100])
@@ -704,10 +749,10 @@ def test_fp32_packed_attention_reads_no_row_past_true_t(gen, entry):
 @pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 512])
 @pytest.mark.parametrize("tq,tk", [(301, 301), (301, 150), (130, 333), (70, 1)])
 def test_fp32_bthd_attention_matches_plain(gen, d, tq, tk):
-    """Strided (B, T, H, D) views at fp32 head dims of both kernels (one pass:
-    64-key tiles up to D 128, 32 above; the sliced variant above 256: DV 64
-    at 320, 128 at 384 and 512), Tk below and above Tq, neither a multiple
-    of a tile."""
+    """Strided (B, T, H, D) views at fp32 head dims of every kernel (D 64 the
+    TMA + wgmma loop; one pass: 64-key tiles at D 128, 32 above; the sliced
+    variant above 256: DV 64 at 320, 128 at 384 and 512), Tk below and
+    above Tq, neither a multiple of a tile."""
     q = _randn32(gen, 2, tq, 3, 3, d)[:, :, 0]
     kv = _randn32(gen, 2, tk, 2, 3, d)
     k, v = kv[:, :, 0], kv[:, :, 1]

@@ -37,7 +37,7 @@ from pi3_slam_tpu.ops.rope import rope_tables as jax_rope_tables
 
 from pi3_slam_tpu_torch.ops import launch_counts
 from pi3_slam_tpu_torch.ops._build import is_fp32
-from pi3_slam_tpu_torch.ops.attention_f32 import _operands, slice_width
+from pi3_slam_tpu_torch.ops.attention_f32 import _operands, kernel_for, slice_width
 from pi3_slam_tpu_torch.ops.block_mlp import block_mlp, block_mlp_plain
 from pi3_slam_tpu_torch.ops.flash_attention import blockwise_attention
 from pi3_slam_tpu_torch.ops.compare import ATTENTION, FP32, PRODUCER, block_mlp_bounds, compare
@@ -257,7 +257,8 @@ def _tf32_truncated(x):
 
 
 def _mm_3xtf32(a, b):
-    """a @ b as the fp32 attention kernel computes it: both operands split
+    """a @ b as the fp32 mma.sync attention kernels (head dims 128-512)
+    compute it: both operands split
     into TF32 big + small parts, both rounded to nearest, big.big + big.small
     + small.big, the products exact and summed (here in fp64), the result
     fp32."""
@@ -268,47 +269,83 @@ def _mm_3xtf32(a, b):
 
 
 # k8 steps the fp32 GEMM sums in one wgmma accumulator (csrc/gemm_f32.cuh
-# kF32GroupK8)
+# kF32GroupK8); the same for the fp32 attention loop at head dim 64
+# (csrc/bthd_attention_f32.cuh kF32AttnGroupK8), and that loop's key tile
 GEMM_GROUP_K8 = 4
+ATTN_GROUP_K8, ATTN_KEY_TILE = 4, 64
 
 
-def _gemm_3xtf32(a, w):
-    """a @ w^T as the fp32 GEMM computes it: big = the raw fp32 pattern read
-    as TF32 (truncated), small = a - big rounded to TF32 (to nearest, ties
-    away); per group of GEMM_GROUP_K8 k8 steps the three products
-    small.big' + big.small' + big.big' exact (here in fp64) and rounded to
-    fp32, the groups added in order to an fp32 sum."""
-    ab, wb = _tf32_truncated(a), _tf32_truncated(w)
-    asm, wsm = _tf32(a.float() - ab), _tf32(w.float() - wb)
+def _grouped_3xtf32(a, bt, group_k8, init=None):
+    """a @ bt^T (contracting the last dim of both) as the TMA + wgmma tf32
+    loops compute it: big = the raw fp32 pattern read as TF32 (truncated),
+    small = the rest rounded to TF32 (to nearest, ties away); per group of
+    group_k8 k8 steps the three products small.big' + big.small' + big.big'
+    exact (here in fp64) and rounded to fp32, the groups added in order to
+    an fp32 sum that starts at init (zero if None)."""
+    ab, bb = _tf32_truncated(a), _tf32_truncated(bt)
+    asm, bsm = _tf32(a.float() - ab), _tf32(bt.float() - bb)
     d = torch.float64
-    depth = 8 * GEMM_GROUP_K8
-    out = None
+    depth = 8 * group_k8
+    out = init
     for k0 in range(0, a.shape[-1], depth):
         ks = slice(k0, k0 + depth)
-        part = (asm[..., ks].to(d) @ wb[:, ks].to(d).T + ab[..., ks].to(d) @ wsm[:, ks].to(d).T
-                + ab[..., ks].to(d) @ wb[:, ks].to(d).T).float()
+        part = (asm[..., ks].to(d) @ bb[..., ks].to(d).transpose(-1, -2)
+                + ab[..., ks].to(d) @ bsm[..., ks].to(d).transpose(-1, -2)
+                + ab[..., ks].to(d) @ bb[..., ks].to(d).transpose(-1, -2)).float()
         out = part if out is None else out + part
     return out
 
 
+def _gemm_3xtf32(a, w):
+    """a @ w^T as the fp32 GEMM computes it (:func:`_grouped_3xtf32` in
+    groups of GEMM_GROUP_K8 k8 steps)."""
+    return _grouped_3xtf32(a, w, GEMM_GROUP_K8)
+
+
+def _loop_attention_3xtf32(q, k, v, scale):
+    """The fp32 attention loop at head dim 64 (csrc/bthd_attention_f32.cuh)
+    on (B, H, T, 64) q / k / v: per tile of ATTN_KEY_TILE keys, S = q.k^T in
+    the loop's grouped 3xTF32 (:func:`_grouped_3xtf32`, groups of
+    ATTN_GROUP_K8 k8 steps added in fp32), scaled; the base-2 online softmax
+    in fp32 with an exact running max; O_tile = P V the same way (P's big
+    part its raw fp32 pattern), each group added in fp32 to O rescaled;
+    O / l at the end."""
+    m = torch.full((*q.shape[:-1], 1), -torch.inf)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[-2], ATTN_KEY_TILE):
+        keys = slice(k0, k0 + ATTN_KEY_TILE)
+        s = _grouped_3xtf32(q, k[..., keys, :], ATTN_GROUP_K8) * np.float32(scale)
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        a, p = torch.exp2(m - mx), torch.exp2(s - mx)
+        l = l * a + p.sum(-1, keepdim=True)
+        o = _grouped_3xtf32(p, v[..., keys, :].transpose(-1, -2), ATTN_GROUP_K8, init=o * a)
+        m = mx
+    return o / l
+
+
 def _attention_3xtf32(qkv, h, q_scale=1.0):
-    """The fp32 attention kernel's arithmetic on the CPU: 3xTF32 logits,
-    scaled, the base-2 softmax and P in fp32, 3xTF32 P V."""
+    """The fp32 packed attention's arithmetic on the CPU (head dim 64: the
+    TMA + wgmma loop, :func:`_loop_attention_3xtf32`) at logit scale
+    q_scale (base 2)."""
     b, t, _ = qkv.shape
     x = qkv.view(b, t, 3, h, D)
     q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
-    s = _mm_3xtf32(q, k.transpose(-1, -2)) * q_scale
-    p = torch.exp2(s - s.amax(-1, keepdim=True))
-    o = _mm_3xtf32(p, v) / p.sum(-1, keepdim=True)
+    o = _loop_attention_3xtf32(q, k, v, q_scale)
     return o.transpose(1, 2).reshape(b, t, h * D)
 
 
 def _bthd_attention_3xtf32(q, k, v):
-    """The fp32 (B, T, H, D) attention kernel's arithmetic at any head dim
-    (one pass or in column slices of O: the logits are the same sums),
-    softmax(q.k^T / sqrt(D)) v with 3xTF32 products, fp32 softmax and P."""
+    """The fp32 (B, T, H, D) attention's arithmetic, softmax(q.k^T /
+    sqrt(D)) v: at head dim 64 the TMA + wgmma loop's
+    (:func:`_loop_attention_3xtf32`); at the wider ones the mma.sync
+    kernels' (one pass or in column slices of O: the logits are the same
+    sums), 3xTF32 products with both parts rounded, fp32 softmax and P."""
     q, k, v = (x.transpose(1, 2) for x in (q, k, v))
-    s = _mm_3xtf32(q, k.transpose(-1, -2)) * (q.shape[-1]**-0.5 * np.log2(np.e))
+    scale = q.shape[-1]**-0.5 * np.log2(np.e)
+    if q.shape[-1] == D:
+        return _loop_attention_3xtf32(q, k, v, scale).transpose(1, 2)
+    s = _mm_3xtf32(q, k.transpose(-1, -2)) * scale
     p = torch.exp2(s - s.amax(-1, keepdim=True))
     return (_mm_3xtf32(p, v) / p.sum(-1, keepdim=True)).transpose(1, 2)
 
@@ -331,7 +368,8 @@ def _mlp_3xtf32(x, w1, b1, w2, b2):
 @pytest.mark.parametrize("case", ["producer", "attention", "attention_q_scale", "block_mlp",
                                   "producer_fp32", "attention_fp32", "attention_q_scale_fp32",
                                   "block_mlp_fp32", "block_mlp_k4096_fp32", "mlp_k4096_fp32",
-                                  "attention_d320_fp32", "attention_d512_fp32"])
+                                  "attention_d320_fp32", "attention_d512_fp32",
+                                  "attention_d64_fp32"])
 def test_chip_bounds_pass_kernel_arithmetic_and_reject_wrong_outputs(rng, case):
     """The bounds chip_smoke.py and the GPU tests hold the kernels to accept
     the kernels' bf16 arithmetic (simulated here) and fail an all-zero
@@ -397,9 +435,10 @@ def _check_fp32_bounds(rng, case):
                                       **{k: v.double() for k, v in norm.items()})[..., :256].float()
         bf = qkv_rope_producer_plain(qkv.to(bf16), cos, sin, 4, 300, **norm)[..., :256]
         bounds = FP32
-    elif case in ("attention_d320", "attention_d512"):
-        # the sliced variant's head dims (DV 64 at 320, 128 at 512)
-        d = int(case[-3:])
+    elif case in ("attention_d64", "attention_d320", "attention_d512"):
+        # the TMA + wgmma loop (D 64, keys past a 64-key tile), the sliced
+        # variant's head dims (DV 64 at 320, 128 at 512)
+        d = int(case.split("_d")[1])
         q, k, v = (torch.from_numpy(rng.standard_normal((1, 150, 2, d)).astype(np.float32))
                    for _ in range(3))
         got, bounds = _bthd_attention_3xtf32(q, k, v), FP32
@@ -521,24 +560,75 @@ def test_fp32_operands_take_the_fp32_entries_and_fp16_is_refused():
         _operands(odd, odd, odd, "attention")
 
 
+# the kernel each fp32 head dim runs (csrc/attention_f32.cu's switch): D 64
+# the TMA + wgmma loop of csrc/bthd_attention_f32.cuh, 128-256 the one-pass
+# mma.sync kernel, wider ones its sliced variant
+FP32_KERNEL_BY_D = {64: "attention_f32_tma_kernel", 128: "attention_f32_kernel",
+                    192: "attention_f32_kernel", 256: "attention_f32_kernel"}
+
+
 @pytest.mark.parametrize("d,width", [(64, 64), (128, 128), (192, 192), (256, 256), (320, 64),
                                      (384, 128), (448, 64), (512, 128), (1152, 128),
                                      (0, None), (96, None), (-64, None)])
 def test_fp32_attention_takes_every_multiple_of_64(d, width):
-    """The fp32 attention kernel's head-dim check: every positive multiple of
-    64 is taken, D <= 256 in one pass (O of the whole head a block), wider
-    ones by the sliced variant with DV 128 where 128 divides D, else 64 (the
-    same choice as csrc/attention_f32.cu's switch); others are refused
-    before any launch."""
+    """The fp32 attention's head-dim check and routing: every positive
+    multiple of 64 is taken, D 64 by the TMA + wgmma loop, 128-256 in one
+    pass (O of the whole head a block), wider ones by the sliced variant
+    with DV 128 where 128 divides D, else 64 (the same choice as
+    csrc/attention_f32.cu's switch); others are refused before any
+    launch."""
     if width is None:
         with pytest.raises(ValueError, match="multiples of 64"):
             slice_width(d)
+        with pytest.raises(ValueError, match="multiples of 64"):
+            kernel_for(d)
         t = torch.zeros(1, 9, 1, max(d, 1))
         with pytest.raises(ValueError):
             _operands(t, t, t, "attention")
     else:
         assert slice_width(d) == width
         assert d % width == 0 and width <= max(128, min(d, 256))
+        assert kernel_for(d) == FP32_KERNEL_BY_D.get(d, "attention_f32_wide_kernel")
+
+
+def _vt_column(key):
+    """csrc/bthd_attention_f32.cuh's vt_column: V^T's column of a key."""
+    return (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2)
+
+
+def test_transposed_v_takes_p_in_the_a_register_order(rng):
+    """The fp32 loop's V^T (csrc/bthd_attention_f32.cuh, written by the split
+    warps): column 8j + t holds key 8j + 2t and column 8j + t + 4 key 8j +
+    2t + 1, so P fed to wgmma straight from the S accumulators (thread (g,
+    t) holds keys 8j + 2t and 8j + 2t + 1 of rows g and g + 8, given as the
+    tf32 A registers a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g +
+    8, t + 4) of k8 step j) times that V^T is P V; each 64-row box of V^T is
+    written once per element, 16-byte chunk c of row d at chunk c ^ (d % 8)
+    (the 128-byte swizzle the descriptor reads)."""
+    n, d = 64, 64
+    v = rng.standard_normal((n, d))
+    p = rng.standard_normal((16, n))  # a warp's 16 rows of P
+    vt = np.empty((d, n))
+    for key in range(n):
+        vt[:, _vt_column(key)] = v[key]
+    for j in range(n // 8):
+        for t in range(4):
+            assert np.array_equal(vt[:, 8 * j + t], v[8 * j + 2 * t])
+            assert np.array_equal(vt[:, 8 * j + t + 4], v[8 * j + 2 * t + 1])
+    a = np.zeros((16, n))  # the A operand as the tensor cores read it: a[row, 8j + k]
+    for j in range(n // 8):
+        for g in range(8):
+            for t in range(4):
+                acc = (p[g, 8 * j + 2 * t], p[g, 8 * j + 2 * t + 1],
+                       p[g + 8, 8 * j + 2 * t], p[g + 8, 8 * j + 2 * t + 1])  # entries 4j ..
+                a0, a1, a2, a3 = acc[0], acc[2], acc[1], acc[3]  # the kernel's register order
+                a[g, 8 * j + t], a[g + 8, 8 * j + t] = a0, a1
+                a[g, 8 * j + t + 4], a[g + 8, 8 * j + t + 4] = a2, a3
+    np.testing.assert_allclose(a @ vt.T, p @ v, rtol=1e-12, atol=1e-12)
+    # the split warps' offsets (float index in a box of 64 rows x 32 columns)
+    offsets = {(dd * 32 + ((((col >> 2) ^ (dd & 7)) << 2) | (col & 3)))
+               for dd in range(d) for col in (_vt_column(key) & 31 for key in range(32))}
+    assert offsets == set(range(d * 32))
 
 
 def test_input_scaled_bound_is_flagged():
