@@ -35,19 +35,21 @@ Phases, each of which raises (exit code 1) on failure:
    each also shown to reject the bf16 entry's output on the same inputs;
    their bound is the products over 3xTF32's 165 TFLOP/s (or the bytes), the
    library yardstick fp32 SDPA or the two fp32 cuBLAS products. Every fp32
-   attention entry at head dim 64 (the TMA + wgmma loop of
-   csrc/bthd_attention_f32.cuh) repeats its output bit for bit on a second
-   call. The fp32 (B, T, H, D) attention runs at head dim 64 (the global
-   and frame shapes, route "d64"), 128-256 (its mma.sync kernel, route
-   "d128_256") and 320, 384 and 512 at (1, 4100, 2, D) and 320 at (100,
-   643, 2, D), its sliced variant (keys past Tk NaN at D 512,
-   bit-identical), each reported under "routes" too.
+   attention entry (the TMA + wgmma loop of csrc/bthd_attention_f32.cuh at
+   every head dim) repeats its output bit for bit on a second call. The
+   fp32 (B, T, H, D) attention runs at head dim 64 (the global and frame
+   shapes, route "d64") and on the loop's sliced variant (route "sliced")
+   at 128 (views) and 256 at (1, 8192, H, D), 192 and 320 at (100, 643, H,
+   D) and 320, 384 and 512 at (1, 4100, 2, D), keys past Tk NaN at D 256
+   and 512 leaving the output bit-identical; each is reported under
+   "routes" too.
 3. Full-width forwards with random weights (seed 0): Pi3 on a 4-frame chunk
    at 308x406, exact and with global_kv_merge=2, in bf16 and in fp32, MoGe-2
    (ViT-S backbone, fp32 trunk as MoGeRunner builds it) on one 308x406
    frame, the cross-attention block at Pi3's decoder widths over one frame's
    and four frames' tokens (bf16 and fp32), and two Blocks off the packed
-   kernels' widths (8 heads of 128; C 320); the kernel path on the card
+   kernels' widths (8 heads of 128, bf16 and fp32: the fp32 one reaches the
+   sliced fp32 attention through sdpa; C 320); the kernel path on the card
    against the plain path (fp32 on the host CPU): bf16 within 5e-2, fp32
    within 1e-3, with each run's launch counts (counts set to 0 just before
    it).
@@ -126,13 +128,15 @@ KERNELS = {
 }
 # the loop a kernel runs, where its source does not say it alone
 LOOPS = {"dots_attention": "pi3_slam_tpu_torch/csrc/bthd_attention.cuh (products-only mode)",
-         **{f"{name}_fp32": "pi3_slam_tpu_torch/csrc/bthd_attention_f32.cuh at head dim 64; "
-                            "csrc/attention_f32.cu's mma.sync kernels at 128-512 (routes)"
+         **{f"{name}_fp32": "pi3_slam_tpu_torch/csrc/bthd_attention_f32.cuh: "
+                            "attention_f32_tma_kernel at head dim 64, its sliced variant "
+                            "attention_f32_wide_tma_kernel above (routes)"
             for name in ("flash_attention", "attention_single_pass")}}
 # the fp32 entries (an fp32 model's activations: --compute-dtype float32,
 # MoGe-2's encoder), each its own kernel beside the bf16 one of its wrapper;
-# every fp32 attention launch at head dim 64 (the packed and partial ones
-# always) runs the TMA + wgmma loop of bthd_attention_f32.cuh
+# every fp32 attention launch runs the TMA + wgmma loop of
+# bthd_attention_f32.cuh (the (B, T, H, D) ones above head dim 64 its sliced
+# variant)
 F32_LOOP = "pi3_slam_tpu_torch/csrc/bthd_attention_f32.cuh"
 F32_SOURCES = {
     "qkv_rope_producer": "pi3_slam_tpu_torch/csrc/qkv_producer.cu",
@@ -141,10 +145,11 @@ F32_SOURCES = {
     "attention_single_pass_packed": F32_LOOP,
     "flash_attention_packed": F32_LOOP,
     "flash_attention_partial": F32_LOOP,
+    "flash_attention": F32_LOOP,
+    "attention_single_pass": F32_LOOP,
 }
 KERNELS.update({
-    f"{name}_fp32": ("cuda", F32_SOURCES.get(name, "pi3_slam_tpu_torch/csrc/attention_f32.cu"),
-                     replaces)
+    f"{name}_fp32": ("cuda", F32_SOURCES[name], replaces)
     for name, (_, _, replaces) in list(KERNELS.items()) if name != "dots_attention"})
 # the card's peaks (H100 SXM data sheet): bf16 tensor cores, fp32 outside
 # them, device memory; the fp32 entries' products run on the tensor cores in
@@ -211,7 +216,7 @@ BLOCK_LAUNCHES = {
     "block_c320": {"qkv_rope_producer": 1, "attention_single_pass_packed": 1},
 }
 BLOCK_LAUNCHES.update({f"{path}_fp32": fp32(c) for path, c in list(BLOCK_LAUNCHES.items())
-                       if path.startswith("cross")})
+                       if path.startswith("cross") or path == "block_d128"})
 FRAME_T = 643  # 638 patches (22 x 29 at 308x406) + 5 register tokens
 N_FRAMES = 100
 MOGE_T = 3537  # 52 x 68 patches of a 308x406 frame at 3600 tokens + cls
@@ -828,8 +833,7 @@ def phase_kernels() -> dict:
         got = run()
         c = check_fp32(name, shape_name, got, plain(),
                        fn(q.to(bf16), k.to(bf16), v.to(bf16)), why32, **FP32)
-        if q.shape[-1] == 64:  # the TMA + wgmma loop: no split-K, no atomics
-            same_bits(name, shape_name, run(), got, "a second call")
+        same_bits(name, shape_name, run(), got, "a second call")  # no split-K, no atomics
         del got
         b, tq, h, d = q.shape
         work = (attention_flops(b, h, tq, k.shape[1], d),
@@ -841,11 +845,20 @@ def phase_kernels() -> dict:
     bthd32("flash_attention_fp32", f"(1, {N_FRAMES * FRAME_T}, 16, 64) fp32", q, k, v, 2, 1,
            route="d64")
     del q, k, v
+    # above head dim 64: the loop's sliced variant (O in slices of 128
+    # columns, 96-key tiles)
     q, k, v = randn32(1, 8192, 3, 8, 128).unbind(2)
     bthd32("flash_attention_fp32", "(1, 8192, 8, 128) fp32 views", q, k, v, 5, 2,
-           route="d128_256")
+           route="sliced")
     q, k, v = (randn32(1, 8192, 4, 256) for _ in range(3))
-    bthd32("flash_attention_fp32", "(1, 8192, 4, 256) fp32", q, k, v, 5, 2, route="d128_256")
+    bthd32("flash_attention_fp32", "(1, 8192, 4, 256) fp32", q, k, v, 5, 2, route="sliced")
+    tk = 4100
+    clean = flash_attention(q, k[:, :tk].clone(), v[:, :tk].clone())
+    nan_rows(k, tk)
+    nan_rows(v, tk)
+    same_bits("flash_attention_fp32", f"(1, 8192, 4, 256) x {tk} fp32, NaN keys past Tk",
+              flash_attention(q, k[:, :tk], v[:, :tk]), clean)
+    del q, k, v, clean
     q, k, v = (randn32(N_FRAMES, FRAME_T, H, 64) for _ in range(3))
     bthd32("attention_single_pass_fp32", f"({N_FRAMES}, {FRAME_T}, 16, 64) fp32", q, k, v, 5, 2,
            route="d64")
@@ -858,13 +871,13 @@ def phase_kernels() -> dict:
     del bufs
     q, k, v = (randn32(N_FRAMES, FRAME_T, 4, 192) for _ in range(3))
     bthd32("attention_single_pass_fp32", f"({N_FRAMES}, {FRAME_T}, 4, 192) fp32", q, k, v, 5, 2,
-           route="d128_256")
-    # head dims above 256: the fp32 kernel's sliced variant (DV 64 at 320,
-    # 128 at 384 and 512); keys past Tk NaN leave the output bit-identical
+           route="sliced")
+    # head dims above 256: two to four slices of O; keys past Tk NaN leave
+    # the output bit-identical
     for d in (320, 384, 512):
         q, k, v = (randn32(1, 4100, 2, d) for _ in range(3))
         bthd32("flash_attention_fp32", f"(1, 4100, 2, {d}) fp32", q, k, v, 5, 2,
-               route="d_over_256")
+               route="sliced")
     tk = 2050
     clean = flash_attention(q, k[:, :tk].clone(), v[:, :tk].clone())
     nan_rows(k, tk)
@@ -873,7 +886,7 @@ def phase_kernels() -> dict:
               flash_attention(q, k[:, :tk], v[:, :tk]), clean)
     q, k, v = (randn32(N_FRAMES, FRAME_T, 2, 320) for _ in range(3))
     bthd32("attention_single_pass_fp32", f"({N_FRAMES}, {FRAME_T}, 2, 320) fp32", q, k, v, 5, 2,
-           route="d_over_256")
+           route="sliced")
     del q, k, v, clean
 
     w1, b1 = randn32(4 * C, C, scale=0.02), randn32(4 * C, scale=0.1)
@@ -1033,8 +1046,10 @@ def phase_blocks() -> dict:
     off the packed kernels' widths (C 1024 with 8 heads of 128; C 320 with 5
     heads of 64), each on (4, 643, C) with qk-norm, RoPE and LayerScale
     (torch's init under seed 0): the kernel path (bf16, card) against the
-    plain path (fp32, host). Returns each run's launch counts (set to 0 just
-    before it)."""
+    plain path (fp32, host); then the cross block and the 8-heads-of-128
+    Block in fp32 (the fp32 entries; the Block's attention is the sliced
+    fp32 loop, reached through sdpa). Returns each run's launch counts (set
+    to 0 just before it)."""
     import copy
 
     import numpy as np
@@ -1119,9 +1134,12 @@ def phase_blocks() -> dict:
     why = "bf16 weights and activations; the plain versions in bf16 on a CPU gave 1.3e-2"
     for path, c, heads in (("block_d128", 1024, 8), ("block_c320", 320, 5)):
         by_path[path] = drive(path, block(c, heads), randn(4, FRAME_T, c), why)
-    # the cross block in fp32: the fp32 entries of the packed, (B, T, H, D)
-    # and MLP kernels, the card within 1e-3 of the host
+    # the cross block and the head-dim-128 Block in fp32: the fp32 entries of
+    # the packed, (B, T, H, D) and MLP kernels, the card within 1e-3 of the
+    # host
     why = "fp32 kernels, 3xTF32 products"
+    by_path["block_d128_fp32"] = drive("block_d128_fp32", block(1024, 8),
+                                       randn(4, FRAME_T, 1024).float(), why, torch.float32, 1e-3)
     for path, y, x, p in (("cross_block_frame_fp32", randn(4, FRAME_T, 1024, scale=1 / 64),
                            randn(4, FRAME_T, 1024, scale=1 / 64), pos),
                           ("cross_block_global_fp32", randn(1, n, 1024, scale=1 / 64),

@@ -1,18 +1,26 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels (packed_attention.cu;
 // attention.cu and partial_attention.cu through bthd_attention.cuh; block_mlp.cu
-// through gemm.cuh and gemm_f32.cuh; attention_f32.cu at head dim 64 through
-// bthd_attention_f32.cuh): mbarriers, TMA tile loads and stores, wgmma
-// shared-memory descriptors and products (bf16, and tf32 for the fp32 GEMM
-// and attention), the 3xTF32 split, named barriers, exp2, the base-2 online
-// softmax on the wgmma accumulator layout, and the driver's tensor-map encoder.
+// through gemm.cuh and gemm_f32.cuh; attention_f32.cu through
+// bthd_attention_f32.cuh): bf16 packing, mbarriers, TMA tile loads and
+// stores, wgmma shared-memory descriptors and products (bf16, and tf32 for
+// the fp32 GEMM and attention), the 3xTF32 split, named barriers, exp2, the
+// base-2 online softmax on the wgmma accumulator layout, and the driver's
+// tensor-map encoder.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
-
-#include "mma.cuh"
+#include <stdint.h>
 
 namespace pi3 {
+
+// Two fp32 values rounded to bf16 (round to nearest even) as one register.
+__device__ __forceinline__ uint32_t pack_float2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -338,6 +346,22 @@ __device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], const uint32_t
       "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
       :
       PI3_F8(0), PI3_F8(8), PI3_F8(16), PI3_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<96>(float (&d)[48], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      :
+      PI3_F8(0), PI3_F8(8), PI3_F8(16), PI3_F8(24), PI3_F8(32), PI3_F8(40)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 

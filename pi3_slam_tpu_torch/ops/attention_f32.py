@@ -5,10 +5,10 @@ of the attention wrappers (``packed_attention``, ``partial_attention``,
 Kernels over (B, T, H, D) q / k / v read through their strides (a
 unit-stride last dim, the other strides multiples of 4 elements, 16-byte
 aligned bases): the packed projection's q / k / v views need no copy, at
-every head dim that is a multiple of 64 (:func:`kernel_for`): head dim 64 (every
-fp32 launch of the main paths, the partial one too) on the TMA + ``wgmma``
-loop of ``csrc/bthd_attention_f32.cuh``, 128-256 in one pass and wider ones
-in column slices of O (:func:`slice_width`) on ``mma.sync``. See the
+every head dim that is a multiple of 64 (:func:`kernel_for`): head dim 64
+(every fp32 launch of the main paths, the partial one too) on the TMA +
+``wgmma`` tf32 loop of ``csrc/bthd_attention_f32.cuh``, every wider one on
+that loop's sliced variant, O in :func:`slices` of 128 columns. See the
 sources' headers for the designs (3xTF32 products on the tensor cores).
 """
 
@@ -21,29 +21,29 @@ import torch
 
 from ._build import check_launch, load_library
 
-MAX_ONE_PASS_HEAD_DIM = 256  # above it the sliced variant runs
+DV = 128  # columns of O a block of csrc/bthd_attention_f32.cuh's sliced variant owns
 
 
-def slice_width(d: int) -> int:
-    """The columns of O a block of the fp32 kernel owns at head dim d: all d
-    up to 256 (one pass), else the sliced variant's DV (128 where 128
-    divides d, else 64). Raises for d not a positive multiple of 64."""
+def _check_head_dim(d: int) -> None:
     if d <= 0 or d % 64:
         raise ValueError(f"the fp32 attention kernel takes head dims that are multiples of 64, "
                          f"got {d}")
-    if d <= MAX_ONE_PASS_HEAD_DIM:
-        return d
-    return 128 if d % 128 == 0 else 64
+
+
+def slices(d: int) -> int:
+    """The column slices of O (DV wide, the last one's columns past d unused)
+    a launch at head dim d takes: 1 at 64 (the unsliced loop) and up to 128,
+    ceil(d / DV) above. Raises for d not a positive multiple of 64."""
+    _check_head_dim(d)
+    return -(-d // DV)
 
 
 def kernel_for(d: int) -> str:
     """The kernel that runs the fp32 attention at head dim d (the same
-    choice as ``csrc/attention_f32.cu``'s switch). Raises for d not a
-    positive multiple of 64."""
-    width = slice_width(d)
-    if d == 64:
-        return "attention_f32_tma_kernel"  # csrc/bthd_attention_f32.cuh
-    return "attention_f32_kernel" if width == d else "attention_f32_wide_kernel"
+    choice as ``csrc/attention_f32.cu``'s ``pi3_attention_f32``). Raises for
+    d not a positive multiple of 64."""
+    _check_head_dim(d)
+    return "attention_f32_tma_kernel" if d == 64 else "attention_f32_wide_tma_kernel"
 
 
 @functools.cache
@@ -70,7 +70,7 @@ def _strides(x: torch.Tensor, name: str, device: torch.device, what: str) -> lis
 
 def _operands(q, k, v, what: str) -> list[int]:
     dev = q.device
-    slice_width(q.shape[-1])
+    _check_head_dim(q.shape[-1])
     return [s for x, name in ((q, "q"), (k, "k"), (v, "v")) for s in _strides(x, name, dev, what)]
 
 

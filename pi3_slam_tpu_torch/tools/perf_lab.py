@@ -42,7 +42,8 @@ shapes: the time of ``flash_attention``'s fp32 entry
 (``csrc/bthd_attention_f32.cuh``), of the same loop at group depth 4 and 8
 (``pi3_attention_f32_depth``)
 and of fp32 SDPA, and at the global shape (1, 64300, 16, 64) each one's
-relative L2 error against an fp64 attention.
+relative L2 error against an fp64 attention; the same for the entry and fp32
+SDPA at the wide shape (1, 8192, 4, 256), the loop's sliced variant.
 
 The JAX package's other probes (global, frame, block, packed,
 stages, mlp-sweep, forward, refine, kv-accuracy, tsdf) are not ported
@@ -348,7 +349,40 @@ def attention_f32_accuracy(depths=ATTN_DEPTHS) -> dict:
             res.setdefault(name, {})["ms"] = ms
             print(f"{line} {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
         del q, k, v, qt, kt, vt, ref, out
+    results[ATTN_WIDE_SHAPE] = attention_f32_wide_accuracy()
     return results
+
+
+# the sliced variant's accuracy shape (row 6 fp32 at D 256)
+ATTN_WIDE_SHAPE = (1, 8192, 4, 256)
+
+
+def attention_f32_wide_accuracy(shape=ATTN_WIDE_SHAPE) -> dict:
+    """``flash_attention``'s fp32 entry and fp32 SDPA at a head dim above 64
+    (inputs N(0, 1) from seed 0 on the card): {name: {"rel_l2", "ms"}}, the
+    relative L2 error against an fp64 attention; prints a line each. It
+    imports only ``flash_attention``, so it also measures another tree's
+    package loaded under it."""
+    import torch.nn.functional as F
+
+    from ..ops.flash_attention import flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
+    ref = _attention_f64(q, k, v)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    runs = {"flash_attention fp32 entry": lambda: flash_attention(q, k, v),
+            "fp32 SDPA": lambda: F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2)}
+    b, t, h, d = shape
+    flops = 4.0 * b * h * t * t * d
+    res = {}
+    for name, run in runs.items():
+        err = ((run().double() - ref).norm() / ref.norm()).item()
+        ms = _time_ms(run, MLP_ITERS)
+        res[name] = {"rel_l2": err, "ms": ms}
+        print(f"fp32 attention {str(shape):18s} {name:45s}: rel L2 vs fp64 {err:.3e}, {ms:.3f} ms, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    return res
 
 
 PROBES = {"sol": bench_sol, "mlp": bench_mlp, "tf32": bench_tf32}

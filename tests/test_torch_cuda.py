@@ -97,18 +97,23 @@ def _producer_norm(gen):
     )
 
 
+# (head dim, entry): the partial entry runs at head dim 64 only
+FP32_LOOP_ENTRIES = [(64, "flash_attention_partial")] + [
+    (d, entry) for d in (64, 128, 192, 256, 320, 512)
+    for entry in ("flash_attention", "attention_single_pass")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["flash_attention", "attention_single_pass",
-                                   "flash_attention_partial"])
+@pytest.mark.parametrize("d,entry", FP32_LOOP_ENTRIES)
 @pytest.mark.parametrize("tq,tk", [(301, 1), (301, 150), (130, 333)])
-def test_fp32_d64_loop_reads_no_row_past_the_lengths_and_repeats(gen, entry, tq, tk):
-    """The fp32 loop at head dim 64 (csrc/bthd_attention_f32.cuh) through the
-    (B, T, H, D) and partial entries: q, k and v cut from buffers with NaN
-    rows behind Tq and Tk (Tk 1, below and above Tq) give the bits of the
-    same call on finite copies, and a second call repeats them (no split-K,
-    no atomics)."""
+def test_fp32_d64_loop_reads_no_row_past_the_lengths_and_repeats(gen, d, entry, tq, tk):
+    """The fp32 loop (csrc/bthd_attention_f32.cuh) at head dim 64 and its
+    sliced variant above, through the (B, T, H, D) and partial entries: q, k
+    and v cut from buffers with NaN rows behind Tq and Tk (Tk 1, below and
+    above Tq) give the bits of the same call on finite copies, and a second
+    call repeats them (no split-K, no atomics)."""
     b, h, t = 2, 3, 400
-    q, k, v = (_randn32(gen, b, t, h, D) for _ in range(3))
+    q, k, v = (_randn32(gen, b, t, h, d) for _ in range(3))
     if entry == "flash_attention_partial":
         kn = k[:, :tk].square().sum(-1).amax(1).sqrt()
         run = lambda *qkv: flash_attention_partial(*qkv, kn)
@@ -749,12 +754,29 @@ def test_fp32_packed_attention_reads_no_row_past_true_t(gen, entry):
 @pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 512])
 @pytest.mark.parametrize("tq,tk", [(301, 301), (301, 150), (130, 333), (70, 1)])
 def test_fp32_bthd_attention_matches_plain(gen, d, tq, tk):
-    """Strided (B, T, H, D) views at fp32 head dims of every kernel (D 64 the
-    TMA + wgmma loop; one pass: 64-key tiles at D 128, 32 above; the sliced
-    variant above 256: DV 64 at 320, 128 at 384 and 512), Tk below and
-    above Tq, neither a multiple of a tile."""
+    """Strided (B, T, H, D) views at fp32 head dims of both kernels (D 64
+    the TMA + wgmma loop, wider ones its sliced variant: one slice of O at
+    128, a last slice partly past D at 192 and 320, 96-key tiles, Q's boxes
+    streamed beside K's), Tk below and above Tq, neither a multiple of a
+    tile."""
     q = _randn32(gen, 2, tq, 3, 3, d)[:, :, 0]
     kv = _randn32(gen, 2, tk, 2, 3, d)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    ref = blockwise_attention(q, k, v)
+    bf16 = flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    _assert_fp32(flash_attention(q, k, v), ref, bf16, **FP32)
+    _assert_fp32(attention_single_pass(q, k, v), ref, bf16, **FP32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [448, 576, 1152, 2048])
+def test_fp32_wide_head_dims_match_plain(gen, d):
+    """The sliced variant at wider head dims: a last slice of O partly past
+    D (448, 576), 9 and 16 slices (1152, 2048), up to 64 boxes of Q and K
+    through the ring every key tile; strided views, Tk > Tq, Tq past a
+    128-row block."""
+    q = _randn32(gen, 2, 130, 3, 2, d)[:, :, 0]
+    kv = _randn32(gen, 2, 333, 2, 2, d)
     k, v = kv[:, :, 0], kv[:, :, 1]
     ref = blockwise_attention(q, k, v)
     bf16 = flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())

@@ -7,8 +7,11 @@ the contract; the chip bounds of ``ops/compare.py`` against the kernel's
 arithmetic; the wrapper and the probe's CLI on a machine without a GPU.
 
 Tolerances: the plain version and the jnp contract do the same bf16
-products with fp32 accumulation and round at the same two places, so they
-agree exactly on the CPU. The Pallas kernel adds its key blocks in fp32 in
+products with fp32 accumulation and round at the same two places, but
+torch's CPU bf16 matmul and XLA's sum in orders that depend on the CPU (its
+avx512_bf16 path, where it has one): at most CONTRACT_ULP_SHARE of the
+elements differ from the contract, each by one bf16 ulp or, where a logit
+rounded the other way, by at most one bf16 ulp of max |out|. The Pallas kernel adds its key blocks in fp32 in
 another order and rounds the output to bf16: at most one bf16 ulp
 (2^-8 relative) apart, held to 2^-7 of max |out| and 1e-4 relative L2.
 """
@@ -100,6 +103,30 @@ def _bf16_inputs(rng, b, t, h, scale):
     return xb, torch.from_numpy(np.array(xb.astype(jnp.float32))).bfloat16()
 
 
+# Share of elements allowed off the contract (a machine with avx512_bf16 puts
+# 10 of 163,840 there, 6e-5: 8 one ulp off, 2 by two and three ulps of a
+# small element, where a logit's bf16 rounding went the other way and moved
+# one term of the sum by a bf16 ulp of that term).
+CONTRACT_ULP_SHARE = 1e-3
+
+
+def _bf16_ulps(a, b):
+    """Elementwise distance in bf16 ulps between bf16-valued fp32 arrays:
+    their patterns' top halves as ordered integers."""
+    def ordered(x):
+        hi = (np.ascontiguousarray(x, np.float32).view(np.int32) >> 16).astype(np.int64)
+        return np.where(hi < 0, -32768 - hi, hi)  # sign-magnitude to two's order
+    return np.abs(ordered(a) - ordered(b))
+
+
+def _near_contract(got, want):
+    """At most CONTRACT_ULP_SHARE of the elements off the contract, each by
+    one bf16 ulp or by at most one bf16 ulp of max |want| (2^-8 of it)."""
+    ulps = _bf16_ulps(got, want)
+    near = (ulps <= 1) | (np.abs(got - want) <= 2.0**-8 * np.abs(want).max())
+    return bool(near.all() and np.count_nonzero(ulps) <= CONTRACT_ULP_SHARE * ulps.size)
+
+
 def _f32(a):
     return np.asarray(jnp.asarray(a).astype(jnp.float32)) if not torch.is_tensor(a) else (
         a.float().numpy())
@@ -114,7 +141,10 @@ def test_plain_matches_the_pallas_dots_kernel_and_the_contract(rng, scale, T, H)
     before = launch_counts()
     got = _f32(dots_attention(xt, H))  # a CPU tensor: the plain version
     assert launch_counts() == before
-    np.testing.assert_array_equal(got, _f32(contract(xb, B, H, T)))
+    exact = _f32(contract(xb, B, H, T))
+    assert _near_contract(got, exact), np.bincount(_bf16_ulps(got, exact).ravel())
+    assert not _near_contract(np.zeros_like(got), exact)
+    assert not _near_contract(_f32(torch.from_numpy(1.1 * got).bfloat16()), exact)
     want = _f32(dots_only(xb, B, H, T))
     assert np.abs(got - want).max() <= 2.0**-7 * np.abs(want).max()
     assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)

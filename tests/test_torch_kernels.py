@@ -37,7 +37,7 @@ from pi3_slam_tpu.ops.rope import rope_tables as jax_rope_tables
 
 from pi3_slam_tpu_torch.ops import launch_counts
 from pi3_slam_tpu_torch.ops._build import is_fp32
-from pi3_slam_tpu_torch.ops.attention_f32 import _operands, kernel_for, slice_width
+from pi3_slam_tpu_torch.ops.attention_f32 import DV, _operands, kernel_for, slices
 from pi3_slam_tpu_torch.ops.block_mlp import block_mlp, block_mlp_plain
 from pi3_slam_tpu_torch.ops.flash_attention import blockwise_attention
 from pi3_slam_tpu_torch.ops.compare import ATTENTION, FP32, PRODUCER, block_mlp_bounds, compare
@@ -256,23 +256,12 @@ def _tf32_truncated(x):
     return (x.float().view(torch.int32) & -0x2000).view(torch.float32)
 
 
-def _mm_3xtf32(a, b):
-    """a @ b as the fp32 mma.sync attention kernels (head dims 128-512)
-    compute it: both operands split
-    into TF32 big + small parts, both rounded to nearest, big.big + big.small
-    + small.big, the products exact and summed (here in fp64), the result
-    fp32."""
-    ab, bb = _tf32(a), _tf32(b)
-    asm, bsm = _tf32(a.float() - ab), _tf32(b.float() - bb)
-    d = torch.float64
-    return (ab.to(d) @ bb.to(d) + ab.to(d) @ bsm.to(d) + asm.to(d) @ bb.to(d)).float()
-
-
 # k8 steps the fp32 GEMM sums in one wgmma accumulator (csrc/gemm_f32.cuh
-# kF32GroupK8); the same for the fp32 attention loop at head dim 64
-# (csrc/bthd_attention_f32.cuh kF32AttnGroupK8), and that loop's key tile
+# kF32GroupK8); the same for the fp32 attention loop
+# (csrc/bthd_attention_f32.cuh kF32AttnGroupK8), and that loop's key tile at
+# head dim 64 and in its sliced variant above (kF32WideNK)
 GEMM_GROUP_K8 = 4
-ATTN_GROUP_K8, ATTN_KEY_TILE = 4, 64
+ATTN_GROUP_K8, ATTN_KEY_TILE, WIDE_KEY_TILE = 4, 64, 96
 
 
 def _grouped_3xtf32(a, bt, group_k8, init=None):
@@ -302,19 +291,21 @@ def _gemm_3xtf32(a, w):
     return _grouped_3xtf32(a, w, GEMM_GROUP_K8)
 
 
-def _loop_attention_3xtf32(q, k, v, scale):
-    """The fp32 attention loop at head dim 64 (csrc/bthd_attention_f32.cuh)
-    on (B, H, T, 64) q / k / v: per tile of ATTN_KEY_TILE keys, S = q.k^T in
-    the loop's grouped 3xTF32 (:func:`_grouped_3xtf32`, groups of
-    ATTN_GROUP_K8 k8 steps added in fp32), scaled; the base-2 online softmax
-    in fp32 with an exact running max; O_tile = P V the same way (P's big
-    part its raw fp32 pattern), each group added in fp32 to O rescaled;
-    O / l at the end."""
+def _loop_attention_3xtf32(q, k, v, scale, key_tile=ATTN_KEY_TILE):
+    """The fp32 attention loop (csrc/bthd_attention_f32.cuh) on (B, H, T, D)
+    q / k / v: per tile of key_tile keys (ATTN_KEY_TILE at head dim 64,
+    WIDE_KEY_TILE in the sliced variant), S = q.k^T over all of D in the
+    loop's grouped 3xTF32 (:func:`_grouped_3xtf32`: groups of ATTN_GROUP_K8
+    k8 steps, one 32-column box of D, added in fp32), scaled; the base-2
+    online softmax in fp32 with an exact running max; O_tile = P V the same
+    way (P's big part its raw fp32 pattern; a group is 32 keys), each group
+    added in fp32 to O rescaled; O / l at the end. A column slice of O
+    computes its columns exactly so, so the slices are not modelled."""
     m = torch.full((*q.shape[:-1], 1), -torch.inf)
     l = torch.zeros_like(m)
-    o = torch.zeros(q.shape)
-    for k0 in range(0, k.shape[-2], ATTN_KEY_TILE):
-        keys = slice(k0, k0 + ATTN_KEY_TILE)
+    o = torch.zeros((*q.shape[:-1], v.shape[-1]))
+    for k0 in range(0, k.shape[-2], key_tile):
+        keys = slice(k0, k0 + key_tile)
         s = _grouped_3xtf32(q, k[..., keys, :], ATTN_GROUP_K8) * np.float32(scale)
         mx = torch.maximum(m, s.amax(-1, keepdim=True))
         a, p = torch.exp2(m - mx), torch.exp2(s - mx)
@@ -337,17 +328,13 @@ def _attention_3xtf32(qkv, h, q_scale=1.0):
 
 def _bthd_attention_3xtf32(q, k, v):
     """The fp32 (B, T, H, D) attention's arithmetic, softmax(q.k^T /
-    sqrt(D)) v: at head dim 64 the TMA + wgmma loop's
-    (:func:`_loop_attention_3xtf32`); at the wider ones the mma.sync
-    kernels' (one pass or in column slices of O: the logits are the same
-    sums), 3xTF32 products with both parts rounded, fp32 softmax and P."""
+    sqrt(D)) v: the TMA + wgmma loop's (:func:`_loop_attention_3xtf32`),
+    in 64-key tiles at head dim 64 and the sliced variant's 96-key tiles
+    above."""
     q, k, v = (x.transpose(1, 2) for x in (q, k, v))
     scale = q.shape[-1]**-0.5 * np.log2(np.e)
-    if q.shape[-1] == D:
-        return _loop_attention_3xtf32(q, k, v, scale).transpose(1, 2)
-    s = _mm_3xtf32(q, k.transpose(-1, -2)) * scale
-    p = torch.exp2(s - s.amax(-1, keepdim=True))
-    return (_mm_3xtf32(p, v) / p.sum(-1, keepdim=True)).transpose(1, 2)
+    tile = ATTN_KEY_TILE if q.shape[-1] == D else WIDE_KEY_TILE
+    return _loop_attention_3xtf32(q, k, v, scale, tile).transpose(1, 2)
 
 
 def _block_mlp_3xtf32(x, nw, nb, w1, b1, w2, b2, ls):
@@ -369,7 +356,8 @@ def _mlp_3xtf32(x, w1, b1, w2, b2):
                                   "producer_fp32", "attention_fp32", "attention_q_scale_fp32",
                                   "block_mlp_fp32", "block_mlp_k4096_fp32", "mlp_k4096_fp32",
                                   "attention_d320_fp32", "attention_d512_fp32",
-                                  "attention_d64_fp32"])
+                                  "attention_d64_fp32", "attention_d128_fp32",
+                                  "attention_d256_fp32"])
 def test_chip_bounds_pass_kernel_arithmetic_and_reject_wrong_outputs(rng, case):
     """The bounds chip_smoke.py and the GPU tests hold the kernels to accept
     the kernels' bf16 arithmetic (simulated here) and fail an all-zero
@@ -435,9 +423,11 @@ def _check_fp32_bounds(rng, case):
                                       **{k: v.double() for k, v in norm.items()})[..., :256].float()
         bf = qkv_rope_producer_plain(qkv.to(bf16), cos, sin, 4, 300, **norm)[..., :256]
         bounds = FP32
-    elif case in ("attention_d64", "attention_d320", "attention_d512"):
-        # the TMA + wgmma loop (D 64, keys past a 64-key tile), the sliced
-        # variant's head dims (DV 64 at 320, 128 at 512)
+    elif case in ("attention_d64", "attention_d128", "attention_d256", "attention_d320",
+                  "attention_d512"):
+        # the TMA + wgmma loop (D 64, keys past a 64-key tile), its sliced
+        # variant (keys past a 96-key tile; one slice of O at 128, two at
+        # 256, three at 320, the last half past D, four at 512)
         d = int(case.split("_d")[1])
         q, k, v = (torch.from_numpy(rng.standard_normal((1, 150, 2, d)).astype(np.float32))
                    for _ in range(3))
@@ -560,35 +550,34 @@ def test_fp32_operands_take_the_fp32_entries_and_fp16_is_refused():
         _operands(odd, odd, odd, "attention")
 
 
-# the kernel each fp32 head dim runs (csrc/attention_f32.cu's switch): D 64
-# the TMA + wgmma loop of csrc/bthd_attention_f32.cuh, 128-256 the one-pass
-# mma.sync kernel, wider ones its sliced variant
-FP32_KERNEL_BY_D = {64: "attention_f32_tma_kernel", 128: "attention_f32_kernel",
-                    192: "attention_f32_kernel", 256: "attention_f32_kernel"}
+# the kernel each fp32 head dim runs (csrc/attention_f32.cu's pi3_attention_f32):
+# D 64 the TMA + wgmma loop of csrc/bthd_attention_f32.cuh, every wider one
+# its sliced variant
+FP32_KERNEL_BY_D = {64: "attention_f32_tma_kernel"}
 
 
-@pytest.mark.parametrize("d,width", [(64, 64), (128, 128), (192, 192), (256, 256), (320, 64),
-                                     (384, 128), (448, 64), (512, 128), (1152, 128),
+@pytest.mark.parametrize("d,width", [(64, 64), (128, 128), (192, 128), (256, 128), (320, 128),
+                                     (384, 128), (448, 128), (512, 128), (1152, 128),
                                      (0, None), (96, None), (-64, None)])
 def test_fp32_attention_takes_every_multiple_of_64(d, width):
     """The fp32 attention's head-dim check and routing: every positive
-    multiple of 64 is taken, D 64 by the TMA + wgmma loop, 128-256 in one
-    pass (O of the whole head a block), wider ones by the sliced variant
-    with DV 128 where 128 divides D, else 64 (the same choice as
-    csrc/attention_f32.cu's switch); others are refused before any
-    launch."""
+    multiple of 64 is taken, D 64 by the TMA + wgmma loop (O of the whole
+    head a block), wider ones by its sliced variant in slices of width DV
+    (csrc/bthd_attention_f32.cuh kF32WideDV), the last one's columns past D
+    unused; others are refused before any launch."""
     if width is None:
         with pytest.raises(ValueError, match="multiples of 64"):
-            slice_width(d)
+            slices(d)
         with pytest.raises(ValueError, match="multiples of 64"):
             kernel_for(d)
         t = torch.zeros(1, 9, 1, max(d, 1))
         with pytest.raises(ValueError):
             _operands(t, t, t, "attention")
-    else:
-        assert slice_width(d) == width
-        assert d % width == 0 and width <= max(128, min(d, 256))
-        assert kernel_for(d) == FP32_KERNEL_BY_D.get(d, "attention_f32_wide_kernel")
+        return
+    assert kernel_for(d) == FP32_KERNEL_BY_D.get(d, "attention_f32_wide_tma_kernel")
+    n = slices(d)
+    assert (n - 1) * width < d <= n * width
+    assert width == (d if d == D else DV)
 
 
 def _vt_column(key):
@@ -604,7 +593,8 @@ def test_transposed_v_takes_p_in_the_a_register_order(rng):
     tf32 A registers a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g +
     8, t + 4) of k8 step j) times that V^T is P V; each 64-row box of V^T is
     written once per element, 16-byte chunk c of row d at chunk c ^ (d % 8)
-    (the 128-byte swizzle the descriptor reads)."""
+    (the 128-byte swizzle the descriptor reads), as is the sliced variant's
+    V^T of 128 D-rows a stage."""
     n, d = 64, 64
     v = rng.standard_normal((n, d))
     p = rng.standard_normal((16, n))  # a warp's 16 rows of P
@@ -625,10 +615,12 @@ def test_transposed_v_takes_p_in_the_a_register_order(rng):
                 a[g, 8 * j + t], a[g + 8, 8 * j + t] = a0, a1
                 a[g, 8 * j + t + 4], a[g + 8, 8 * j + t + 4] = a2, a3
     np.testing.assert_allclose(a @ vt.T, p @ v, rtol=1e-12, atol=1e-12)
-    # the split warps' offsets (float index in a box of 64 rows x 32 columns)
-    offsets = {(dd * 32 + ((((col >> 2) ^ (dd & 7)) << 2) | (col & 3)))
-               for dd in range(d) for col in (_vt_column(key) & 31 for key in range(32))}
-    assert offsets == set(range(d * 32))
+    # the split warps' offsets (float index in a box of 32 columns: 64 rows
+    # at head dim 64, the sliced variant's 128 D-rows of a 32-key V stage)
+    for rows in (d, 2 * d):
+        offsets = {(dd * 32 + ((((col >> 2) ^ (dd & 7)) << 2) | (col & 3)))
+                   for dd in range(rows) for col in (_vt_column(key) & 31 for key in range(32))}
+        assert offsets == set(range(rows * 32))
 
 
 def test_input_scaled_bound_is_flagged():
