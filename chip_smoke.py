@@ -21,8 +21,11 @@ Phases, each of which raises (exit code 1) on failure:
    flash_attention_partial with NaN keys past Tk, attention_single_pass with
    NaN rows past Tq, block_mlp and mlp with NaN rows past M, each
    bit-identical to the output of finite rows (and the MLP entries to a
-   second call). Beside block_mlp and mlp, the two bare bf16 cuBLAS products
-   of the same shapes (F.linear without bias) as a products yardstick. Head
+   second call). Head dims 256 and 192 at (1, 8192, 4, D) and (100, 643,
+   4, D) hold the loop's 80-key tiles (at D 256 keys past Tk 4100 NaN,
+   bit-identical, and a second call bit-identical to the first). Beside
+   block_mlp and mlp, the two bare bf16 cuBLAS products of the same shapes
+   (F.linear without bias) as a products yardstick. Head
    dims 320, 384 and 512 at (1, 4100, 2, D) and (100, 643, 2, D), and 1152
    at (1, 4100, 2, D), hold the wide variant of the (B, T, H, D) loop that
    flash_attention and attention_single_pass run above head dim 256 (keys
@@ -655,12 +658,26 @@ def phase_kernels() -> dict:
     del bufs
     q, k, v = randn(N_FRAMES, FRAME_T, 3, 8, 128).unbind(2)
     bthd("attention_single_pass", f"({N_FRAMES}, {FRAME_T}, 8, 128) views", q, k, v, 10, 3)
-    # head dims 192 and 256: the TMA + wgmma loop at its 64-key tiles
-    q, k, v = randn(1, 8192, 4, 256), randn(1, 8192, 4, 256), randn(1, 8192, 4, 256)
-    bthd("flash_attention", "(1, 8192, 4, 256)", q, k, v, 10, 3)
-    q, k, v = randn(N_FRAMES, FRAME_T, 4, 192), randn(N_FRAMES, FRAME_T, 4, 192), randn(
-        N_FRAMES, FRAME_T, 4, 192)
-    bthd("attention_single_pass", f"({N_FRAMES}, {FRAME_T}, 4, 192)", q, k, v, 10, 3)
+    # head dims 256 and 192: the TMA + wgmma loop at its 80-key tiles, K and V
+    # on mbarriers of their own; 8192 = 102 * 80 + 32 and 643 = 8 * 80 + 3
+    # end in a partial tile. At D 256 a second call repeats the output bit for
+    # bit, and keys past Tk 4100 (51 tiles and 20 keys) NaN leave it
+    # bit-identical
+    for d in (256, 192):
+        q, k, v = randn(1, 8192, 4, d), randn(1, 8192, 4, d), randn(1, 8192, 4, d)
+        bthd("flash_attention", f"(1, 8192, 4, {d})", q, k, v, 10, 3)
+        if d == 256:
+            same_bits("flash_attention", "(1, 8192, 4, 256)", flash_attention(q, k, v),
+                      flash_attention(q, k, v), "a second call")
+            tk = 4100
+            clean = flash_attention(q, k[:, :tk].clone(), v[:, :tk].clone())
+            nan_rows(k, tk)
+            nan_rows(v, tk)
+            same_bits("flash_attention", f"(1, 8192, 4, 256) x {tk}, NaN keys past Tk",
+                      flash_attention(q, k[:, :tk], v[:, :tk]), clean)
+        q, k, v = randn(N_FRAMES, FRAME_T, 4, d), randn(N_FRAMES, FRAME_T, 4, d), randn(
+            N_FRAMES, FRAME_T, 4, d)
+        bthd("attention_single_pass", f"({N_FRAMES}, {FRAME_T}, 4, {d})", q, k, v, 10, 3)
     # head dims above 256: the loop's wide variant (no configuration uses
     # one; the wrappers take every multiple of 64), one slice of O at D 320,
     # two at 384 and 512, all of Q in shared memory; keys past Tk NaN leave

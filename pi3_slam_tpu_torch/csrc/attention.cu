@@ -23,9 +23,12 @@
 // sum.
 //
 // Head dims 64, 128, 192 and 256 run bthd_attention.cuh's TMA + wgmma loop
-// (its header has the design and the tiles of each head dim). Bound on the
+// (its header has the design, the tiles of each head dim and their times:
+// 128-key tiles on a ring of three stages at D 64 and 128; at D 192 and 256
+// 80-key tiles on two stages, K and V each on mbarriers of their own, so
+// that a stage's refill need not wait for the P V of its tile). Bound on the
 // H100: FLOPs, 4 * Tq * Tk * D per (batch, head): 16.9 TFLOP at (1, 64300,
-// 16, 64), 17.1 ms at 989 TFLOP/s.
+// 16, 64), 17.1 ms at 989 TFLOP/s; 0.278 ms at (1, 8192, 4, 256).
 //
 // Any wider multiple of 64 (320, 384, ...; no configuration of either
 // package uses one) runs the same loop's wide variant (the end of

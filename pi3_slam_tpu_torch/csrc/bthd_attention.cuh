@@ -15,7 +15,8 @@
 //   an absent key. 128-byte swizzle, 64-column boxes: a D-wide tile is D/64
 //   boxes, each rows x 128 bytes, 1024-byte aligned. One producer thread
 //   issues Q once per block and K, V per key tile into a ring of stages,
-//   each with a full and an empty mbarrier.
+//   each with a full and an empty mbarrier (at D 192 and 256 one pair for
+//   K and one for V, the tile table below).
 // * Products. Two consumer warpgroups of 64 query rows each (a block 128).
 //   S = Q K^T is wgmma m64nNk16 with both operands in shared memory (K rows
 //   the K-major B operand), D/16 k-steps: 32 bytes apart in a box, a box
@@ -30,15 +31,29 @@
 // Tiles by head dim, to fit 240 consumer registers (O D/2, S N/2 and P N/4
 // live at once) and 227 KB of shared memory (Q 256 D bytes, each stage 4 N D):
 //
-//   D    key tile N  stages  O + S + P regs  shared memory
-//   64   128         3       32 + 64 + 32    114,688 + barriers
-//   128  128         3       64 + 64 + 32    229,376
-//   192  64          3       96 + 32 + 16    196,608
-//   256  64          2       128 + 32 + 16   196,608
+//   D    key tile N  stages  K / V barriers  O + S + P regs  shared memory
+//   64   128         3       shared          32 + 64 + 32    114,688 + barriers
+//   128  128         3       shared          64 + 64 + 32    229,376
+//   192  80          2       split           96 + 40 + 20    172,032
+//   256  80          2       split           128 + 40 + 20   229,376
 //
-// The stages were chosen on an H100 by timing builds with other tiles: at D
-// 128 and 192 three stages beat two; at D 64 a fourth gained nothing; D 256
-// has no room for a third.
+// Every 128-row block reads all of K and V from L2, 128 flops a byte at any
+// D. With one barrier a stage (K and V of a tile) is freed only once both
+// warpgroups have finished P V on it, so its refill has less than a turn to
+// land; at D 192 and 256 a tile is 48-80 KB. Split: K and V of a stage on
+// full / empty barriers of their own (FlashAttention-3's pipeline_k and
+// pipeline_v); the producer issues K_{j+1} before V_j, K_j is refilled once
+// S_j has been read and V_j once P_j V_j has, so K has two turns to land and
+// V more than one. 80-key tiles (FlashAttention-3's at D 256) issue a fifth
+// fewer wgmma for S than 64-key ones and fill the 227 KB with two stages.
+//
+// The tiles were chosen on an H100 by timing builds with other tiles: at D
+// 128 three stages beat two, at D 64 a fourth gained nothing. At D 256, on
+// one NVIDIA H100 80GB HBM3, 700.00 W at (1, 8192, 4, 256) (perf_lab tiles):
+// 64-key tiles on shared barriers 0.624-0.655 ms, split 0.412-0.419, 80-key
+// tiles shared 0.551-0.557, split 0.378-0.379 (SDPA 0.389-0.395); at D 192
+// 64-key tiles on three shared stages 0.322-0.338 ms, split 0.332-0.355, 80
+// split on two 0.302-0.305 (SDPA 0.299-0.305).
 //
 // Bound on the H100: the two products, 4 Tq Tk D flops per (batch, head), at
 // 989 TFLOP/s; at D 64 the exp2 (one per logit, ~3.9e12/s) weighs as much.
@@ -51,10 +66,13 @@ namespace pi3 {
 constexpr int kBthdBlockM = 128;  // query rows per block: two consumer warpgroups of 64
 constexpr int kBthdThreads = 384;  // producer warpgroup + two consumer warpgroups
 
-// Key tile and ring stages by head dim (the table above).
-template <int N, int S>
+// Key tile, ring stages and barriers by head dim (the table above).
+// kSplitKv: K and V of a stage on full / empty mbarriers of their own, so
+// that K_j is refilled once S_j has read it and V_j once P_j V_j has.
+template <int N, int S, bool kSplitKv = false>
 struct TileShape {
   static constexpr int kBlockN = N, kStages = S;
+  static constexpr bool kSplit = kSplitKv;
 };
 template <int D>
 struct BthdTiles;
@@ -63,9 +81,9 @@ struct BthdTiles<64> : TileShape<128, 3> {};
 template <>
 struct BthdTiles<128> : TileShape<128, 3> {};
 template <>
-struct BthdTiles<192> : TileShape<64, 3> {};
+struct BthdTiles<192> : TileShape<80, 2, true> {};
 template <>
-struct BthdTiles<256> : TileShape<64, 2> {};
+struct BthdTiles<256> : TileShape<80, 2, true> {};
 
 template <int D>
 struct __align__(1024) BthdSmem {  // 128-byte swizzle wants 1024-byte aligned tiles
@@ -75,8 +93,10 @@ struct __align__(1024) BthdSmem {  // 128-byte swizzle wants 1024-byte aligned t
   __nv_bfloat16 k[S][N * D];         // box c at N * 64 * c
   __nv_bfloat16 v[S][N * D];
   uint64_t q_full;
-  uint64_t full[S];
+  uint64_t full[S];   // K and V of the stage (K alone where split)
   uint64_t empty[S];
+  uint64_t full_v[BthdTiles<D>::kSplit ? S : 1];  // V alone where split
+  uint64_t empty_v[BthdTiles<D>::kSplit ? S : 1];
 };
 
 template <int D>
@@ -139,6 +159,7 @@ bthd_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                       int H, float scale_log2) {
   constexpr int N = BthdTiles<D>::kBlockN;
   constexpr int S = BthdTiles<D>::kStages;
+  constexpr bool kSplit = BthdTiles<D>::kSplit;
   extern __shared__ __align__(128) uint8_t smem_raw[];  // aligned to 1024 below
   const uint32_t raw = smem_u32(smem_raw);
   BthdSmem<D>& sm = *reinterpret_cast<BthdSmem<D>*>(smem_raw + (((raw + 1023u) & ~1023u) - raw));
@@ -155,6 +176,10 @@ bthd_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int s = 0; s < S; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+      if constexpr (kSplit) {
+        mbar_init(&sm.full_v[s], 1);
+        mbar_init(&sm.empty_v[s], 8);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -167,14 +192,33 @@ bthd_attention_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int c = 0; c < D / 64; ++c)
         tma_load(sm.q + c * kBthdBlockM * 64, &q_map, &sm.q_full, 64 * c, h, q0, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % S;
-        mbar_wait(&sm.empty[s], ((j / S) & 1) ^ 1);  // the first round passes
-        mbar_expect_tx(&sm.full[s], 2 * N * D * 2);
+      if constexpr (kSplit) {
+        // in the order the consumers take them: K_0, then K_{j+1} before V_j
+        // (turn j issues S_j with P_{j-1} V_{j-1})
+        auto load = [&](const CUtensorMap* map, __nv_bfloat16 (*dst)[N * D], uint64_t* full,
+                        uint64_t* empty, int j) {
+          const int s = j % S;
+          mbar_wait(&empty[s], ((j / S) & 1) ^ 1);  // the first round passes
+          mbar_expect_tx(&full[s], N * D * 2);
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
-          tma_load(sm.k[s] + c * N * 64, &k_map, &sm.full[s], 64 * c, h, j * N, b);
-          tma_load(sm.v[s] + c * N * 64, &v_map, &sm.full[s], 64 * c, h, j * N, b);
+          for (int c = 0; c < D / 64; ++c)
+            tma_load(dst[s] + c * N * 64, map, &full[s], 64 * c, h, j * N, b);
+        };
+        load(&k_map, sm.k, sm.full, sm.empty, 0);
+        for (int j = 0; j < n_tiles; ++j) {
+          if (j + 1 < n_tiles) load(&k_map, sm.k, sm.full, sm.empty, j + 1);
+          load(&v_map, sm.v, sm.full_v, sm.empty_v, j);
+        }
+      } else {
+        for (int j = 0; j < n_tiles; ++j) {
+          const int s = j % S;
+          mbar_wait(&sm.empty[s], ((j / S) & 1) ^ 1);  // the first round passes
+          mbar_expect_tx(&sm.full[s], 2 * N * D * 2);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load(sm.k[s] + c * N * 64, &k_map, &sm.full[s], 64 * c, h, j * N, b);
+            tma_load(sm.v[s] + c * N * 64, &v_map, &sm.full[s], 64 * c, h, j * N, b);
+          }
         }
       }
     }
@@ -218,6 +262,8 @@ bthd_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   bar_arrive(other_bar);
   wgmma_wait<0>();
   fence_regs(acc);
+  if constexpr (kSplit)
+    if (lane == 0) mbar_arrive(&sm.empty[0]);  // K_0 read
   if constexpr (kMode == kProductsOnly) {
     pack_p<N>(p, acc);
   } else {
@@ -229,6 +275,7 @@ bthd_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     const int s = j % S;
     const int prev = (j - 1) % S;
     mbar_wait(&sm.full[s], (j / S) & 1);
+    if constexpr (kSplit) mbar_wait(&sm.full_v[prev], ((j - 1) / S) & 1);
     bar_sync(my_bar);
     fence_regs(acc);
     fence_regs(o);
@@ -239,16 +286,20 @@ bthd_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     bar_arrive(other_bar);
     wgmma_wait<1>();  // S_j done; P_{j-1} V_{j-1} may still run
     fence_regs(acc);
+    if constexpr (kSplit)
+      if (lane == 0) mbar_arrive(&sm.empty[s]);  // K_j read
     if constexpr (kMode != kProductsOnly) softmax_tile<N>(r, acc, j * N, Tk, t4, scale_log2);
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(p);
-    if (lane == 0) mbar_arrive(&sm.empty[prev]);  // K and V of tile j-1 consumed
+    if (lane == 0)  // V (and K, where not split) of tile j-1 consumed
+      mbar_arrive(kSplit ? &sm.empty_v[prev] : &sm.empty[prev]);
     if constexpr (kMode == kProductsOnly) pack_p<N>(p, acc);
     else finish_tile<N, D>(r, o, p, acc);
   }
 
   const int last = (n_tiles - 1) % S;
+  if constexpr (kSplit) mbar_wait(&sm.full_v[last], ((n_tiles - 1) / S) & 1);
   bar_sync(my_bar);
   fence_regs(o);
   fence_regs(p);
@@ -257,7 +308,7 @@ bthd_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   if (c == 0) bar_arrive(other_bar);  // warpgroup 1's last turn has no successor
   wgmma_wait<0>();
   fence_regs(o);
-  if (lane == 0) mbar_arrive(&sm.empty[last]);
+  if (lane == 0) mbar_arrive(kSplit ? &sm.empty_v[last] : &sm.empty[last]);
 
   float l0 = r.l0, l1 = r.l1;
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);

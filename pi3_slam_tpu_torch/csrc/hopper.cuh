@@ -198,6 +198,22 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a, ui
 }
 
 template <>
+__device__ __forceinline__ void wgmma_ss<80>(float (&d)[40], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      :
+      PI3_F8(0), PI3_F8(8), PI3_F8(16), PI3_F8(24), PI3_F8(32)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                             int accumulate) {
   asm volatile(

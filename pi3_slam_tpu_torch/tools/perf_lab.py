@@ -4,6 +4,7 @@ and ``bench_mlp`` from the JAX package's ``tools/perf_lab.py``.
     python -m pi3_slam_tpu_torch.tools.perf_lab sol
     python -m pi3_slam_tpu_torch.tools.perf_lab mlp
     python -m pi3_slam_tpu_torch.tools.perf_lab tf32
+    python -m pi3_slam_tpu_torch.tools.perf_lab tiles
 
 Times, with CUDA events (one warm-up call, then the mean of ``ITERS`` calls),
 and prints ms and TFLOP/s of:
@@ -44,6 +45,13 @@ shapes: the time of ``flash_attention``'s fp32 entry
 and of fp32 SDPA, and at the global shape (1, 64300, 16, 64) each one's
 relative L2 error against an fp64 attention; the same for the entry and fp32
 SDPA at the wide shape (1, 8192, 4, 256), the loop's sliced variant.
+
+``tiles`` builds ``csrc/attention.cu`` once for each entry of TILE_TRIES
+(the tile table's key tile, ring stages and K / V barriers at head dims 256
+and 192, each build with its own copy of the sources under ``_build/``),
+prints each build's ptxas lines for the loop, holds each to
+``blockwise_attention`` and times it beside the shipped build and SDPA at
+(1, 8192, 4, D) and (100, 643, 4, D).
 
 The JAX package's other probes (global, frame, block, packed,
 stages, mlp-sweep, forward, refine, kv-accuracy, tsdf) are not ported
@@ -385,7 +393,122 @@ def attention_f32_wide_accuracy(shape=ATTN_WIDE_SHAPE) -> dict:
     return res
 
 
-PROBES = {"sol": bench_sol, "mlp": bench_mlp, "tf32": bench_tf32}
+# the (B, T, H, D) loop's tile table (csrc/bthd_attention.cuh, BthdTiles<D>):
+# the entries tried at each head dim, and the shapes they are timed at
+TILE_TRIES = {
+    256: ("TileShape<64, 2>", "TileShape<64, 2, true>", "TileShape<80, 2>",
+          "TileShape<80, 2, true>"),
+    192: ("TileShape<64, 3>", "TileShape<64, 3, true>", "TileShape<80, 2, true>"),
+}
+TILE_SHAPES = ((1, 8192, 4), (100, 643, 4))
+TILE_ITERS = 20
+
+
+def _tile_build(d: int, entry: str):
+    """``csrc/attention.cu`` built with the tile table's entry for head dim d
+    replaced by ``entry`` (its own copy of the sources under ``_build/``);
+    returns (the loaded library, the ptxas lines of its softmax kernel at d)."""
+    import ctypes
+    import hashlib
+    import re
+    import subprocess
+
+    from ..ops._build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc
+
+    sources = {p.name: p.read_text() for p in [CSRC / "attention.cu", *sorted(CSRC.glob("*.cuh"))]}
+    sources["bthd_attention.cuh"], n = re.subn(
+        rf"struct BthdTiles<{d}> : TileShape<[^>]*> {{}};", f"struct BthdTiles<{d}> : {entry} {{}};",
+        sources["bthd_attention.cuh"])
+    if n != 1:
+        raise RuntimeError(f"no tile table entry for head dim {d} in bthd_attention.cuh")
+    key = hashlib.sha256(" ".join([*NVCC_FLAGS, *sources.values()]).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"tiles-{key}"
+    so = out / "attention.so"
+    if not so.exists():
+        out.mkdir(parents=True, exist_ok=True)
+        for name, text in sources.items():
+            (out / name).write_text(text)
+        tmp = out / "attention.so.tmp"
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(out / "attention.cu")],
+                              capture_output=True, text=True)
+        (out / "ptxas.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {entry} at head dim {d}:\n{proc.stderr[-4000:]}")
+        tmp.replace(so)  # a cut build leaves no library behind
+    log = (out / "ptxas.log").read_text().splitlines()
+    kernel = f"bthd_attention_kernelILi{d}ELi0E"
+    at = [i for i, line in enumerate(log) if "entry function" in line and kernel in line]
+    ptxas = [line.strip() for i in at for line in log[i + 1:i + 4]
+             if "registers" in line or "spill" in line]
+    fn = ctypes.CDLL(str(so)).pi3_attention
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn, ptxas
+
+
+def bench_tiles() -> dict:
+    """Each tile table entry of TILE_TRIES against the shipped build, at
+    TILE_SHAPES (inputs N(0, 1) in bf16 from seed 0 on the card): each held
+    to ``blockwise_attention`` under ``ops/compare.ATTENTION``, then timed in
+    turns (the shipped ``flash_attention``, each try, SDPA, and again in the
+    reverse order); returns {d: {shape: {name: [ms, ms]}}} and prints a line
+    each with its TFLOP/s."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the tile probe needs an NVIDIA GPU")
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.nn.functional as F
+
+    from ..ops._build import check_launch
+    from ..ops.compare import ATTENTION, compare
+    from ..ops.flash_attention import blockwise_attention, flash_attention
+
+    tries = [(d, entry) for d, entries in TILE_TRIES.items() for entry in entries]
+    with ThreadPoolExecutor(len(tries)) as pool:
+        built = dict(zip(tries, pool.map(lambda t: _tile_build(*t), tries)))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    results = {}
+    for d, entries in TILE_TRIES.items():
+        for entry in entries:
+            print(f"D {d} {entry:24s} ptxas: {' | '.join(built[d, entry][1])}", flush=True)
+        for b, t, h in TILE_SHAPES:
+            q, k, v = (torch.randn(b, t, h, d, generator=g, device="cuda").to(torch.bfloat16)
+                       for _ in range(3))
+            ref = blockwise_attention(q, k, v)
+            out = torch.empty_like(q)
+            strides = [s for x in (q, k, v) for s in x.stride()[:3]]
+
+            def launch(fn):
+                check_launch(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, t,
+                                h, d, *strides, float(d**-0.5 * 1.4426950408889634),
+                                torch.cuda.current_device(), stream), "tile probe")
+                return out
+
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            runs = {"shipped flash_attention": lambda: flash_attention(q, k, v)}
+            runs.update({entry: lambda fn=built[d, entry][0]: launch(fn) for entry in entries})
+            runs["SDPA"] = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+            for name, run in runs.items():
+                if name != "SDPA":
+                    c = compare(run(), ref, **ATTENTION)
+                    if not c.ok:
+                        raise RuntimeError(f"D {d} {name} at {(b, t, h)}: {c}")
+            times = {name: [] for name in runs}
+            for order in (list(runs), list(runs)[::-1]):
+                for name in order:
+                    times[name].append(_time_ms(runs[name], TILE_ITERS))
+            flops = 4.0 * b * h * t * t * d
+            shape = str((b, t, h, d))
+            for name, ms in times.items():
+                print(f"D {d} {shape:20s} {name:24s} " + ", ".join(f"{x:.3f}" for x in ms)
+                      + f" ms, {flops / min(ms) / 1e9:.1f} TFLOP/s", flush=True)
+            results.setdefault(d, {})[shape] = times
+            del q, k, v, ref, out, qt, kt, vt
+    return results
+
+
+PROBES = {"sol": bench_sol, "mlp": bench_mlp, "tf32": bench_tf32, "tiles": bench_tiles}
 
 
 def probe(argv=None) -> dict:

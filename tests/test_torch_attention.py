@@ -15,6 +15,9 @@ fp32 on both sides, different summation order: atol 2e-5 on outputs of order
 1 (the Pallas tests' own tolerance), 3e-5 where the Pallas test allowed it.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -193,3 +196,62 @@ def test_chip_bounds_pass_kernel_arithmetic_and_reject_wrong_outputs(rng, d):
     assert c.ok and c.rejects_wrong, c
     assert not compare(torch.zeros_like(ref), ref, **ATTENTION).ok
     assert not compare(1.1 * ref.float(), ref, **ATTENTION).ok
+
+
+def _key_tile(d):
+    """The key tile of the (B, T, H, D) loop at head dim d: the N of
+    ``BthdTiles<d>`` in csrc/bthd_attention.cuh's tile table."""
+    header = Path(__file__).resolve().parent.parent / "pi3_slam_tpu_torch/csrc/bthd_attention.cuh"
+    found = re.search(rf"struct BthdTiles<{d}> : TileShape<(\d+),", header.read_text())
+    return int(found.group(1))
+
+
+def _loop_bf16(q, k, v, n):
+    """The loop's arithmetic on the CPU, one n-key tile at a time: fp32
+    logits (the last tile partial: keys past Tk take no part), a base-2
+    online softmax against the exact running max, P rounded to bf16 per tile
+    for P V while the row sums take it in fp32, O and the sums rescaled by
+    2^(scale (m_old - m_new)) in fp32, normalised at the end, bf16 out."""
+    d = q.shape[-1]
+    scale = d**-0.5 * np.log2(np.e)
+    q32, k32, v32 = (a.float().transpose(1, 2) for a in (q, k, v))
+    m = torch.full(q32.shape[:-1], -torch.inf)
+    l = torch.zeros(q32.shape[:-1])
+    o = torch.zeros(q32.shape)
+    for k0 in range(0, k32.shape[2], n):
+        s = q32 @ k32[:, :, k0:k0 + n].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1))
+        a = torch.exp2((m - m_new) * scale)
+        p = torch.exp2(s * scale - (m_new * scale)[..., None])
+        l = l * a + p.sum(-1)
+        o = o * a[..., None] + p.to(torch.bfloat16).float() @ v32[:, :, k0:k0 + n]
+        m = m_new
+    return (o / l[..., None]).transpose(1, 2).to(torch.bfloat16)
+
+
+# key counts against the key tile n, each ending in a partial tile
+KEY_COUNTS = {"1": lambda n: 1, "tile - 1": lambda n: n - 1, "tile + 1": lambda n: n + 1,
+              "643": lambda n: 643, "4100": lambda n: 4100}
+
+
+@pytest.mark.parametrize("tk", KEY_COUNTS)
+def test_chip_bounds_pass_the_d256_key_tiles_and_reject_wrong_outputs(rng, tk):
+    """The D 256 loop's tiling (80-key tiles: 643 and 4100 end in a partial
+    tile of 3 and 20 keys) simulated in bf16 against ``blockwise_attention``
+    and the JAX ``sdpa`` (its XLA route on the CPU) on the same inputs, within
+    ``ops/compare.ATTENTION``; the bounds reject an all-zero and a 10%-off
+    output."""
+    n = _key_tile(256)
+    tk = KEY_COUNTS[tk](n)
+    assert tk % n
+    qkv = [a.astype(np.float32) for a in _qkv(rng, 1, 70, 2, 256, tk)]
+    q, k, v = (_t(a).to(torch.bfloat16) for a in qkv)
+    got = _loop_bf16(q, k, v, n)
+    ref = blockwise_attention(q, k, v)
+    want = torch.from_numpy(np.array(jax_attention.sdpa(
+        *(jnp.asarray(a.float().numpy()) for a in (q, k, v)))))
+    for r in (ref, want):
+        c = compare(got, r, **ATTENTION)
+        assert c.ok and c.rejects_wrong, c
+        assert not compare(torch.zeros_like(r), r, **ATTENTION).ok
+        assert not compare(1.1 * r.float(), r, **ATTENTION).ok

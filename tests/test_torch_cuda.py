@@ -402,12 +402,23 @@ def _bthd_views(gen, b, tq, tk, h, d):
 @pytest.mark.parametrize("tq,tk", [(301, 301), (301, 150), (130, 333), (70, 1)])
 def test_bthd_attention_matches_plain(gen, d, tq, tk):
     """Tk < Tq and Tk > Tq, neither a multiple of a key tile (128 keys at D
-    64 / 128, 64 at D 192 and up) nor of the query block; strided q / k / v
+    64 / 128, 80 at D 192 / 256, 64 in the wide variant) nor of the query
+    block; strided q / k / v
     read in place through their tensor maps. Head dims 320, 384 and 512 take
     the wide variant: one slice of O at 320, two at 384 (192 wide) and 512
     (256 wide)."""
     q, k, v = _bthd_views(gen, 2, tq, tk, 3, d)
     assert not q.is_contiguous() and not k.is_contiguous()
+    ref = blockwise_attention(q, k, v)
+    _assert_close(flash_attention(q, k, v), ref, **ATTENTION)
+    _assert_close(attention_single_pass(q, k, v), ref, **ATTENTION)
+
+
+@pytest.mark.cuda
+def test_bthd_attention_at_d256_one_key_past_a_tile(gen):
+    """Tk 81, one key past the 80-key tile of BthdTiles<256>: the second tile
+    holds one key, its other 79 come in zero-filled and are masked."""
+    q, k, v = _bthd_views(gen, 2, 301, 81, 3, 256)
     ref = blockwise_attention(q, k, v)
     _assert_close(flash_attention(q, k, v), ref, **ATTENTION)
     _assert_close(attention_single_pass(q, k, v), ref, **ATTENTION)
@@ -431,9 +442,9 @@ def test_wide_head_dims_cover_every_tile(gen, d):
 @pytest.mark.parametrize("t", [129, 643, 4100])
 def test_bthd_attention_ragged_batches(gen, d, t):
     """B 2 and H 6 at ragged T: one query row and key past a 128 tile, the
-    frame length, and 33 (D 64 / 128) or 65 (D 192 and up) key tiles, so the
-    ring of K / V stages (of K's boxes, in the wide variant) wraps many
-    times; contiguous q / k / v."""
+    frame length, and 33 (D 64 / 128), 52 (D 192 / 256) or 65 (the wide
+    variant) key tiles, so the ring of K / V stages (of K's boxes, in the
+    wide variant) wraps many times; contiguous q / k / v."""
     q, k, v = (_randn(gen, 2, t, 6, d) for _ in range(3))
     ref = blockwise_attention(q, k, v)
     _assert_close(flash_attention(q, k, v), ref, **ATTENTION)
