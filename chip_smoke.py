@@ -60,10 +60,11 @@ Phases, each of which raises (exit code 1) on failure:
    chunks of 100 with overlap 20, 400 grid keypoints: with MoGe-2 metric
    scale from a random-weight MoGe npz (the 7-Scenes evaluation protocol),
    with --global-kv-merge 2 --no-metric-depth, and with --compute-dtype
-   float32 (MoGe-2 as in the first). Each: two chunk files and
-   a manifest with the JAX creator's keys and finite values, the seconds and
-   frames/s of each chunk, and the kernel launch counts of the run (counts
-   set to 0 just before it).
+   float32 (MoGe-2 as in the first). Each: two chunk files (100 frames, and
+   a 50-frame tail padded to 100 by repeating its last frame, its outputs
+   sliced back) and a manifest with the JAX creator's keys and finite
+   values, the seconds and frames/s of each chunk, and the kernel launch
+   counts of the run (counts set to 0 just before it).
 5. sol: the speed-of-light probe through its entry point
    (pi3_slam_tpu_torch.tools.perf_lab sol): a square 8192^3 bf16 matmul,
    dots_attention, flash_attention_packed, flash_attention over the same
@@ -88,6 +89,20 @@ Phases, each of which raises (exit code 1) on failure:
    to end on both, every pose within 2e-2 m after one similarity, a second
    card run bit-identical to the first (the BA sums in a fixed order), and a
    run without BA printed beside them.
+7. online: (a) the port's online CLI in process (python -m
+   pi3_slam_tpu_torch.pi3_slam_online) over phase 4's 130 frames at the
+   7-Scenes online settings (chunks of 100, overlap 20, 400 keypoints,
+   MoGe-2 from phase 4's npz, --tum-integer-timestamps --save-tum): 2 chunks
+   (the 50-frame tail padded to 100), both TUM files with 130 finite poses
+   stamped 0-129, final_points.ply, the queue status (2 consumed, none in
+   flight, 1 alignment) and each chunk's launch counts (counts set to 0 just
+   before the run); (b) the drive modes over 340 frames (4 chunks of 100 and
+   a 20-frame tail): sync, then async (BA and the Sim3 fits on the card, on
+   the consumer threads' own streams), each run's FPS line, stage times and
+   queue status, the async merged trajectory within 1e-5 m of the sync one,
+   and the async wall time against the sync one and against the sync run's
+   forward + pull and SfM stages; (c) async with the SfM on the host CPU
+   (sfm_backend 'cpu'), the same numbers beside them.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1498,6 +1513,249 @@ def phase_reconstruct(tmp: str) -> None:
         raise RuntimeError("two runs of the reconstruction on the card gave different poses")
 
 
+def check_online_outputs(out: str, n_poses: int) -> None:
+    """Both TUM files of an online run with --save-tum
+    --tum-integer-timestamps: n_poses finite poses stamped 0 .. n_poses - 1;
+    and its point cloud."""
+    from pi3_slam_tpu_torch.io.tum import read_tum_trajectory
+
+    for name in ("trajectory_tum.txt", "trajectory.tum"):
+        traj = read_tum_trajectory(os.path.join(out, name))
+        if traj["positions"].shape != (n_poses, 3) or not np.isfinite(traj["positions"]).all():
+            raise RuntimeError(f"{name}: {traj['positions'].shape} poses, or not finite")
+        if not np.array_equal(traj["timestamps"], np.arange(n_poses)):
+            raise RuntimeError(f"{name}: stamps are not the integers 0 .. {n_poses - 1}")
+    if not os.path.exists(os.path.join(out, "final_points.ply")):
+        raise RuntimeError("final_points.ply missing")
+
+
+def stage_line(status: dict) -> str:
+    return ", ".join(f"{k} {v['total_s']:.3f}s / {v['count']}" for k, v in status["timing"].items())
+
+
+def fresh_run(slam, **changes):
+    """A copy of an online driver with an empty chain and its config
+    changed; the model, MoGe-2 and the chunk step are shared (no second
+    full-width build)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from pi3_slam_tpu_torch.utils.timing import TimingStats
+
+    run = copy.copy(slam)
+    run.config = dataclasses.replace(slam.config, **changes)
+    run.sfm_device = torch.device("cpu") if run.config.sfm_backend == "cpu" else slam.device
+    run.reconstructions, run.alignment_results, run.chunk_launches = [], [], []
+    run.timing = TimingStats()
+    run._produced = run._consumed = 0
+    return run
+
+
+def ba_beside_loads(slam, chunk_path: str) -> None:
+    """What holds the online consumer's BA back. Chunk 0's BA at eval scale
+    (100 frames, 40,000 tracks; phase 6's chunk) on a high-priority stream of
+    another thread, as the consumer runs it, alone and beside four loads on
+    this thread: the chunk step (a 100-frame forward and MoGe-2, ~13,500
+    launches), bf16 matmuls that fill the SMs with few launches, a pure-Python
+    loop that holds the GIL and launches nothing, and 40,000 tiny kernels
+    (launches without SM load); beside the chunk step also on a stream of
+    the default priority. Then the BA's parts alone and beside the matmuls:
+    the BA without its per-iteration host read (ftol 0), 600 small kernels
+    and one sync, ten 600 x 600 LU solves, ten batched 3 x 3 inverses of
+    40,000 and ten one-element host reads, each followed by a sync. Prints
+    each one's seconds, and each load's alone and beside it."""
+    import threading
+
+    import torch
+
+    from pi3_slam_tpu_torch.sfm.ba import bundle_adjust, run_bundle_adjust
+    from pi3_slam_tpu_torch.sfm.reconstruction import build_chunk_reconstruction
+    from pi3_slam_tpu_torch.slam.offline_reconstructor import load_chunk_npz
+
+    recon = build_chunk_reconstruction(load_chunk_npz(chunk_path), run_ba=False, device="cpu")
+    kpf = recon.num_tracks // recon.num_frames
+    streams = {"high": torch.cuda.Stream(priority=-1), "default": torch.cuda.Stream()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    imgs = torch.randint(0, 256, (100, 3, 308, 406), dtype=torch.uint8, device="cuda",
+                         generator=gen)
+    kps = torch.rand(100, 400, 2, device="cuda", generator=gen) * 300
+    a = torch.randn(16384, 16384, device="cuda", dtype=torch.bfloat16, generator=gen)
+    tiny = torch.zeros(16, device="cuda")
+
+    def forward():
+        slam.step(imgs, kps)
+        slam.moge.infer_depth_async(imgs[0])
+
+    def matmuls():
+        for _ in range(80):
+            a @ a
+
+    def python():
+        t_end = time.perf_counter() + 1.0
+        while time.perf_counter() < t_end:
+            sum(range(1000))
+
+    def launches():
+        for _ in range(40000):
+            tiny.add_(1.0)
+
+    def ba():
+        run_bundle_adjust(recon.to_problem(device="cuda"), 10, 2.0, tracks_per_frame=kpf)
+
+    def ba_no_reads():
+        bundle_adjust(recon.to_problem(device="cuda"), iterations=10, tracks_per_frame=kpf,
+                      ftol=0.0)
+        torch.cuda.current_stream().synchronize()
+
+    x = torch.ones(40000, 10, device="cuda")
+    s_dense = torch.eye(600, device="cuda") * 2 + 0.001
+    b = torch.ones(600, 1, device="cuda")
+    h = torch.eye(3, device="cuda").expand(40000, 3, 3) * 2
+
+    def kernels():
+        for _ in range(600):
+            x.mul_(1.0)
+        torch.cuda.current_stream().synchronize()
+
+    def solves():
+        for _ in range(10):
+            torch.linalg.solve_ex(s_dense, b)
+            torch.cuda.current_stream().synchronize()
+
+    def inverses():
+        for _ in range(10):
+            torch.linalg.inv_ex(h)
+            torch.cuda.current_stream().synchronize()
+
+    def reads():
+        for _ in range(10):
+            bool(x[0, 0] > 0)
+
+    def on_stream(work, priority="high") -> float:
+        with torch.cuda.stream(streams[priority]):
+            t0 = time.perf_counter()
+            work()
+            return time.perf_counter() - t0
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def beside(load, work, priority="high") -> tuple:
+        load_alone = timed(load)
+        out = {}
+        thread = threading.Thread(target=lambda: out.update(s=on_stream(work, priority)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        thread.start()
+        load()
+        torch.cuda.synchronize()
+        load_beside = time.perf_counter() - t0
+        thread.join()
+        return out["s"], load_alone, load_beside
+
+    on_stream(ba)  # warms the stream's allocator and the solver handles
+    log(f"    (d) chunk 0's BA ({recon.num_frames} frames, {recon.num_tracks} tracks) on a "
+        f"high-priority stream of another thread: alone {on_stream(ba):.3f}s")
+    for name, load, priority in (
+            ("the chunk step", forward, "high"), ("the chunk step", forward, "default"),
+            ("80 bf16 16384^3 matmuls", matmuls, "high"), ("a pure-Python loop", python, "high"),
+            ("40,000 tiny kernels", launches, "high")):
+        got, load_alone, load_beside = beside(load, ba, priority)
+        log(f"        BA beside {name}, {priority} priority: {got:.3f}s; the load "
+            f"{load_alone:.3f}s alone, {load_beside:.3f}s with the BA beside it")
+    for name, work in (("BA without host reads (ftol 0)", ba_no_reads),
+                       ("600 small kernels, one sync", kernels),
+                       ("10 LU solves 600 x 600, each synced", solves),
+                       ("10 batched 3 x 3 inverses of 40,000, each synced", inverses),
+                       ("10 one-element host reads", reads)):
+        on_stream(work)
+        alone = on_stream(work)
+        got, load_alone, load_beside = beside(matmuls, work)
+        log(f"        {name}: alone {alone:.4f}s, beside the matmuls {got:.3f}s (matmuls "
+            f"{load_alone:.3f}s alone, {load_beside:.3f}s)")
+
+
+def phase_online(tmp: str) -> dict:
+    """(a) the online CLI in process over phase 4's 130 frames at the
+    evaluation settings; (b) the drive modes over 340 frames, sync then
+    async; (c) async with sfm_backend 'cpu'. Returns (a)'s launch counts."""
+    from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pi3_slam_tpu_torch.pi3_slam_online import run_online
+    from pi3_slam_tpu_torch.slam.config import OnlineConfig
+    from pi3_slam_tpu_torch.slam.online import Pi3SLAMOnline
+
+    moge = os.path.join(tmp, "moge_random.npz")
+    out = os.path.join(tmp, "online")
+    argv = ["--images", os.path.join(tmp, "frames"), "--output", out, "--chunk-length", "100",
+            "--overlap", "20", "--max-kp", "400", "--tum-integer-timestamps", "--moge-path", moge,
+            "--save-tum"]
+    log("  (a) python -m pi3_slam_tpu_torch.pi3_slam_online " + " ".join(argv))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run_online(argv)
+    wall = time.perf_counter() - t0
+    counts = nonzero(launch_counts())
+    per_chunk = [nonzero(c) for c in result["chunk_launches"]]
+    want = PATH_LAUNCHES["metric_depth"]
+    status = result["queue_status"]
+    log(f"    {result['num_chunks']} chunks, {result['num_frames']} frames, {result['fps']:.2f} "
+        f"frames/s, CLI wall {wall:.1f}s; stages: {stage_line(status)}")
+    log(f"    launch counts {counts}; per chunk {per_chunk} (expected {want})")
+    if (result["num_chunks"], result["num_frames"]) != (2, 150):  # 100 + the 50-frame tail
+        raise RuntimeError(f"online: {result['num_chunks']} chunks, {result['num_frames']} frames")
+    if per_chunk != [want] * 2 or counts != {k: 2 * v for k, v in want.items()}:
+        raise RuntimeError(f"online: launch counts {counts}, per chunk {per_chunk}")
+    if (status["chunks_consumed"], status["chunks_inflight"], status["alignments"]) != (2, 0, 1):
+        raise RuntimeError(f"online: queue status {status}")
+    check_online_outputs(out, 130)
+
+    log("  (b) 340 frames (4 chunks of 100 and a 20-frame tail padded to 100), sync then async")
+    frames = os.path.join(tmp, "frames340")
+    os.makedirs(frames)
+    write_frames(frames, 340)
+    paths = sorted(os.path.join(frames, f) for f in os.listdir(frames))
+    slam = Pi3SLAMOnline(OnlineConfig(chunk_length=100, overlap=20, max_keypoints=400,
+                                      moge_checkpoint_path=moge, output_dir=out))
+    runs = {}
+    for name, pipelined, backend in (("sync", False, "auto"), ("async", True, "auto"),
+                                     ("async, SfM on the host", True, "cpu")):
+        run = fresh_run(slam, sfm_backend=backend)
+        t0 = time.perf_counter()
+        r = run.process_image_paths(paths, pipelined=pipelined)
+        wall = time.perf_counter() - t0
+        st = run.queue_status()
+        stage = {k: v["total_s"] for k, v in st["timing"].items()}
+        runs[name] = (wall, stage, run._merged_trajectory()[0])
+        log(f"    {name}: Online: {r['num_frames']} frames in {wall:.2f}s -> "
+            f"{r['num_frames'] / wall:.2f} FPS, {wall / r['num_chunks']:.3f}s a chunk; stages "
+            f"{stage_line(st)}; queue: {st['chunks_consumed']} consumed, {st['chunks_inflight']} "
+            f"in flight, {st['alignments']} alignments ({st['alignment_failures']} failed)")
+        per = [nonzero(c) for c in run.chunk_launches]
+        if r["num_chunks"] != 5 or per != [want] * 5 or st["chunks_inflight"]:
+            raise RuntimeError(f"{name}: {r['num_chunks']} chunks, launches per chunk {per}")
+    sync_wall, sync, sync_traj = runs["sync"]
+    forward = sync["dispatch"] + sync["materialize"]
+    sfm = sync["metric_scale"] + sync["reconstruction"] + sync["alignment"]
+    for name in ("async", "async, SfM on the host"):
+        wall, stage, traj = runs[name]
+        diff = float(np.abs(traj - sync_traj).max())
+        log(f"    {name} vs sync: wall {wall:.2f}s vs {sync_wall:.2f}s; sync forward + pull "
+            f"{forward:.2f}s, SfM {sfm:.2f}s (sum {forward + sfm:.2f}s, max {max(forward, sfm):.2f}s); "
+            f"build (pull + BA) {stage['reconstruction']:.2f}s beside the forward vs "
+            f"{sync['reconstruction']:.2f}s alone; merged trajectories differ by at most "
+            f"{diff:.3e} m (tol 1e-5)")
+        if name == "async" and diff > 1e-5:
+            raise RuntimeError(f"async trajectory {diff} m from the sync one")
+    ba_beside_loads(slam, os.path.join(tmp, "eval", "chunks", "chunk_000000.npz"))
+    return counts
+
+
 def pose_distance(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
     """Largest and RMS distance between two (N, 3) position sets after the
     least-squares similarity that takes a onto b."""
@@ -1601,6 +1859,8 @@ def main() -> int:
         by_path["sol"] = phase_sol()
         log("[6] reconstruct: the port's reconstructor CLI on the card")
         phase_reconstruct(tmp)
+        log("[7] online: the port's online CLI, its drive modes, SfM on the card and the host")
+        by_path["online"] = phase_online(tmp)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]

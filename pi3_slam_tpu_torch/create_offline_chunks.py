@@ -87,8 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "frames (1 = exact; chunks whose frame count it does not divide "
                              "run exact)")
     parser.add_argument("--no-pad-tail", dest="pad_tail_chunks", action="store_false",
-                        help="Accepted for compatibility: the port always runs the short "
-                             "tail chunk unpadded (eager PyTorch has no recompile cost)")
+                        help="Run the short tail chunk unpadded instead of padding it to "
+                             "--chunk-length by repeating its last frame")
     parser.add_argument("--chunk-compression", choices=("default", "fast", "none"),
                         default="default",
                         help="npz deflate level: 'default' zlib-6, 'fast' zlib-1, 'none' STORED")
@@ -140,6 +140,7 @@ def create_chunks(argv=None) -> list[dict]:
         checkpoint_path=args.model_path,
         compute_dtype=args.compute_dtype,
         global_kv_merge=args.global_kv_merge,
+        pad_tail_chunks=args.pad_tail_chunks,
         use_metric_depth=args.metric_depth,
         moge_checkpoint_path=args.moge_path,
         keypoint_type=args.keypoints,

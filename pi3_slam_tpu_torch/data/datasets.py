@@ -27,8 +27,9 @@ def chunk_windows(n_frames: int, chunk_length: int, overlap: int) -> List[Tuple[
 
 
 class ChunkDataset:
-    """Map-style dataset over chunk windows; yields dicts with (N, 3, H, W)
-    uint8 images, paths, and the window indices."""
+    """Map-style dataset over chunk windows of image paths or (video_path,
+    frame_idx) tuples; yields dicts with (N, 3, H, W) uint8 images, paths,
+    and the window indices."""
 
     def __init__(
         self,
@@ -50,8 +51,9 @@ class ChunkDataset:
         start, end = self.windows[idx]
         paths = self.image_paths[start:end]
         images = load_images(paths, self.target_size, self.undistorter)
+        # a video frame is named "<video_path>#<frame_idx>"
         return {"chunk_idx": idx, "start": start, "end": end, "images": images,
-                "paths": list(paths)}
+                "paths": [f"{p[0]}#{p[1]}" if isinstance(p, tuple) else p for p in paths]}
 
 
 class PrefetchLoader:

@@ -458,8 +458,8 @@ def run_bundle_adjust(prob: BAProblem, iterations: int, huber_delta: float,
                       tracks_per_frame: int | None = None, ftol: float = 1e-6) -> BAProblem:
     """The reconstruction's BA: ``iterations`` is a maximum with Ceres'
     function_tolerance 1e-6 (the JAX package's ``_jit_bundle_adjust``); the
-    solve's info and its seconds (the device synchronised before and after,
-    so the problem's upload is not counted) are kept for
+    solve's info and its seconds (the calling thread's stream synchronised
+    before and after, so the problem's upload is not counted) are kept for
     :func:`last_ba_info`."""
     _synchronize(prob.rotations.device)
     t0 = time.perf_counter()
@@ -472,8 +472,10 @@ def run_bundle_adjust(prob: BAProblem, iterations: int, huber_delta: float,
 
 
 def _synchronize(device: torch.device) -> None:
+    """Wait for the calling thread's stream only: the online consumer runs BA
+    on a stream of its own beside the next chunk's forward."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def last_ba_info() -> dict | None:

@@ -7,8 +7,11 @@ depth-edge masks, intrinsics estimation and the keypoint sampling on the
 device, and MoGe-2 depth on the chunk's first frame is queued right behind
 it; the host decodes images (threaded prefetch), scales the chunk to metric
 units by the median MoGe / Pi3 depth ratio, and writes the same
-``chunk_*.npz`` keys and ``chunks_manifest.json`` as the JAX creator. Tail
-chunks run unpadded (the JAX ``--no-pad-tail`` output).
+``chunk_*.npz`` keys and ``chunks_manifest.json`` as the JAX creator. A short
+tail chunk is padded to ``chunk_length`` by repeating its last frame, as the
+JAX creator pads it by default (the padded frames take part in Pi3's global
+attention, so they change the tail's outputs), and its per-frame outputs are
+sliced back; ``pad_tail_chunks=False`` (``--no-pad-tail``) runs it unpadded.
 """
 
 from __future__ import annotations
@@ -100,6 +103,32 @@ def make_chunk_step(
 
 _DENSE_KEYS = ("local_points_dense", "conf_dense", "masks_dense")
 
+# per-frame outputs of the chunk step, sliced back to the real frame count
+# after a tail chunk was padded (the JAX creator's _PER_FRAME_KEYS)
+_PER_FRAME_KEYS = (
+    "points_kp", "local_points_kp", "conf_kp", "masks_kp", "colors_kp", "camera_poses",
+    "local_points_dense", "conf_dense", "masks_dense", "intrinsics",
+)
+
+
+def pad_tail(images: np.ndarray, kps: np.ndarray, target: int):
+    """Pad a short tail chunk to ``target`` frames by repeating its last
+    frame and that frame's keypoints (``target`` 0: no padding). Poses are
+    relative to frame 0 and the alignment overlap sits at the chunk's start,
+    so padding at the end disturbs neither."""
+    n = images.shape[0]
+    if n >= target:
+        return images, kps
+    print(f"   tail chunk padded {n} -> {target} frames")
+    pad = target - n
+    return (np.concatenate([images, np.repeat(images[-1:], pad, axis=0)]),
+            np.concatenate([kps, np.repeat(kps[-1:], pad, axis=0)]))
+
+
+def slice_tail(host: Dict[str, np.ndarray], n: int) -> Dict[str, np.ndarray]:
+    """Drop the padded frames of the per-frame outputs, if any."""
+    return {k: v[:n] if k in _PER_FRAME_KEYS and v.shape[0] > n else v for k, v in host.items()}
+
 
 def _store_dense_maps(
     result: Dict, host: Dict, scale_factor: float | None, stride: int, images: np.ndarray
@@ -139,33 +168,51 @@ def device_timeline(trace_path: str) -> Dict[str, float]:
             "idle_share": 1.0 - busy_ms / window_ms if window_ms > 0 else 1.0}
 
 
+def load_models(config, pi3_config: Pi3Config | None, device: torch.device):
+    """The Pi3 model (the checkpoint's, else random weights from seed 0) and
+    the MoGe-2 runner (None when metric depth is off or its checkpoint was not
+    given) of a creator or online config. Returns (model, pi3_config, moge)."""
+    ckpt_cfg = None
+    if config.checkpoint_path:
+        print(f"Loading Pi3 weights: {config.checkpoint_path}")
+        tree, ckpt_cfg = load_pi3_checkpoint(config.checkpoint_path)
+    pi3_config = pi3_config or ckpt_cfg or Pi3Config()
+    if config.global_kv_merge > 1:
+        pi3_config = dataclasses.replace(pi3_config, global_kv_merge=config.global_kv_merge)
+    if not config.checkpoint_path:
+        print("No checkpoint given - random Pi3 weights (geometry will be noise)")
+        tree = init_pi3_params(0, pi3_config)
+    model = build_pi3(pi3_config, pi3_state_from_jax(tree), device,
+                      compute_dtype(config.compute_dtype))
+    del tree
+    # only a checkpoint that was not given is skipped (the JAX creator's
+    # message); any other failure to load or run MoGe raises
+    moge = None
+    if config.use_metric_depth:
+        if config.moge_checkpoint_path is None:
+            print(f"MoGe unavailable ({MISSING_CHECKPOINT}); continuing without metric depth")
+        else:
+            moge = MoGeRunner(config.moge_checkpoint_path, device)
+    return model, pi3_config, moge
+
+
+def metric_scale(moge_depth: np.ndarray | None, host: Dict) -> float | None:
+    """The median MoGe / Pi3 depth ratio over frame 0's valid pixels, or None
+    without MoGe or when fewer than 10 finite ratios remain (MoGe's depth is
+    inf outside its validity mask)."""
+    if moge_depth is None:
+        return None
+    mask0 = host["mask0"]
+    ratio = moge_depth[mask0] / np.maximum(host["depth0"][mask0], 1e-9)
+    ratio = ratio[np.isfinite(ratio)]
+    return float(np.median(ratio)) if ratio.size >= 10 else None
+
+
 class OfflineChunkCreator:
     def __init__(self, config: OfflineCreatorConfig, pi3_config: Pi3Config | None = None):
         self.config = config
         self.device = select_device(config.device)
-        dtype = compute_dtype(config.compute_dtype)
-        ckpt_cfg = None
-        if config.checkpoint_path:
-            print(f"Loading Pi3 weights: {config.checkpoint_path}")
-            tree, ckpt_cfg = load_pi3_checkpoint(config.checkpoint_path)
-        self.pi3_config = pi3_config or ckpt_cfg or Pi3Config()
-        if config.global_kv_merge > 1:
-            self.pi3_config = dataclasses.replace(
-                self.pi3_config, global_kv_merge=config.global_kv_merge
-            )
-        if not config.checkpoint_path:
-            print("No checkpoint given - random Pi3 weights (geometry will be noise)")
-            tree = init_pi3_params(0, self.pi3_config)
-        self.model = build_pi3(self.pi3_config, pi3_state_from_jax(tree), self.device, dtype)
-        del tree
-        # only a checkpoint that was not given is skipped (the JAX creator's
-        # message); any other failure to load or run MoGe raises
-        self.moge = None
-        if config.use_metric_depth:
-            if config.moge_checkpoint_path is None:
-                print(f"MoGe unavailable ({MISSING_CHECKPOINT}); continuing without metric depth")
-            else:
-                self.moge = MoGeRunner(config.moge_checkpoint_path, self.device)
+        self.model, self.pi3_config, self.moge = load_models(config, pi3_config, self.device)
         self.undistorter = create_undistorter(config.cam_dist_path) if config.cam_dist_path else None
         self.target_size = None
         self.chunks_dir = os.path.join(config.output_dir, "chunks")
@@ -194,8 +241,10 @@ class OfflineChunkCreator:
         kps = np.broadcast_to(kp[None], (N, kp.shape[0], 2)).astype(np.float32)
         t0 = time.perf_counter()
         launches0 = launch_counts()
-        imgs = torch.from_numpy(images).to(self.device, non_blocking=True)
-        dev = self._step(imgs, torch.from_numpy(kps).to(self.device))
+        target = self.config.chunk_length if self.config.pad_tail_chunks else 0
+        imgs, kps_dev = pad_tail(images, kps, target)
+        imgs = torch.from_numpy(imgs).to(self.device, non_blocking=True)
+        dev = self._step(imgs, torch.from_numpy(kps_dev).to(self.device))
         # queued behind the Pi3 step before the host sync; the first frame is
         # sliced from the uploaded chunk
         moge = self.moge.infer_depth_async(imgs[0]) if self.moge is not None else None
@@ -208,6 +257,7 @@ class OfflineChunkCreator:
         kps = pending["kps"]
         N = images.shape[0]
         host = {k: v.cpu().numpy() for k, v in pending["dev"].items()}  # sync point
+        host = slice_tail(host, N)
         moge_depth = pending["moge"].cpu().numpy() if pending["moge"] is not None else None
         dt = max(1e-6, time.perf_counter() - pending["t0"])
         fps = N / dt
@@ -219,20 +269,13 @@ class OfflineChunkCreator:
         poses = host["camera_poses"].astype(np.float64)
         points_kp = host["points_kp"].astype(np.float64)
         local_kp = host["local_points_kp"].astype(np.float64)
-        scale_factor = None
-        if moge_depth is not None:
-            mask0 = host["mask0"]
-            ratio = moge_depth[mask0] / np.maximum(host["depth0"][mask0], 1e-9)
-            # MoGe's depth is inf outside its validity mask: the median over
-            # finite ratios only, and no scaling when too few pixels agree
-            ratio = ratio[np.isfinite(ratio)]
-            if ratio.size >= 10:
-                scale_factor = float(np.median(ratio))
-                points_kp *= scale_factor
-                local_kp *= scale_factor
-                poses[:, :3, 3] *= scale_factor
-            else:
-                print("   metric scale skipped: too few valid MoGe/Pi3 depth pairs")
+        scale_factor = metric_scale(moge_depth, host)
+        if scale_factor is not None:
+            points_kp *= scale_factor
+            local_kp *= scale_factor
+            poses[:, :3, 3] *= scale_factor
+        elif moge_depth is not None:
+            print("   metric scale skipped: too few valid MoGe/Pi3 depth pairs")
         poses_cw = se3_inverse(torch.from_numpy(poses)).numpy().astype(np.float32)
         result = {
             "points": points_kp.astype(np.float16),

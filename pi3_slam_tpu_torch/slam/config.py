@@ -1,8 +1,7 @@
 """Chunk-creator and reconstructor configuration. Port of
 ``OfflineCreatorConfig`` and ``ReconstructorConfig`` from
 ``pi3_slam_tpu/slam/config.py`` (whose package ``__init__`` imports JAX),
-with the fields of the ported paths. Tail chunks always run unpadded (eager
-PyTorch has no recompile cost), so there is no ``pad_tail_chunks`` field.
+and ``OnlineConfig`` with the fields of the ported paths.
 """
 
 from __future__ import annotations
@@ -24,6 +23,10 @@ class OfflineCreatorConfig:
     # global-attention k/v merge over groups of frames (Pi3Config.global_kv_merge;
     # 1 = exact attention)
     global_kv_merge: int = 1
+    # pad a short tail chunk to chunk_length by repeating its last frame (the
+    # padded frames take part in the global attention, as in the JAX
+    # creator's default); its per-frame outputs are sliced back
+    pad_tail_chunks: bool = True
     # metric scale from MoGe-2 depth on each chunk's first frame
     use_metric_depth: bool = True
     moge_checkpoint_path: Optional[str] = None  # MoGe .npz; None = no metric scale
@@ -70,3 +73,88 @@ class ReconstructorConfig:
     save_debug: bool = False  # also save recon_XXXXXX.npz per chunk
     # where the bundle adjustments and Sim3 fits run ('cuda' or 'cpu')
     device: str = "cuda"
+
+
+@dataclass
+class OnlineConfig:
+    """Port of the JAX package's ``OnlineConfig``: the same fields and
+    defaults, plus ``device``. The fields of parts not ported yet (ALIKED,
+    observation refinement, loop closure, telemetry, the viewer, debug
+    projections, mesh fusion, multi-device) are kept so a config reads the
+    same; ``Pi3SLAMOnline`` refuses them (``slam.online.unported``)."""
+
+    chunk_length: int = 30
+    overlap: int = 5
+    pixel_limit: int = 255000 // 2
+    device: str = "cuda"
+    checkpoint_path: Optional[str] = None  # Pi3 .npz; None = random init (seed 0)
+    compute_dtype: str = "bfloat16"
+    use_metric_depth: bool = True
+    moge_checkpoint_path: Optional[str] = None  # MoGe .npz; None = no metric scale
+    keypoint_type: str = "grid"
+    max_keypoints: int = 1000
+    keypoint_threshold: float = 0.005  # ALIKED detection threshold (--kp-threshold)
+    aliked_checkpoint_path: Optional[str] = None
+    estimate_camera_params: bool = True
+    cam_dist_path: Optional[str] = None
+    max_observations_per_track: int = 10
+    # inverse-depth track parametrization in the per-chunk BA
+    use_inverse_depth: bool = False
+    # per-chunk BA iterations (build stage) and the Sim3 refine's prior BA
+    # (finish stage): the ReconstructorConfig knobs
+    ba_iterations: int = 10
+    align_refine: bool = True
+    align_refine_iterations: int = 50
+    # sigmoid(conf) cutoff and depth-edge tolerance of the chunk step
+    conf_threshold: float = 0.1
+    depth_edge_rtol: float = 0.03
+    # pad a short tail chunk to chunk_length (see OfflineCreatorConfig)
+    pad_tail_chunks: bool = True
+    global_kv_merge: int = 1
+    num_loader_workers: int = 2
+    visualize: bool = False
+    viz_port: int = 8080
+    output_dir: str = "online_output"
+    # each chunk's aligned reconstruction as debug_recons/recon_XXXXXX.npz
+    save_debug_recons: bool = False
+    save_debug_projections: bool = False
+    # per-alignment overlap diagnostic, printed and appended to
+    # overlap_debug.jsonl
+    debug_overlap: bool = False
+    loop_closure: bool = False
+    loop_min_inliers: int = 20
+    loop_min_cosine: float = 0.85
+    refine_observations: bool = False
+    refine_max_observations: int = 10
+    refine_patch_radius: int = 3
+    refine_search_radius: int = 4
+    refine_min_zncc: float = 0.5
+    telemetry_path: Optional[str] = None
+    gps_sigma: float = 2.0
+    gravity_sigma: float = 0.05
+    telemetry_refine_iterations: int = 20
+    # keep the next chunk's forward in flight while the host consumes this one
+    overlap_device_host: bool = True
+    # run the SfM chain (pull, metric scale, BA, Sim3 alignment) on a consumer
+    # thread fed by an in-order bounded queue, so it overlaps the next
+    # chunk's forward; needs overlap_device_host
+    async_sfm: bool = True
+    # where BA and the Sim3 fits run: 'auto' / 'default' = the model's device
+    # (on the card the consumer thread works on a CUDA stream of its own),
+    # 'cpu' = the host
+    sfm_backend: str = "auto"
+    data_parallel_chunks: int = 1
+    tensor_parallel: int = 1
+    sequence_parallel: int = 1
+    # strided dense per-pixel maps stashed per chunk under <output>/dense/
+    save_dense: bool = False
+    export_mesh: bool = False
+    dense_stride: int = 2
+    # npz deflate level of the dense stashes (see OfflineCreatorConfig)
+    chunk_compression: str = "default"
+    mesh_voxel_size: float = 0.0
+    mesh_max_voxels: int = 192**3
+    mesh_conf_threshold: float = 0.25
+    mesh_min_weight: float = 1.0
+    save_volume: bool = False
+    live_mesh_every: int = 0

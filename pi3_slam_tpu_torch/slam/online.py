@@ -1,0 +1,491 @@
+"""Online (streaming) SLAM: chunked inference with incremental alignment.
+
+Port of ``pi3_slam_tpu/slam/online.py`` (``Pi3SLAMOnline``) on one device:
+
+* each chunk's step (the Pi3 forward, masks, intrinsics, keypoint sampling)
+  and MoGe-2 on its first frame are enqueued on the device and stay in
+  flight while the host consumes the previous chunk; the device-to-host
+  pull at consume time is the synchronisation point;
+* consuming a chunk is two stages: build (pull, metric scale, dense stash,
+  chunk reconstruction with its BA; independent of every other chunk) and
+  finish (Sim3 alignment against the previous chunk, append; strictly in
+  order);
+* with ``async_sfm`` the whole SfM chain runs off the drive thread: finish
+  on an ``sfm-consumer`` thread fed by a bounded in-order queue, build one
+  chunk ahead on a one-worker ``sfm-build`` executor, so the steady chunk
+  period is max(forward + pull, build, finish) rather than their sum;
+* BA and the Sim3 fits run on the model's device by default
+  (``sfm_backend``). On the card each consumer thread enqueues its work on a
+  CUDA stream of its own, at high priority, so a chunk's BA is not ordered
+  behind the next chunk's forward in one stream; the consumer's stream
+  waits on an event recorded after the chunk's step. (The GPU does not
+  preempt the forward's running blocks, so beside a forward BA's chain of
+  small kernels still takes about the forward's length: PERF.md §6, PR 15.)
+
+An error in the consumer stops it and reaches the caller from the drive
+thread; no chunk is consumed twice. The JAX
+class's backend-reset recovery and its multi-device, ALIKED, refinement,
+loop-closure, telemetry, viewer, debug-projection and mesh parts are not
+ported: ``unported`` names each one's ROADMAP.md entry and the class
+refuses a config that asks for it.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import glob
+import json
+import os
+import queue
+import threading
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..data import ChunkDataset, PrefetchLoader, calculate_target_size
+from ..data.undistortion import create_undistorter
+from ..device import select_device
+from ..io.npz import save_npz
+from ..io.ply import write_ply
+from ..io.tum import write_tum_trajectory
+from ..models.pi3 import Pi3Config
+from ..ops import launch_counts
+from ..sfm.alignment import align_chunks
+from ..sfm.reconstruction import ChunkReconstruction, build_chunk_reconstruction
+from ..sfm.serialization import save_reconstruction
+from ..utils.keypoints import grid_keypoints
+from ..utils.timing import TimingStats
+from .chunk_creator import (
+    _store_dense_maps,
+    load_models,
+    make_chunk_step,
+    metric_scale,
+    pad_tail,
+    slice_tail,
+)
+from .config import OnlineConfig
+
+_OFF_PATH = "ROADMAP.md Queue 1: off the main path"
+_MESH = "mapping/: TSDF, raycast, fuse, surface nets"
+
+
+def unported(config: OnlineConfig) -> str | None:
+    """The message for the first part ``config`` asks for that the port
+    lacks, or None; each names its ROADMAP.md entry."""
+    entries = (
+        ("--keypoints aliked", config.keypoint_type == "aliked", "ALIKED"),
+        ("--refine-observations", config.refine_observations,
+         "ops/correlation.py ZNCC refinement"),
+        ("--loop-closure", config.loop_closure, "sfm/loops.py and sfm/posegraph.py: loop closure"),
+        ("--telemetry", config.telemetry_path is not None, "sfm/priors.py: telemetry priors"),
+        ("--visualize", config.visualize, "viz/visualizer.py, the online viewer"),
+        ("--save-debug-projections", config.save_debug_projections,
+         "sfm/serialization.render_debug_projections"),
+        ("--export-mesh", config.export_mesh, _MESH),
+        ("--live-mesh-every > 0", config.live_mesh_every > 0, _MESH),
+        ("--save-volume", config.save_volume, _MESH),
+    )
+    for flag, asked, entry in entries:
+        if asked:
+            return f"{flag} is not yet ported ({_OFF_PATH}, {entry})"
+    for flag, value in (("--data-parallel-chunks", config.data_parallel_chunks),
+                        ("--tensor-parallel", config.tensor_parallel),
+                        ("--sequence-parallel", config.sequence_parallel)):
+        if value > 1:
+            return f"{flag} > 1 is not yet ported (ROADMAP.md Queue 1: multi-device)"
+    return None
+
+
+def _host(x):
+    """A step output on the host (already there when the dispatch pulled it)."""
+    if x is None or isinstance(x, np.ndarray):
+        return x
+    return x.cpu().numpy()  # blocking: the device tensor can be dropped after it
+
+
+_DONE = object()
+
+
+class Pi3SLAMOnline:
+    def __init__(self, config: OnlineConfig, pi3_config: Pi3Config | None = None):
+        msg = unported(config)
+        if msg:
+            raise NotImplementedError(msg)
+        if config.sfm_backend not in ("auto", "default", "cpu"):
+            raise ValueError(f"sfm_backend {config.sfm_backend!r}: use 'auto', 'default' or 'cpu'")
+        self.config = config
+        self.device = select_device(config.device)
+        self.model, self.pi3_config, self.moge = load_models(config, pi3_config, self.device)
+        # 'auto' and 'default': the model's device ('cpu' is the host mode)
+        self.sfm_device = torch.device("cpu") if config.sfm_backend == "cpu" else self.device
+        self.undistorter = create_undistorter(config.cam_dist_path) if config.cam_dist_path else None
+        self.step = make_chunk_step(
+            self.model, config.conf_threshold, config.depth_edge_rtol,
+            config.estimate_camera_params, return_dense=config.save_dense,
+            dense_stride=config.dense_stride,
+        )
+        self.reconstructions: List[ChunkReconstruction] = []
+        self.alignment_results = []
+        self.timing = TimingStats()
+        # kernel launches of each dispatched chunk's step and MoGe, by wrapper
+        self.chunk_launches: List[Dict[str, int]] = []
+        self._produced = 0
+        self._consumed = 0
+
+    # ----- per-chunk stages -----
+
+    def _dispatch_device(self, batch: Dict) -> Dict:
+        """Enqueue the chunk step and MoGe-2 behind it on the device. With
+        ``overlap_device_host`` the outputs stay device tensors (the forward
+        in flight while the host consumes the previous chunk) and an event
+        marks their end; without it they are pulled here."""
+        images = batch["images"]
+        N, _, H, W = images.shape
+        kp = grid_keypoints(H, W, self.config.max_keypoints)
+        kps = np.broadcast_to(kp[None], (N, kp.shape[0], 2)).astype(np.float32)
+        launches0 = launch_counts()
+        with self.timing.track("dispatch"):
+            target = self.config.chunk_length if self.config.pad_tail_chunks else 0
+            imgs, kps_dev = pad_tail(images, kps, target)
+            imgs = torch.from_numpy(imgs).to(self.device, non_blocking=True)
+            dev = self.step(imgs, torch.from_numpy(kps_dev).to(self.device))
+            # the first frame is sliced from the uploaded chunk
+            moge_depth = self.moge.infer_depth_async(imgs[0]) if self.moge is not None else None
+            ready = None
+            if not self.config.overlap_device_host:
+                dev = {k: _host(v) for k, v in dev.items()}
+                moge_depth = _host(moge_depth)
+            elif self.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record()
+        self.chunk_launches.append({k: v - launches0[k] for k, v in launch_counts().items()})
+        self._produced += 1
+        return {"dev": dev, "moge_depth": moge_depth, "ready": ready, "kps": kps,
+                "batch": batch}
+
+    def _consume(self, pending: Dict) -> ChunkReconstruction:
+        """Build and finish one chunk on the calling thread."""
+        return self._consume_finish(self._consume_build(pending))
+
+    def _consume_build(self, pending: Dict, idx: int | None = None) -> Dict:
+        """Stage 1: pull the step's outputs, metric scale, dense stash, the
+        chunk reconstruction and its BA. Independent of every other chunk, so
+        the async consumer runs build(k+1) beside finish(k). ``idx`` is the
+        chunk's index for the dense stash (None: the consumed count)."""
+        batch = pending["batch"]
+        with self.timing.track("materialize"):
+            if pending["ready"] is not None:
+                # this thread's stream waits for the drive thread's step; the
+                # pull blocks, so the step's tensors are free to drop after it
+                torch.cuda.current_stream(self.device).wait_event(pending["ready"])
+            host = {k: _host(v) for k, v in pending["dev"].items()}
+            moge_depth = _host(pending["moge_depth"])
+        pending["dev"] = pending["moge_depth"] = None
+        n_frames = batch["images"].shape[0]
+        host = slice_tail(host, n_frames)  # drop padded tail frames, if any
+
+        poses = host["camera_poses"].astype(np.float64)
+        points_kp = host["points_kp"].astype(np.float64)
+        with self.timing.track("metric_scale"):
+            scale_factor = metric_scale(moge_depth, host)
+            if scale_factor is not None:
+                points_kp *= scale_factor
+                poses[:, :3, 3] *= scale_factor
+
+        chunk = {
+            "keypoints": pending["kps"],
+            "points": points_kp,
+            "colors": host["colors_kp"],
+            "camera_poses": poses,
+            "image_paths": batch["paths"],
+            "original_width": batch["images"].shape[3],
+            "original_height": batch["images"].shape[2],
+        }
+        if "intrinsics" in host:
+            chunk["intrinsics"] = host["intrinsics"].astype(np.float64)
+        if "local_points_dense" in host:
+            self._stash_dense(host, poses, chunk, scale_factor,
+                              self._consumed if idx is None else idx, batch["images"])
+
+        with self.timing.track("reconstruction"):
+            recon = build_chunk_reconstruction(
+                chunk,
+                max_observations_per_track=self.config.max_observations_per_track,
+                ba_iterations=self.config.ba_iterations,
+                use_inverse_depth=self.config.use_inverse_depth,
+                device=self.sfm_device,
+            )
+        return {"recon": recon, "pending": pending, "host": host}
+
+    def _consume_finish(self, ctx: Dict) -> ChunkReconstruction:
+        """Stage 2, strictly in order: Sim3-align against the previous chunk,
+        append to the chain, then the debug artifacts."""
+        recon = ctx["recon"]
+        with self.timing.track("alignment"):
+            res = None
+            if self.reconstructions:
+                res = align_chunks(
+                    self.reconstructions[-1], recon,
+                    refine=self.config.align_refine,
+                    refine_iterations=self.config.align_refine_iterations,
+                    device=self.sfm_device,
+                )
+                self.alignment_results.append(res)
+        if self.config.debug_overlap and self.reconstructions:
+            try:
+                self._dump_overlap_debug(self.reconstructions[-1], recon, res, ctx["host"])
+            except Exception as e:  # a debug artifact must never end the run
+                print(f"overlap debug dump failed: {e}")
+        self.reconstructions.append(recon)
+        self._consumed += 1
+        # Below this line the chunk is in the chain: a failing side effect is
+        # printed and skipped, never raised, so no caller consumes the chunk
+        # a second time (its frames twice in the merged trajectory).
+        if self.config.save_debug_recons:
+            try:
+                save_reconstruction(recon, os.path.join(
+                    self.config.output_dir, "debug_recons", f"recon_{self._consumed - 1:06d}.npz"))
+            except Exception as e:
+                print(f"debug recon save failed: {e}")
+        return recon
+
+    def _dump_overlap_debug(self, prev, recon, res, host) -> None:
+        """Overlap diagnostic at alignment time (overlap frame names on both
+        sides, common-track counts, point and confidence statistics): printed
+        and appended as one JSON line to <output_dir>/overlap_debug.jsonl."""
+        common = set(prev.frame_names) & set(recon.frame_names)
+        entry = {
+            "chunk": self._consumed,
+            "prev_overlap_frames": [n for n in prev.frame_names if n in common],
+            "cur_overlap_frames": [n for n in recon.frame_names if n in common],
+            "num_common_frames": len(common),
+            "num_common_tracks": int(res.num_common_tracks) if res else 0,
+            "num_used_tracks": int(res.num_used_tracks) if res else 0,
+            "alignment_success": bool(res.success) if res else False,
+            "num_keypoints_per_frame": int(recon.num_tracks // max(1, recon.num_frames)),
+            "num_points": int(recon.num_tracks),
+            "num_live_points": int((recon.track_valid > 0).sum()),
+            "mean_conf": float(np.asarray(host["conf_kp"]).mean()),
+            "overlap": int(self.config.overlap),
+            "chunk_length": int(self.config.chunk_length),
+        }
+        print(
+            f"CHUNK OVERLAP DEBUG: chunk {entry['chunk']} | common frames "
+            f"{entry['num_common_frames']} {entry['cur_overlap_frames']} | "
+            f"common tracks {entry['num_common_tracks']} "
+            f"(used {entry['num_used_tracks']}, "
+            f"{'ok' if entry['alignment_success'] else 'FAILED'}) | "
+            f"points {entry['num_live_points']}/{entry['num_points']} | "
+            f"mean conf {entry['mean_conf']:.3f}"
+        )
+        os.makedirs(self.config.output_dir, exist_ok=True)
+        with open(os.path.join(self.config.output_dir, "overlap_debug.jsonl"), "a") as f:
+            f.write(json.dumps(entry) + "\n")
+
+    def _stash_dense(self, host, poses, chunk, scale_factor, idx, images) -> None:
+        """Write the chunk's strided dense maps to <output>/dense/dense_<idx>.npz
+        (the offline ``--save-dense`` layout), with the pre-alignment,
+        metric-scaled poses the reconstruction was built from."""
+        with self.timing.track("dense_stash"):
+            dense = {
+                "camera_poses": poses.astype(np.float32),
+                "original_height": chunk["original_height"],
+                "original_width": chunk["original_width"],
+            }
+            if "intrinsics" in chunk:
+                dense["intrinsics"] = chunk["intrinsics"].astype(np.float32)
+            _store_dense_maps(dense, host, scale_factor, self.config.dense_stride, images)
+            ddir = os.path.join(self.config.output_dir, "dense")
+            os.makedirs(ddir, exist_ok=True)
+            save_npz(os.path.join(ddir, f"dense_{idx:06d}.npz"), self.config.chunk_compression,
+                     **dense)
+
+    # ----- drive loops -----
+
+    def process_image_paths_sync(self, image_paths: List) -> Dict:
+        """Each chunk fully processed before the next is dispatched."""
+        return self.process_image_paths(image_paths, pipelined=False)
+
+    def queue_status(self) -> Dict:
+        """Produced / consumed / in-flight chunk counts, alignment counts and
+        the stage timings."""
+        return {
+            "chunks_produced": self._produced,
+            "chunks_consumed": self._consumed,
+            "chunks_inflight": self._produced - self._consumed,
+            "data_parallel_chunks": self.config.data_parallel_chunks,
+            "overlap_device_host": self.config.overlap_device_host,
+            "alignments": len(self.alignment_results),
+            "alignment_failures": sum(1 for r in self.alignment_results if not r.success),
+            "timing": self.timing.statistics(),
+        }
+
+    def process_image_paths(self, image_paths: List, pipelined: bool = True) -> Dict:
+        """Stream the frames through the chunk pipeline. ``pipelined``: chunk
+        k+1's step is in flight while chunk k is consumed, on the consumer
+        thread with ``async_sfm`` (and ``overlap_device_host``), else on this
+        thread one chunk behind; ``pipelined=False`` processes strictly one
+        chunk at a time. Returns num_chunks, num_frames (overlap frames
+        counted in each chunk) and fps."""
+        cfg = self.config
+        if cfg.save_dense and self._consumed == 0:
+            # stale stashes of an earlier run; a later call on the same
+            # instance continues the chain and keeps its own
+            for p in glob.glob(os.path.join(cfg.output_dir, "dense", "dense_*.npz")):
+                os.remove(p)
+        target = calculate_target_size(image_paths[0], cfg.pixel_limit)
+        print(f"Target size: {target}")
+        dataset = ChunkDataset(image_paths, cfg.chunk_length, cfg.overlap, target,
+                               undistorter=self.undistorter)
+        loader = PrefetchLoader(dataset, num_workers=cfg.num_loader_workers)
+
+        t_start = time.time()
+        if pipelined and cfg.overlap_device_host and cfg.async_sfm:
+            frames_done = self._drive_async(loader)
+        else:
+            frames_done = 0
+            depth = 1 if pipelined else 0
+            pending: List[Dict] = []  # dispatched, not yet consumed (in order)
+            for batch in loader:
+                pending.append(self._dispatch_device(batch))
+                while len(pending) > depth:
+                    item = pending.pop(0)
+                    self._consume(item)
+                    frames_done += item["batch"]["images"].shape[0]
+            for item in pending:
+                self._consume(item)
+                frames_done += item["batch"]["images"].shape[0]
+
+        wall = time.time() - t_start
+        fps = frames_done / wall if wall > 0 else 0.0
+        print(f"Online: {frames_done} frames in {wall:.2f}s -> {fps:.2f} FPS")
+        self.timing.print_statistics()
+        return {"num_chunks": len(self.reconstructions), "num_frames": frames_done, "fps": fps}
+
+    def _sfm_stream(self):
+        """A CUDA stream for one consumer thread (None off the card). High
+        priority: the block scheduler gives BA's small kernels the SMs that
+        the forward's blocks free ahead of the forward's pending blocks."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.Stream(self.device, priority=-1)
+
+    def _drive_async(self, loader) -> int:
+        """The drive thread dispatches; an ``sfm-consumer`` thread finishes
+        chunks in order while a one-worker ``sfm-build`` executor builds the
+        next one. The queue holds at most two dispatched chunks. On an error
+        the consumer waits for its lookahead build and exits; the drive thread
+        re-raises the error at its next enqueue or at the drain, and no chunk
+        is consumed again. Returns the frames consumed."""
+        done = {"frames": 0}
+        park = {"exc": None}
+        stop = threading.Event()
+        cq: queue.Queue = queue.Queue(maxsize=2)
+        build_stream, finish_stream = self._sfm_stream(), self._sfm_stream()
+
+        def enter_build_stream():
+            if build_stream is not None:
+                torch.cuda.set_stream(build_stream)  # the current stream is per thread
+
+        def consumer_loop():
+            ex = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="sfm-build",
+                                                       initializer=enter_build_stream)
+            prev_item = prev_fut = None
+            next_idx = self._consumed  # the dense stash's chunk index
+            try:
+                with torch.cuda.stream(finish_stream):
+                    while True:
+                        it = cq.get()
+                        if stop.is_set():  # the drive thread gave up
+                            it = _DONE
+                        nxt_fut = None
+                        if it is not _DONE:
+                            nxt_fut = ex.submit(self._consume_build, it, next_idx)
+                            next_idx += 1
+                        if prev_fut is not None:
+                            try:
+                                self._consume_finish(prev_fut.result())
+                                done["frames"] += prev_item["batch"]["images"].shape[0]
+                            except BaseException as e:
+                                if nxt_fut is not None:
+                                    # settle the lookahead build: none of its
+                                    # device work outlives the park
+                                    concurrent.futures.wait([nxt_fut])
+                                park["exc"] = e
+                                return
+                        if it is _DONE:
+                            return
+                        prev_item, prev_fut = it, nxt_fut
+            finally:
+                ex.shutdown(wait=True)
+
+        consumer = threading.Thread(target=consumer_loop, name="sfm-consumer", daemon=True)
+        consumer.start()
+
+        def service():
+            if park["exc"] is not None:
+                consumer.join()
+                raise park["exc"]
+
+        def enqueue(item):
+            while True:
+                service()
+                try:
+                    cq.put(item, timeout=0.5)
+                    return
+                except queue.Full:
+                    continue
+
+        try:
+            for batch in loader:
+                enqueue(self._dispatch_device(batch))
+            enqueue(_DONE)
+            consumer.join()
+            service()
+        except BaseException:
+            # stop the consumer after the chunk it is on; a bounded wait, so
+            # a consumer stuck in a device call cannot hold the error back
+            stop.set()
+            try:
+                cq.put_nowait(_DONE)
+            except queue.Full:
+                pass  # the consumer's next get sees the stop
+            consumer.join(timeout=60.0)
+            raise
+        return done["frames"]
+
+    # ----- exports -----
+
+    def _merged_trajectory(self, return_names: bool = False):
+        """Camera centers and camera-to-world rotations of every frame, the
+        first chunk's view of a frame winning."""
+        seen = set()
+        centers, rotations, names = [], [], []
+        for r in self.reconstructions:
+            for j, nm in enumerate(r.frame_names):
+                if nm in seen:
+                    continue
+                seen.add(nm)
+                centers.append(r.centers[j])
+                rotations.append(r.rotations[j].T)
+                names.append(nm)
+        if return_names:
+            return np.asarray(centers), np.asarray(rotations), names
+        return np.asarray(centers), np.asarray(rotations)
+
+    def save_final_result(self, path: str, max_points: Optional[int] = None) -> None:
+        clouds = [r.points[r.track_valid > 0] for r in self.reconstructions]
+        colors = [r.colors[r.track_valid > 0] for r in self.reconstructions]
+        cloud = np.concatenate(clouds) if clouds else np.zeros((0, 3))
+        color = np.concatenate(colors) if colors else np.zeros((0, 3))
+        write_ply(cloud, color, path, max_points=max_points)
+        print(f"Saved {cloud.shape[0]} points -> {path}")
+
+    def save_trajectory_tum(self, path: str, timestamps=None, name_to_timestamp=None) -> None:
+        centers, rotations, names = self._merged_trajectory(return_names=True)
+        if timestamps is None and name_to_timestamp:
+            timestamps = [name_to_timestamp.get(nm, i) for i, nm in enumerate(names)]
+        write_tum_trajectory(path, centers, rotations, timestamps=timestamps)
+        print(f"Saved trajectory ({len(centers)} poses) -> {path}")

@@ -953,3 +953,83 @@ def test_fp32_entries_count_launches_and_refuse_fp16(gen):
     with pytest.raises(ValueError):
         flash_attention(odd, odd, odd)
     assert launch_counts() == counts
+
+
+def _ba_problem(seed: int):
+    """12 cameras on a line (identity rotations, f 300) seeing 300 points
+    4-10 units ahead, every track observed in every frame, poses and points
+    perturbed."""
+    import numpy as np
+
+    from pi3_slam_tpu_torch.sfm.ba import make_problem
+
+    rng = np.random.default_rng(seed)
+    n, t = 12, 300
+    centers = np.stack([0.3 * np.arange(n), np.zeros(n), np.zeros(n)], 1)
+    points = np.stack([rng.uniform(-3, 7, t), rng.uniform(-2, 2, t), rng.uniform(4, 10, t)], 1)
+    rel = points[:, None] - centers[None]  # (T, N, 3)
+    uv = 300.0 * rel[..., :2] / rel[..., 2:] + np.array([320.0, 240.0])
+    uv += rng.normal(size=uv.shape) * 0.5
+    return make_problem(
+        np.tile(np.eye(3), (n, 1, 1)), centers + rng.normal(size=centers.shape) * 0.02,
+        points + rng.normal(size=points.shape) * 0.05, np.tile([300.0, 300, 320, 240], (n, 1)),
+        np.tile(np.arange(n), (t, 1)), uv, np.ones((t, n)), device="cuda")
+
+
+@pytest.mark.cuda
+def test_online_consumer_stream_matches_the_default_stream(tmp_path):
+    """The online consumer's BA (another thread, a high-priority stream of its
+    own, beside work on the default stream) gives the default stream's result
+    bit for bit; and the online driver's async and sync runs over a small
+    random model (head dim 64, the kernels' route) give one trajectory
+    (1e-5)."""
+    import threading
+
+    import numpy as np
+    from PIL import Image
+
+    from pi3_slam_tpu_torch.models.dinov2 import DinoV2Config
+    from pi3_slam_tpu_torch.models.pi3 import Pi3Config
+    from pi3_slam_tpu_torch.sfm.ba import run_bundle_adjust
+    from pi3_slam_tpu_torch.slam.config import OnlineConfig
+    from pi3_slam_tpu_torch.slam.online import Pi3SLAMOnline
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the hand-written kernels run only there)")
+    want = run_bundle_adjust(_ba_problem(0), 10, 2.0)
+    got = {}
+
+    def consumer():
+        with torch.cuda.stream(torch.cuda.Stream(priority=-1)):
+            got["out"] = run_bundle_adjust(_ba_problem(0), 10, 2.0)
+
+    busy = torch.randn(4096, 4096, device="cuda")
+    thread = threading.Thread(target=consumer)
+    thread.start()
+    for _ in range(20):  # default-stream work beside it
+        busy = (busy @ busy).tanh()
+    thread.join()
+    for a, b in zip(got["out"], want):
+        assert torch.equal(a, b)
+
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    base = np.random.default_rng(5).integers(30, 220, (64, 84, 3)).astype(np.uint8)
+    for i in range(8):
+        Image.fromarray(np.roll(base, 3 * i, axis=1)).save(frames / f"frame_{i:04d}.png")
+    paths = sorted(str(p) for p in frames.iterdir())
+    cfg = Pi3Config(encoder=DinoV2Config(embed_dim=128, depth=2, num_heads=2, pos_embed_size=6),
+                    dec_embed_dim=128, dec_num_heads=2, dec_depth=4, head_dim=128, head_depth=1,
+                    head_num_heads=2, camera_dim=32)
+    runs = {}
+    for pipelined in (False, True):
+        slam = Pi3SLAMOnline(OnlineConfig(chunk_length=4, overlap=2, pixel_limit=4000,
+                                          use_metric_depth=False, max_keypoints=30,
+                                          output_dir=str(tmp_path / str(pipelined))),
+                             pi3_config=cfg)
+        r = slam.process_image_paths(paths, pipelined=pipelined)
+        assert r["num_chunks"] == 4 and slam.queue_status()["chunks_inflight"] == 0
+        # every chunk's step ran the hand-written kernels
+        assert all(c["block_mlp"] and c["qkv_rope_producer"] for c in slam.chunk_launches)
+        runs[pipelined] = slam._merged_trajectory()[0]
+    np.testing.assert_allclose(runs[True], runs[False], atol=1e-5)
