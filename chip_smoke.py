@@ -102,7 +102,27 @@ Phases, each of which raises (exit code 1) on failure:
    queue status, the async merged trajectory within 1e-5 m of the sync one,
    and the async wall time against the sync one and against the sync run's
    forward + pull and SfM stages; (c) async with the SfM on the host CPU
-   (sfm_backend 'cpu'), the same numbers beside them.
+   (sfm_backend 'cpu') and sync without BA, the same numbers beside them, and
+   the host's and the run without BA's distances from the card's trajectory
+   after one similarity (not held: random weights leave that trajectory to
+   fp32 rounding); (d) chunk 0's BA beside loads; (e) the online SfM chain
+   fed phase 6's eval-scale synthetic chunks in place of the chunk step, on
+   the card, on the host and on the card without BA: the card within 3e-3 m
+   of the host after one similarity, the run without BA outside it.
+8. eval: (a) the converter CLI (python -m
+   pi3_slam_tpu_torch.tools.convert_checkpoint) on a reference-named Pi3
+   model.safetensors made from init_pi3_params(0) (full width) and a MoGe-2
+   model.pt from init_moge_params(0, moge_vits_config()): every converted
+   leaf equal to the random tree, the embedded config Pi3Config(), each
+   conversion's seconds; (b)-(d) the eval tool (python -m
+   pi3_slam_tpu_torch.tools.eval) on those checkpoints: 7-Scenes offline and
+   online on one fabricated scene (phase 4's 130 frames, pose files), EuRoC
+   MH_03 (530 frames at 752x480, the first 400 skipped, a radial-tangential
+   calibration): per run the seconds, frames/s into chunks or through the
+   online CLI, reconstruction seconds per chunk, a finite APE over 130 poses
+   against the ground truth the tool makes, and two chunks that each
+   launch the metric-depth path's kernels; the runs' launch counts are the
+   kernels line's "eval" path.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1180,18 +1200,19 @@ def phase_blocks() -> dict:
     return by_path
 
 
-def write_frames(folder: str, n: int = 130) -> None:
-    """Seeded synthetic 640x480 frames: a drifting smooth pattern plus noise."""
-    import numpy as np
+def write_frames(folder: str, n: int = 130, size: tuple = (480, 640), names=None) -> None:
+    """Seeded synthetic frames (640x480 unless ``size`` says otherwise): a
+    drifting smooth pattern plus noise, named frame_XXXX.png or ``names``."""
     from PIL import Image
 
     rng = np.random.default_rng(0)
-    yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
+    yy, xx = np.mgrid[0 : size[0], 0 : size[1]].astype(np.float32)
     for i in range(n):
         base = np.stack([np.sin((xx + 3 * i) / 37.0), np.cos((yy - 2 * i) / 29.0),
                          np.sin((xx + yy + i) / 53.0)], axis=-1)
         img = (base * 90 + 128 + rng.normal(0, 8, base.shape)).clip(0, 255).astype(np.uint8)
-        Image.fromarray(img).save(os.path.join(folder, f"frame_{i:04d}.png"))
+        name = names[i] if names is not None else f"frame_{i:04d}.png"
+        Image.fromarray(img).save(os.path.join(folder, name), compress_level=1)
 
 
 def run_cli(name: str, frames: str, out: str, extra: list) -> tuple[dict, list]:
@@ -1723,9 +1744,10 @@ def phase_online(tmp: str) -> dict:
     slam = Pi3SLAMOnline(OnlineConfig(chunk_length=100, overlap=20, max_keypoints=400,
                                       moge_checkpoint_path=moge, output_dir=out))
     runs = {}
-    for name, pipelined, backend in (("sync", False, "auto"), ("async", True, "auto"),
-                                     ("async, SfM on the host", True, "cpu")):
-        run = fresh_run(slam, sfm_backend=backend)
+    for name, pipelined, backend, iterations in (
+            ("sync", False, "auto", 10), ("async", True, "auto", 10),
+            ("async, SfM on the host", True, "cpu", 10), ("sync without BA", False, "auto", 0)):
+        run = fresh_run(slam, sfm_backend=backend, ba_iterations=iterations)
         t0 = time.perf_counter()
         r = run.process_image_paths(paths, pipelined=pipelined)
         wall = time.perf_counter() - t0
@@ -1744,16 +1766,105 @@ def phase_online(tmp: str) -> dict:
     sfm = sync["metric_scale"] + sync["reconstruction"] + sync["alignment"]
     for name in ("async", "async, SfM on the host"):
         wall, stage, traj = runs[name]
-        diff = float(np.abs(traj - sync_traj).max())
         log(f"    {name} vs sync: wall {wall:.2f}s vs {sync_wall:.2f}s; sync forward + pull "
             f"{forward:.2f}s, SfM {sfm:.2f}s (sum {forward + sfm:.2f}s, max {max(forward, sfm):.2f}s); "
             f"build (pull + BA) {stage['reconstruction']:.2f}s beside the forward vs "
-            f"{sync['reconstruction']:.2f}s alone; merged trajectories differ by at most "
-            f"{diff:.3e} m (tol 1e-5)")
-        if name == "async" and diff > 1e-5:
-            raise RuntimeError(f"async trajectory {diff} m from the sync one")
+            f"{sync['reconstruction']:.2f}s alone")
+    # the async consumer does the sync run's work in the same order
+    diff = float(np.abs(runs["async"][2] - sync_traj).max())
+    log(f"    async vs sync merged trajectories: at most {diff:.3e} m apart (tol 1e-5) "
+        f"{'ok' if diff <= 1e-5 else 'FAIL'}")
+    if diff > 1e-5:
+        raise RuntimeError(f"async trajectory {diff} m from the sync one")
+    # Not held: random weights put chunk 0's cameras within millimetres of
+    # each other, and its BA then moves them by decimetres along directions
+    # that fp32 rounding decides, so the host's SfM (another summation order)
+    # lands as far from the card's as a run without BA does. (e) holds the
+    # same chain card against host on a scene that fixes the answer.
+    def extent(centers):  # the largest distance from their mean
+        return float(np.linalg.norm(centers - centers.mean(0), axis=1).max())
+
+    host, no_ba = (pose_distance(runs[name][2], sync_traj)
+                   for name in ("async, SfM on the host", "sync without BA"))
+    log(f"    SfM on the host vs the card (sync), after a similarity: largest {host[0]:.3e} m, "
+        f"RMS {host[1]:.3e} (raw {float(np.abs(runs['async, SfM on the host'][2] - sync_traj).max()):.3e}); "
+        f"the card without BA: largest {no_ba[0]:.3e} m, RMS {no_ba[1]:.3e}; the trajectory's "
+        f"extent {extent(sync_traj):.3e} m, chunk 0's cameras {extent(runs['sync without BA'][2][:100]):.3e} m "
+        f"before BA and {extent(sync_traj[:100]):.3e} m after; not held on random weights, see (e)")
     ba_beside_loads(slam, os.path.join(tmp, "eval", "chunks", "chunk_000000.npz"))
+    online_sfm_against_host(slam, tmp)
     return counts
+
+
+# (e)'s bound on the largest per-pose distance between the card's and the
+# host's merged trajectories after one similarity. On an NVIDIA H100 80GB HBM3
+# at 700 W the card read 1.063e-3 m and the card without BA 8.767e-3 m; the
+# bound sits near their geometric mean, about three times from each.
+ONLINE_TOL = 3e-3
+
+
+def online_sfm_against_host(slam, tmp: str) -> None:
+    """(e) The online SfM chain (chunk reconstruction and BA, Sim3 alignment
+    and prior BA, sync) on phase 6's eval-scale synthetic chunks, served in
+    place of the chunk step as tests/test_torch_online.py serves them: on the
+    card, on the host CPU and on the card without BA. The card's merged
+    trajectory lies within ONLINE_TOL of the host's after one similarity; the
+    run without BA must lie outside it."""
+    import glob
+    import shutil
+
+    from PIL import Image
+
+    scene = os.path.join(tmp, "eval")
+    chunks = {}
+    for path in sorted(glob.glob(os.path.join(scene, "chunks", "chunk_*.npz"))):
+        with np.load(path) as z:
+            chunks[str(z["image_paths"][0])] = {k: z[k] for k in z.files}
+    frames = os.path.join(tmp, "eval_frames")
+    os.makedirs(frames)
+    width, height = 644, 476  # multiples of 14: the loader's resize is the identity
+    paths = [os.path.join(frames, f"frame_{i:04d}.png") for i in range(420)]
+    Image.fromarray(np.full((height, width, 3), 127, np.uint8)).save(paths[0])
+    for path in paths[1:]:
+        shutil.copyfile(paths[0], path)
+    truth = synthetic_sequence(np.random.default_rng(0), 420, 5000, 640, 480, 0.08, 0.0007)[1]
+
+    def serve(run):
+        def dispatch(batch):
+            d = chunks[os.path.basename(batch["paths"][0])]
+            run._produced += 1
+            return {"dev": {"camera_poses": d["camera_poses"], "points_kp": d["points"],
+                            "colors_kp": d["colors"], "intrinsics": d["intrinsics"]},
+                    "moge_depth": None, "ready": None, "kps": d["keypoints"].astype(np.float32),
+                    "batch": batch}
+
+        run._dispatch_device = dispatch
+
+    from pi3_slam_tpu_torch.utils.evaluation import ape_translation
+
+    trajs = {}
+    for name, backend, iterations in (("card", "auto", 10), ("host", "cpu", 10),
+                                      ("card without BA", "auto", 0)):
+        run = fresh_run(slam, sfm_backend=backend, ba_iterations=iterations,
+                        pixel_limit=width * height)
+        serve(run)
+        t0 = time.perf_counter()
+        r = run.process_image_paths(paths, pipelined=False)
+        trajs[name] = run._merged_trajectory()[0]
+        log(f"    (e) {name}: {r['num_chunks']} chunks in {time.perf_counter() - t0:.2f}s, "
+            f"{len(run.alignment_results)} alignments "
+            f"({sum(not a.success for a in run.alignment_results)} failed), APE RMSE "
+            f"{ape_translation(truth, trajs[name]).rmse:.4f} m")
+    worst, rms = pose_distance(trajs["card"], trajs["host"])
+    control = pose_distance(trajs["card without BA"], trajs["host"])[0]
+    log(f"    (e) online SfM, card vs host after a similarity: largest {worst:.3e} m (tol "
+        f"{ONLINE_TOL:g}), RMS {rms:.3e}; the card without BA vs the host {control:.3e} m "
+        f"{'ok' if worst <= ONLINE_TOL < control else 'FAIL'}")
+    if worst > ONLINE_TOL:
+        raise RuntimeError(f"online SfM: a card pose lies {worst} m from the host's")
+    if control <= ONLINE_TOL:
+        raise RuntimeError(f"online SfM: the tolerance {ONLINE_TOL} passes a run without BA "
+                           f"({control} m)")
 
 
 def pose_distance(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
@@ -1821,6 +1932,348 @@ def ba_against_host(chunk_path: str) -> None:
                                f"1% of the tracks removed ({control})")
 
 
+# --- phase 8: the evaluation on the port from converted reference
+# checkpoints. The reference Pi3 and MoGe-2 key maps, inverted: the port's
+# converters (pi3_slam_tpu_torch/models/convert.py) map these names onto the
+# JAX layout, so a JAX-layout tree gives the state dict they expect.
+
+REF_BLOCK = {"norm1_scale": "norm1.weight", "norm1_bias": "norm1.bias",
+             "qkv_kernel": "attn.qkv.weight", "qkv_bias": "attn.qkv.bias",
+             "proj_kernel": "attn.proj.weight", "proj_bias": "attn.proj.bias",
+             "norm2_scale": "norm2.weight", "norm2_bias": "norm2.bias",
+             "fc1_kernel": "mlp.fc1.weight", "fc1_bias": "mlp.fc1.bias",
+             "fc2_kernel": "mlp.fc2.weight", "fc2_bias": "mlp.fc2.bias",
+             "q_norm_scale": "attn.q_norm.weight", "q_norm_bias": "attn.q_norm.bias",
+             "k_norm_scale": "attn.k_norm.weight", "k_norm_bias": "attn.k_norm.bias",
+             "ls1": "ls1.gamma", "ls2": "ls2.gamma"}
+
+
+def _ref_blocks(sd: dict, prefix: str, stacked: dict, indices) -> None:
+    for layer, idx in enumerate(indices):
+        for leaf, name in REF_BLOCK.items():
+            if leaf in stacked:
+                a = stacked[leaf][layer]
+                sd[f"{prefix}{idx}.{name}"] = a.T if leaf.endswith("_kernel") else a
+
+
+def _ref_dinov2(sd: dict, prefix: str, enc: dict) -> None:
+    kernel = enc["patch_embed_kernel"]  # (3 p p, C)
+    c, p = kernel.shape[1], math.isqrt(kernel.shape[0] // 3)
+    sd[f"{prefix}patch_embed.proj.weight"] = kernel.T.reshape(c, 3, p, p)
+    sd[f"{prefix}patch_embed.proj.bias"] = enc["patch_embed_bias"]
+    sd[f"{prefix}cls_token"] = enc["cls_token"].reshape(1, 1, c)
+    sd[f"{prefix}pos_embed"] = enc["pos_embed"].reshape(1, -1, c)
+    if enc["register_tokens"].shape[0]:  # a plain DINOv2 has none
+        sd[f"{prefix}register_tokens"] = enc["register_tokens"].reshape(1, -1, c)
+    sd[f"{prefix}norm.weight"] = enc["norm_scale"]
+    sd[f"{prefix}norm.bias"] = enc["norm_bias"]
+    _ref_blocks(sd, f"{prefix}blocks.", enc["blocks"], range(len(enc["blocks"]["qkv_kernel"])))
+
+
+def reference_pi3_state_dict(tree: dict) -> dict:
+    """A JAX-layout Pi3 tree -> the reference Pi3's state dict (numpy
+    arrays, views of the tree's leaves)."""
+    sd: dict = {}
+    _ref_dinov2(sd, "encoder.", tree["encoder"])
+    dec = tree["decoder"]
+    sd["register_token"] = dec["register_token"][None, None]
+    pairs = len(dec["even_blocks"]["qkv_kernel"])
+    _ref_blocks(sd, "decoder.", dec["even_blocks"], range(0, 2 * pairs, 2))
+    _ref_blocks(sd, "decoder.", dec["odd_blocks"], range(1, 2 * pairs, 2))
+    for name in ("point_decoder", "conf_decoder", "camera_decoder"):
+        hd = tree[name]
+        sd[f"{name}.projects.weight"] = hd["project_kernel"].T
+        sd[f"{name}.projects.bias"] = hd["project_bias"]
+        _ref_blocks(sd, f"{name}.blocks.", hd["blocks"], range(len(hd["blocks"]["qkv_kernel"])))
+        sd[f"{name}.linear_out.weight"] = hd["out_kernel"].T
+        sd[f"{name}.linear_out.bias"] = hd["out_bias"]
+    for name in ("point_head", "conf_head"):
+        sd[f"{name}.proj.weight"] = tree[name]["kernel"].T
+        sd[f"{name}.proj.bias"] = tree[name]["bias"]
+    cam = tree["camera_head"]
+    for i in range(2):
+        for j in (1, 2, 3):
+            sd[f"camera_head.res_conv.{i}.res_conv{j}.weight"] = cam[f"res_conv{i}"][f"fc{j}_kernel"].T
+            sd[f"camera_head.res_conv.{i}.res_conv{j}.bias"] = cam[f"res_conv{i}"][f"fc{j}_bias"]
+    for leaf, name in (("mlp1", "more_mlps.0"), ("mlp2", "more_mlps.2"), ("fc_t", "fc_t"),
+                       ("fc_rot", "fc_rot")):
+        sd[f"camera_head.{name}.weight"] = cam[f"{leaf}_kernel"].T
+        sd[f"camera_head.{name}.bias"] = cam[f"{leaf}_bias"]
+    return sd
+
+
+def _ref_conv(sd: dict, name: str, p: dict, leaf: str = "") -> None:
+    sd[f"{name}.weight"] = p[f"{leaf}kernel"].transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    sd[f"{name}.bias"] = p[f"{leaf}bias"]
+
+
+def _ref_conv_stack(sd: dict, prefix: str, p: dict) -> None:
+    for kind in ("input_blocks", "output_blocks"):
+        for i, conv in enumerate(p[kind]):
+            if conv is not None:
+                _ref_conv(sd, f"{prefix}{kind}.{i}", conv)
+    for i, level in enumerate(p["res_blocks"]):
+        for j, blk in enumerate(level):
+            base = f"{prefix}res_blocks.{i}.{j}."
+            _ref_conv(sd, f"{base}layers.2", blk, "conv1_")
+            _ref_conv(sd, f"{base}layers.5", blk, "conv2_")
+            for norm, layer in (("norm1", 0), ("norm2", 3)):
+                if f"{norm}_scale" in blk:
+                    sd[f"{base}layers.{layer}.weight"] = blk[f"{norm}_scale"]
+                    sd[f"{base}layers.{layer}.bias"] = blk[f"{norm}_bias"]
+            if "skip_kernel" in blk:
+                _ref_conv(sd, f"{base}skip_connection", blk, "skip_")
+    for i, res in enumerate(p["resamplers"]):
+        _ref_conv(sd, f"{prefix}resamplers.{i}.0", res, "conv1_")
+        _ref_conv(sd, f"{prefix}resamplers.{i}.2", res, "conv2_")
+
+
+def reference_moge_checkpoint(tree: dict) -> tuple[dict, dict]:
+    """A JAX-layout MoGe-2 tree -> the reference checkpoint's 'model' state
+    dict (numpy arrays) and its 'model_config'."""
+    import dataclasses
+
+    from pi3_slam_tpu_torch.models.moge_model import MoGeConfig
+
+    cfg = MoGeConfig.from_json(str(tree["_config_json"]))
+    sd: dict = {}
+    _ref_dinov2(sd, "encoder.backbone.", tree["backbone"])
+    for i, proj in enumerate(tree["output_projections"]):
+        _ref_conv(sd, f"encoder.output_projections.{i}", proj)
+    stacks = {}
+    for name in ("neck", "points_head", "mask_head", "normal_head"):
+        stacks[name] = None
+        if getattr(cfg, name) is not None:
+            _ref_conv_stack(sd, f"{name}.", tree[name])
+            stacks[name] = dataclasses.asdict(getattr(cfg, name))
+    for i, lin in enumerate(tree.get("scale_head") or []):  # Linear layers, a ReLU between
+        sd[f"scale_head.{2 * i}.weight"] = lin["kernel"].T
+        sd[f"scale_head.{2 * i}.bias"] = lin["bias"]
+    model_config = {
+        "encoder": {"backbone": cfg.backbone, "intermediate_layers": cfg.intermediate_layers,
+                    "dim_out": cfg.encoder_dim_out},
+        **stacks,
+        "scale_head": {"dims": list(cfg.scale_head_dims)} if cfg.scale_head_dims else None,
+        "remap_output": cfg.remap_output,
+        "num_tokens_range": list(cfg.num_tokens_range),
+    }
+    return sd, model_config
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """An F32 .safetensors file: an 8-byte little-endian header length, the
+    JSON header (dtype, shape, data_offsets), then the raw bytes."""
+    header, offset = {}, 0
+    for name, a in tensors.items():
+        header[name] = {"dtype": "F32", "shape": list(a.shape),
+                        "data_offsets": [offset, offset + 4 * a.size]}
+        offset += 4 * a.size
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(len(text).to_bytes(8, "little"))
+        f.write(text)
+        for a in tensors.values():
+            np.ascontiguousarray(a, dtype="<f4").tofile(f)
+
+
+def tree_leaves(node, prefix: str = ""):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from tree_leaves(v, f"{prefix}/{k}")
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            yield from tree_leaves(v, f"{prefix}/#{i}")
+    else:
+        yield prefix, node
+
+
+def same_tree(what: str, got: dict, want: dict) -> int:
+    """Every leaf of got equal to want's (np.array_equal); returns the count."""
+    g, w = dict(tree_leaves(got)), dict(tree_leaves(want))
+    if g.keys() != w.keys():
+        raise RuntimeError(f"{what}: converted leaves differ: {sorted(g.keys() ^ w.keys())[:5]}")
+    bad = [k for k in w if (g[k] is None) != (w[k] is None)
+           or (w[k] is not None and not np.array_equal(np.asarray(g[k]), np.asarray(w[k])))]
+    if bad:
+        raise RuntimeError(f"{what}: {len(bad)} converted leaves differ from the tree: {bad[:5]}")
+    return len(w)
+
+
+def smooth_poses(n: int) -> np.ndarray:
+    """(n, 4, 4) camera-to-world: forward motion with a slight yaw (the
+    trajectory of tools/smoke_eval_scripts.py's fabricated scenes)."""
+    poses = np.tile(np.eye(4), (n, 1, 1))
+    for i in range(n):
+        c, s = np.cos(0.02 * i), np.sin(0.02 * i)
+        poses[i, :3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+        poses[i, :3, 3] = [0.05 * i, 0.01 * np.sin(0.3 * i), 0.02 * i]
+    return poses
+
+
+def write_7scenes(root: str, frames: str) -> None:
+    """One 7-Scenes-shaped scene, <root>/scene/seq-01: phase 4's 130 frames
+    as frame-XXXXXX.color.png with a pose file each."""
+    import shutil
+
+    seq = os.path.join(root, "scene", "seq-01")
+    os.makedirs(seq)
+    for i, pose in enumerate(smooth_poses(130)):
+        shutil.copyfile(os.path.join(frames, f"frame_{i:04d}.png"),
+                        os.path.join(seq, f"frame-{i:06d}.color.png"))
+        np.savetxt(os.path.join(seq, f"frame-{i:06d}.pose.txt"), pose)
+
+
+def write_euroc(root: str, n: int = 530, skip: int = 400, height: int = 480,
+                width: int = 752) -> str:
+    """A EuRoC-shaped MH_03 (cam0 frames named by their nanosecond stamps at
+    20 Hz, the ``skip`` frames its start-frame skip drops copies of the first
+    kept one; ground truth at 200 Hz around them) and a radial-tangential
+    cam0 calibration; returns the calibration's path."""
+    import shutil
+
+    mav0 = os.path.join(root, "MH_03", "mav0")
+    cam0 = os.path.join(mav0, "cam0", "data")
+    os.makedirs(cam0)
+    os.makedirs(os.path.join(mav0, "state_groundtruth_estimate0"))
+    t0, dt = 1403636579763555584, 50_000_000
+    names = [f"{t0 + i * dt}.png" for i in range(n)]
+    write_frames(cam0, n - skip, (height, width), names[skip:])
+    for name in names[:skip]:
+        shutil.copyfile(os.path.join(cam0, names[skip]), os.path.join(cam0, name))
+    gt_t = np.arange(t0 - 10 * dt, t0 + (n + 9) * dt, dt // 10, dtype=np.int64)
+    poses = smooth_poses(len(gt_t))
+    with open(os.path.join(mav0, "state_groundtruth_estimate0", "data.csv"), "w") as f:
+        f.write("#timestamp,px,py,pz,qw,qx,qy,qz\n")
+        for t, pose in zip(gt_t, poses):
+            r = pose[:3, :3]
+            qw = 0.5 * np.sqrt(max(0.0, 1 + r[0, 0] + r[1, 1] + r[2, 2]))
+            q = [(r[2, 1] - r[1, 2]) / (4 * qw), (r[0, 2] - r[2, 0]) / (4 * qw),
+                 (r[1, 0] - r[0, 1]) / (4 * qw)]
+            f.write(f"{t},{pose[0, 3]},{pose[1, 3]},{pose[2, 3]},{qw},{q[0]},{q[1]},{q[2]}\n")
+    calib = os.path.join(root, "cam0_calib.json")
+    with open(calib, "w") as f:
+        json.dump({"image_height": height, "image_width": width,
+                   "intrinsic_type": "PINHOLE_RADIAL_TANGENTIAL",
+                   "intrinsics": {"aspect_ratio": 1.0, "focal_length": 0.7 * width,
+                                  "principal_pt_x": width / 2 + 1.0,
+                                  "principal_pt_y": height / 2 - 1.0,
+                                  "radial_distortion_1": -0.05, "radial_distortion_2": 0.01,
+                                  "radial_distortion_3": 0.0, "tangential_distortion_1": 1e-4,
+                                  "tangential_distortion_2": 1e-4, "skew": 0.0}}, f)
+    return calib
+
+
+def convert(model: str, src: str, out: str) -> float:
+    """python -m pi3_slam_tpu_torch.tools.convert_checkpoint in process;
+    returns its wall seconds."""
+    from pi3_slam_tpu_torch.tools.convert_checkpoint import main as convert_main
+
+    argv = ["--model", model, "--input", src, "--output", out]
+    log("    python -m pi3_slam_tpu_torch.tools.convert_checkpoint " + " ".join(argv))
+    t0 = time.perf_counter()
+    if convert_main(argv):
+        raise RuntimeError(f"converting {src} failed")
+    return time.perf_counter() - t0
+
+
+def eval_run(argv: list, name: str, n_frames: int) -> dict:
+    """One run of python -m pi3_slam_tpu_torch.tools.eval in process on one
+    scene or sequence: a finite APE, its ground truth and trajectory with
+    n_frames poses, two chunks that each launch the metric-depth path's
+    kernels. Returns the tool's record of it."""
+    from pi3_slam_tpu_torch.io.tum import read_tum_trajectory
+    from pi3_slam_tpu_torch.tools.eval import run as evaluate
+
+    log("    python -m pi3_slam_tpu_torch.tools.eval " + " ".join(argv))
+    res = evaluate(argv)[name]
+    steps = res["steps"]
+    online = "pi3_slam_online" in steps
+    per_chunk = [nonzero(c) for c in (steps["pi3_slam_online"]["chunk_launches"] if online else
+                                      [r["launches"] for r in steps["create_offline_chunks"]])]
+    if per_chunk != [PATH_LAUNCHES["metric_depth"]] * 2:
+        raise RuntimeError(f"{name}: launches per chunk {per_chunk}, expected two chunks of "
+                           f"{PATH_LAUNCHES['metric_depth']}")
+    if not math.isfinite(res["rmse"]) or res["pairs"] != n_frames:
+        raise RuntimeError(f"{name}: APE RMSE {res['rmse']} over {res['pairs']} pairs")
+    out = os.path.dirname(res["gt"])
+    for path in (res["gt"], os.path.join(out, "trajectory_tum.txt")):
+        positions = read_tum_trajectory(path)["positions"]
+        if positions.shape != (n_frames, 3) or not np.isfinite(positions).all():
+            raise RuntimeError(f"{path}: {positions.shape} poses, or not finite")
+    if online:
+        r = steps["pi3_slam_online"]
+        log(f"    {name}, online: {res['seconds']:.2f}s ({r['fps']:.2f} frames/s through the "
+            f"online CLI; stages {stage_line(r['queue_status'])}), APE RMSE {res['rmse']:.4f} m "
+            f"over {res['pairs']} poses")
+    else:
+        records = steps["create_offline_chunks"]
+        recon = steps["reconstruct_offline"]["timings"]
+        log(f"    {name}, offline: {res['seconds']:.2f}s; frames/s into chunks "
+            f"{[round(r['fps'], 2) for r in records]}; reconstruction per chunk "
+            f"{[round(t['recon_s'], 3) for t in recon]}s; APE RMSE {res['rmse']:.4f} m over "
+            f"{res['pairs']} poses")
+    return res
+
+
+def phase_eval(tmp: str) -> dict:
+    """(a) the converter CLI on a reference-named Pi3 model.safetensors and a
+    MoGe-2 model.pt made from the random trees; (b)-(d) the eval tool on
+    them. Returns the eval runs' launch counts."""
+    import torch
+
+    from pi3_slam_tpu_torch.models.convert import (
+        init_moge_params,
+        init_pi3_params,
+        load_params_npz,
+        load_pi3_checkpoint,
+        moge_vits_config,
+    )
+    from pi3_slam_tpu_torch.models.pi3 import Pi3Config
+    from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    ckpt = os.path.join(tmp, "ckpt")
+    os.makedirs(ckpt)
+    log("  (a) the converters: a reference-named Pi3 model.safetensors from init_pi3_params(0), "
+        "a MoGe-2 model.pt from init_moge_params(0, moge_vits_config())")
+    tree = init_pi3_params(0)
+    src = os.path.join(ckpt, "model.safetensors")
+    write_safetensors(src, reference_pi3_state_dict(tree))
+    pi3 = os.path.join(ckpt, "pi3.npz")
+    seconds = convert("pi3", src, pi3)
+    os.remove(src)
+    params, cfg = load_pi3_checkpoint(pi3)
+    n = same_tree("Pi3", params, tree)
+    if cfg != Pi3Config():
+        raise RuntimeError(f"the converted Pi3 checkpoint embeds {cfg}, not Pi3Config()")
+    log(f"    Pi3: {n} leaves equal to the random tree, config Pi3Config(); {seconds:.2f}s")
+    del tree, params
+    tree = init_moge_params(0, moge_vits_config())
+    sd, model_config = reference_moge_checkpoint(tree)
+    src = os.path.join(ckpt, "model.pt")
+    torch.save({"model": {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()},
+                "model_config": model_config}, src)
+    moge = os.path.join(ckpt, "moge.npz")
+    seconds = convert("moge", src, moge)
+    n = same_tree("MoGe-2", load_params_npz(moge), tree)
+    log(f"    MoGe-2: {n} leaves equal to the random tree (its config JSON too); {seconds:.2f}s")
+
+    no_gt = os.path.join(tmp, "no_gt")  # no ground-truth file: the tool makes it
+    data = os.path.join(tmp, "7scenes")
+    write_7scenes(data, os.path.join(tmp, "frames"))
+    reset_launch_counts()
+    for mode, label in (("offline", "(b)"), ("online", "(c)")):
+        log(f"  {label} 7-Scenes {mode}: 130 frames at 640x480")
+        eval_run(["7scenes", data, pi3, moge, os.path.join(tmp, f"eval_{mode}"), "--scenes", "scene",
+                  "--mode", mode, "--gt-dir", no_gt], "scene", 130)
+    log("  (d) EuRoC MH_03: 530 frames at 752x480, the first 400 skipped, radial-tangential calib")
+    euroc = os.path.join(tmp, "euroc")
+    calib = write_euroc(euroc)
+    eval_run(["euroc", euroc, pi3, calib, moge, os.path.join(tmp, "eval_euroc"), "--seqs", "MH_03",
+              "--gt-dir", no_gt], "MH_03", 130)
+    return nonzero(launch_counts())
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "pi3_slam_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1861,6 +2314,8 @@ def main() -> int:
         phase_reconstruct(tmp)
         log("[7] online: the port's online CLI, its drive modes, SfM on the card and the host")
         by_path["online"] = phase_online(tmp)
+        log("[8] eval: the checkpoint converters and the 7-Scenes / EuRoC eval tool")
+        by_path["eval"] = phase_eval(tmp)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]

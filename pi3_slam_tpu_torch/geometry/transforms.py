@@ -2,8 +2,9 @@
 
 Port of ``pi3_slam_tpu/geometry/transforms.py`` (``homogenize_points``,
 ``se3_inverse``, ``svd_orthogonalize``, ``transform_points``, ``skew``,
-``so3_exp``, ``so3_log``, ``rotation_matrix_to_quaternion``); batched over
-leading dims.
+``so3_exp``, ``so3_log``); batched over leading dims. Its
+``rotation_matrix_to_quaternion`` is ``io/tum.quaternions_wxyz``, the TUM
+writer's only use of it.
 """
 
 from __future__ import annotations
@@ -83,30 +84,3 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     scale = torch.where(theta < 1e-6, 0.5 + theta * theta / 12.0,
                         theta / (2.0 * torch.sin(theta)).clamp_min(1e-24))
     return v * scale[..., None]
-
-
-def rotation_matrix_to_quaternion(R: torch.Tensor) -> torch.Tensor:
-    """(..., 3, 3) rotations -> unit quaternions (..., 4) (w, x, y, z), w >= 0:
-    Shepperd's method, the candidate keyed by the largest of (trace, R00,
-    R11, R22)."""
-    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
-    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
-    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
-    tr = m00 + m11 + m22
-
-    def safe_sqrt(x):
-        return x.clamp_min(1e-24).sqrt()
-
-    s0 = safe_sqrt(tr + 1.0) * 2.0
-    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], -1)
-    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
-    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], -1)
-    s2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
-    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], -1)
-    s3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
-    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], -1)
-    q = torch.where((tr > 0.0)[..., None], q0,
-                    torch.where(((m00 >= m11) & (m00 >= m22))[..., None], q1,
-                                torch.where((m11 >= m22)[..., None], q2, q3)))
-    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
-    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)

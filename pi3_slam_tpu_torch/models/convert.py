@@ -16,6 +16,12 @@ trees and this port's ``Pi3`` and ``MoGe`` modules.
   OIHW); :func:`save_params_npz` writes either tree in the JAX package's
   ``.npz`` format, and :func:`moge_vits_config` is the configuration of
   random-weight MoGe-2 runs.
+* :func:`convert_pi3_state_dict` and :func:`convert_moge_state_dict` turn the
+  reference checkpoints' state dicts (Pi3's ``model.safetensors``, MoGe-2's
+  ``model.pt``) into the JAX layout, as numpy copies of the JAX package's
+  converters; :func:`check_pi3_config` holds a Pi3Config to the weights and
+  :func:`save_pi3_checkpoint` writes the tree with it embedded
+  (``tools/convert_checkpoint.py`` is the command line).
 * :func:`cross_block_state_from_jax` and :func:`init_cross_block_params` do
   the same for the cross-attention block (``models/cross_attention.py``);
   no cross-block checkpoint is in the repository, so runs use the random
@@ -246,6 +252,258 @@ def load_moge_checkpoint(path: str):
     cfg = MoGeConfig.from_params(params)
     params.pop("_config_json")
     return params, cfg
+
+
+# --- reference checkpoints -> the JAX layout (numpy copies of the JAX
+# package's models/convert.py: the same trees, so a file written by either
+# package's converter loads in both)
+
+
+def _t(w) -> np.ndarray:
+    """torch Linear weight (out, in) -> (in, out) kernel."""
+    return np.ascontiguousarray(np.asarray(w).T)
+
+
+def _hwio(w) -> np.ndarray:
+    """torch conv weight (out, in, kh, kw) -> HWIO (kh, kw, in, out)."""
+    return np.ascontiguousarray(np.asarray(w).transpose(2, 3, 1, 0))
+
+
+def _stack_block_params(get, prefixes, qk_norm: bool, layerscale: bool) -> Dict[str, np.ndarray]:
+    """Per-block reference params stacked along a leading layer axis."""
+    leaves = [("norm1_scale", "norm1.weight", False), ("norm1_bias", "norm1.bias", False),
+              ("qkv_kernel", "attn.qkv.weight", True), ("qkv_bias", "attn.qkv.bias", False),
+              ("proj_kernel", "attn.proj.weight", True), ("proj_bias", "attn.proj.bias", False),
+              ("norm2_scale", "norm2.weight", False), ("norm2_bias", "norm2.bias", False),
+              ("fc1_kernel", "mlp.fc1.weight", True), ("fc1_bias", "mlp.fc1.bias", False),
+              ("fc2_kernel", "mlp.fc2.weight", True), ("fc2_bias", "mlp.fc2.bias", False)]
+    if qk_norm:
+        leaves += [("q_norm_scale", "attn.q_norm.weight", False),
+                   ("q_norm_bias", "attn.q_norm.bias", False),
+                   ("k_norm_scale", "attn.k_norm.weight", False),
+                   ("k_norm_bias", "attn.k_norm.bias", False)]
+    if layerscale:
+        leaves += [("ls1", "ls1.gamma", False), ("ls2", "ls2.gamma", False)]
+    return {leaf: np.stack([_t(get(f"{p}.{name}")) if kernel else get(f"{p}.{name}")
+                            for p in prefixes])
+            for leaf, name, kernel in leaves}
+
+
+def convert_dinov2(sd, prefix: str, depth: int) -> Dict[str, Any]:
+    """An encoder subtree (DinoVisionTransformer with block_chunks=0)."""
+
+    def get(name):
+        return np.asarray(sd[f"{prefix}{name}"])
+
+    conv_w = get("patch_embed.proj.weight")  # (C, 3, p, p)
+    c = conv_w.shape[0]
+    return {
+        "patch_embed_kernel": np.ascontiguousarray(conv_w.reshape(c, -1).T),
+        "patch_embed_bias": get("patch_embed.proj.bias"),
+        "cls_token": get("cls_token").reshape(1, c),
+        "pos_embed": get("pos_embed").reshape(-1, c),
+        # plain (non-reg) DINOv2 backbones have no register tokens
+        "register_tokens": (get("register_tokens").reshape(-1, c)
+                            if f"{prefix}register_tokens" in sd else np.zeros((0, c), np.float32)),
+        "blocks": _stack_block_params(get, [f"blocks.{i}" for i in range(depth)],
+                                      qk_norm=False, layerscale=True),
+        "norm_scale": get("norm.weight"),
+        "norm_bias": get("norm.bias"),
+    }
+
+
+def _convert_head_decoder(sd, prefix: str, depth: int = 5) -> Dict[str, Any]:
+    def get(name):
+        return np.asarray(sd[f"{prefix}{name}"])
+
+    return {
+        "project_kernel": _t(get("projects.weight")),
+        "project_bias": get("projects.bias"),
+        "blocks": _stack_block_params(get, [f"blocks.{i}" for i in range(depth)],
+                                      qk_norm=False, layerscale=False),
+        "out_kernel": _t(get("linear_out.weight")),
+        "out_bias": get("linear_out.bias"),
+    }
+
+
+def _convert_camera_head(sd, prefix: str) -> Dict[str, Any]:
+    def get(name):
+        return np.asarray(sd[f"{prefix}{name}"])
+
+    out: Dict[str, Any] = {
+        f"res_conv{i}": {f"fc{j}_{kind}": (_t(get(f"res_conv.{i}.res_conv{j}.weight"))
+                                           if kind == "kernel"
+                                           else get(f"res_conv.{i}.res_conv{j}.bias"))
+                         for j in (1, 2, 3) for kind in ("kernel", "bias")}
+        for i in range(2)}
+    for leaf, name in (("mlp1", "more_mlps.0"), ("mlp2", "more_mlps.2"), ("fc_t", "fc_t"),
+                       ("fc_rot", "fc_rot")):
+        out[f"{leaf}_kernel"] = _t(get(f"{name}.weight"))
+        out[f"{leaf}_bias"] = get(f"{name}.bias")
+    return out
+
+
+def convert_pi3_state_dict(sd, encoder_depth: int = 24, dec_depth: int = 36) -> Dict[str, Any]:
+    """The reference Pi3 state dict (numpy or torch values; the module tree
+    of the reference ``pi3/models/pi3.py``) -> the JAX-layout param tree."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    get = sd.__getitem__
+    even = _stack_block_params(get, [f"decoder.{i}" for i in range(0, dec_depth, 2)],
+                               qk_norm=True, layerscale=True)
+    odd = _stack_block_params(get, [f"decoder.{i}" for i in range(1, dec_depth, 2)],
+                              qk_norm=True, layerscale=True)
+    c = even["qkv_kernel"].shape[1]
+    return {
+        "encoder": convert_dinov2(sd, "encoder.", encoder_depth),
+        "decoder": {"register_token": get("register_token").reshape(-1, c),
+                    "even_blocks": even, "odd_blocks": odd},
+        "point_decoder": _convert_head_decoder(sd, "point_decoder."),
+        "conf_decoder": _convert_head_decoder(sd, "conf_decoder."),
+        "camera_decoder": _convert_head_decoder(sd, "camera_decoder."),
+        "point_head": {"kernel": _t(get("point_head.proj.weight")),
+                       "bias": get("point_head.proj.bias")},
+        "conf_head": {"kernel": _t(get("conf_head.proj.weight")),
+                      "bias": get("conf_head.proj.bias")},
+        "camera_head": _convert_camera_head(sd, "camera_head."),
+    }
+
+
+def check_pi3_config(params: Dict[str, Any], config: Pi3Config) -> None:
+    """Raise ValueError naming the first shape-derivable Pi3Config field that
+    the converted tree contradicts (the CLIs size the model from the config
+    embedded in the checkpoint, so it must describe these weights). Head
+    counts are not derivable from weight shapes and are not checked."""
+    enc, dec, pd = params["encoder"], params["decoder"], params["point_decoder"]
+    even, odd = dec["even_blocks"], dec["odd_blocks"]
+
+    def ratio(blocks):
+        return int(blocks["fc1_kernel"].shape[-1] // blocks["fc1_kernel"].shape[-2])
+
+    derived = {
+        "encoder.patch_size": (int(round((enc["patch_embed_kernel"].shape[0] // 3) ** 0.5)),
+                               config.encoder.patch_size),
+        "encoder.embed_dim": (int(enc["patch_embed_kernel"].shape[1]), config.encoder.embed_dim),
+        "encoder.depth": (int(enc["blocks"]["qkv_kernel"].shape[0]), config.encoder.depth),
+        "encoder.mlp_ratio": (ratio(enc["blocks"]), config.encoder.mlp_ratio),
+        "encoder.num_register_tokens": (int(enc["register_tokens"].shape[0]),
+                                        config.encoder.num_register_tokens),
+        "dec_embed_dim": (int(even["qkv_kernel"].shape[1]), config.dec_embed_dim),
+        "dec_depth": (int(even["qkv_kernel"].shape[0] + odd["qkv_kernel"].shape[0]),
+                      config.dec_depth),
+        "mlp_ratio": (ratio(even), config.mlp_ratio),
+        "num_register_tokens": (int(dec["register_token"].shape[0]), config.num_register_tokens),
+        "head_dim": (int(pd["project_kernel"].shape[-1]), config.head_dim),
+        "head_depth": (int(pd["blocks"]["qkv_kernel"].shape[0]), config.head_depth),
+        "camera_dim": (int(params["camera_head"]["res_conv0"]["fc1_kernel"].shape[0]),
+                       config.camera_dim),
+    }
+    for field, (got, want) in derived.items():
+        if got != want:
+            raise ValueError(
+                f"Pi3 checkpoint/config mismatch: weights imply {field}={got} but the config "
+                f"says {want}. Pass the variant's config (Pi3Config json) instead of the default.")
+
+
+def save_pi3_checkpoint(path: str, params: Dict[str, Any], config: Pi3Config) -> None:
+    """Save Pi3 params with the config embedded as '_pi3_config_json' (what
+    ``load_pi3_checkpoint`` of either package reads)."""
+    save_params_npz(path, {**params, "_pi3_config_json": np.asarray(config.to_json())})
+
+
+def moge_config_from_model_config(model_config: Dict[str, Any]) -> MoGeConfig:
+    """A MoGe-2 checkpoint's 'model_config' dict (the reference's
+    ``moge/model/v2.py``) -> MoGeConfig."""
+
+    def cs(d):
+        if d is None:
+            return None
+        dim_out = d["dim_out"]
+        resamplers = d.get("resamplers", "pixel_shuffle")
+        return ConvStackConfig(
+            dim_in=tuple(d["dim_in"]),
+            dim_res_blocks=tuple(d["dim_res_blocks"]),
+            dim_out=(tuple(dim_out) if isinstance(dim_out, (list, tuple))
+                     else (dim_out,) * len(d["dim_res_blocks"])),
+            resamplers=tuple(resamplers) if isinstance(resamplers, (list, tuple)) else resamplers,
+            dim_times_res_block_hidden=d.get("dim_times_res_block_hidden", 1),
+            num_res_blocks=d.get("num_res_blocks", 1),
+            res_block_in_norm=d.get("res_block_in_norm", "layer_norm"),
+            res_block_hidden_norm=d.get("res_block_hidden_norm", "group_norm"),
+        )
+
+    enc = model_config["encoder"]
+    scale_head = model_config.get("scale_head")
+    return MoGeConfig(
+        backbone=enc["backbone"],
+        intermediate_layers=enc["intermediate_layers"],
+        encoder_dim_out=enc["dim_out"],
+        neck=cs(model_config["neck"]),
+        points_head=cs(model_config.get("points_head")),
+        mask_head=cs(model_config.get("mask_head")),
+        normal_head=cs(model_config.get("normal_head")),
+        scale_head_dims=tuple(scale_head["dims"]) if scale_head else None,
+        remap_output=model_config.get("remap_output", "linear"),
+        num_tokens_range=tuple(model_config.get("num_tokens_range", (1200, 3600))),
+    )
+
+
+def _convert_conv_stack(sd, prefix: str, cfg: ConvStackConfig) -> Dict[str, Any]:
+    """A reference ConvStack (``moge/model/modules.py``) -> input_blocks /
+    res_blocks / resamplers / output_blocks lists (None where a level has no
+    input or output conv)."""
+    n = len(cfg.dim_res_blocks)
+
+    def conv(base, leaf=""):
+        return {f"{leaf}kernel": _hwio(sd[f"{base}weight"]), f"{leaf}bias": np.asarray(sd[f"{base}bias"])}
+
+    def maybe_conv(name):
+        return conv(f"{prefix}{name}.") if f"{prefix}{name}.weight" in sd else None
+
+    def res_block(base):
+        blk = {**conv(f"{base}layers.2.", "conv1_"), **conv(f"{base}layers.5.", "conv2_")}
+        for norm, layer in (("norm1", 0), ("norm2", 3)):  # absent for a 'none' norm
+            if f"{base}layers.{layer}.weight" in sd:
+                blk[f"{norm}_scale"] = np.asarray(sd[f"{base}layers.{layer}.weight"])
+                blk[f"{norm}_bias"] = np.asarray(sd[f"{base}layers.{layer}.bias"])
+        if f"{base}skip_connection.weight" in sd:
+            blk.update(conv(f"{base}skip_connection.", "skip_"))
+        return blk
+
+    return {
+        "input_blocks": [maybe_conv(f"input_blocks.{i}") for i in range(n)],
+        "res_blocks": [[res_block(f"{prefix}res_blocks.{i}.{j}.")
+                        for j in range(cfg.num_blocks_at(i))] for i in range(n)],
+        "resamplers": [{**conv(f"{prefix}resamplers.{i}.0.", "conv1_"),
+                        **conv(f"{prefix}resamplers.{i}.2.", "conv2_")} for i in range(n - 1)],
+        "output_blocks": [maybe_conv(f"output_blocks.{i}") for i in range(n)],
+    }
+
+
+def convert_moge_state_dict(sd, model_config: Dict[str, Any]) -> Dict[str, Any]:
+    """A MoGe-2 reference checkpoint ('model' state dict and 'model_config')
+    -> the JAX-layout param tree with the config embedded as '_config_json'."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    cfg = moge_config_from_model_config(model_config)
+    params: Dict[str, Any] = {
+        "backbone": convert_dinov2(sd, "encoder.backbone.", cfg.encoder_cfg.depth),
+        "output_projections": [
+            {"kernel": _hwio(sd[f"encoder.output_projections.{i}.weight"]),
+             "bias": np.asarray(sd[f"encoder.output_projections.{i}.bias"])}
+            for i in range(cfg.num_projections)],
+        "neck": _convert_conv_stack(sd, "neck.", cfg.neck),
+        "_config_json": np.asarray(cfg.to_json()),
+    }
+    for head in ("points_head", "mask_head", "normal_head"):
+        if getattr(cfg, head) is not None:
+            params[head] = _convert_conv_stack(sd, f"{head}.", getattr(cfg, head))
+    if cfg.scale_head_dims is not None:
+        layers, i = [], 0
+        while f"scale_head.{i}.weight" in sd:
+            layers.append({"kernel": _t(sd[f"scale_head.{i}.weight"]),
+                           "bias": np.asarray(sd[f"scale_head.{i}.bias"])})
+            i += 2  # the Linear layers sit at the even indices, a ReLU between them
+        params["scale_head"] = layers
+    return params
 
 
 def _trunc(rng: np.random.Generator, shape, std=0.02) -> np.ndarray:

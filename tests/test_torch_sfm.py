@@ -28,6 +28,7 @@ import pi3_slam_tpu.sfm.ba as jba
 import pi3_slam_tpu.sfm.native as jnative
 from pi3_slam_tpu_torch.geometry import sim3 as tsim3
 from pi3_slam_tpu_torch.geometry import transforms as ttf
+from pi3_slam_tpu_torch.io.tum import quaternions_wxyz
 from pi3_slam_tpu_torch.sfm import ba as tba
 from pi3_slam_tpu_torch.sfm import native as tnative
 
@@ -59,9 +60,9 @@ def test_so3_exp_log_skew_match_jax(rng, scale):
 def test_quaternion_and_transform_points_match_jax(rng):
     R = Rotation.random(64, random_state=0).as_matrix()
     R[:4] = np.diag([1.0, -1.0, -1.0])  # trace -1: the non-trace branches
-    q_t = ttf.rotation_matrix_to_quaternion(torch.from_numpy(R).float())
-    q_j = jtf.rotation_matrix_to_quaternion(jnp.asarray(R, jnp.float32))
-    np.testing.assert_allclose(_np(q_t), np.asarray(q_j), atol=1e-6)
+    # the TUM writers' quaternions: float64 rotations in, the same float32 bits out
+    np.testing.assert_array_equal(quaternions_wxyz(R),
+                                  np.asarray(jtf.rotation_matrix_to_quaternion(R)))
     T = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
     T[:, :3, :3] = R[4:7]
     T[:, :3, 3] = rng.normal(size=(3, 3))
