@@ -123,6 +123,25 @@ Phases, each of which raises (exit code 1) on failure:
    against the ground truth the tool makes, and two chunks that each
    launch the metric-depth path's kernels; the runs' launch counts are the
    kernels line's "eval" path.
+9. appearance: (a) the converter CLI with --model aliked on a lightglue-named
+   aliked-n16 state dict from init_aliked_params(0), every leaf equal to the
+   tree; (b) the eval tool's 7-Scenes offline and online runs on phase 8's
+   scene and checkpoints with --keypoints aliked --aliked-npz --refine --loop:
+   chunks with keypoint_valid, float16 descriptors and the refined fan, all
+   finite, per chunk the refined share and the seconds of ALIKED, of the
+   refinement (device) and of the chunk, the metric-depth path's launches a
+   chunk (the kernels line's "appearance" path), the APE printed (random
+   weights); then phase 7's 340 frames through the creator CLI with MoGe-2,
+   grid keypoints against --keypoints aliked --refine-observations: the
+   steady chunk's seconds of each; (c) ALIKED-n16's dense maps on the card against the host CPU,
+   then detection and SDDH on both from the card's maps, and its time for a
+   100-frame chunk; (d) ZNCC on the card: planted sub-pixel shifts
+   recovered, card against host on 100 frames at 308x406 with a keypoint at
+   the last frame's bottom-right corner, the time at 300 keypoints with fan 7
+   and 400 with fan 10; (e) the reconstructor CLI on tests/test_loop_system.py's
+   circle (copied): the first-last loop edge found on the card, the
+   loop-closed APE below the open one, the card's loop-closed trajectory
+   within LOOP_TOL of the host's after a similarity and the open one outside.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -2274,6 +2293,415 @@ def phase_eval(tmp: str) -> dict:
     return nonzero(launch_counts())
 
 
+# --- phase 9: the appearance path (ALIKED, ZNCC refinement, loop closure)
+
+# (c)'s bounds, card against host: the dense maps' relative L2 (cuDNN fp32,
+# TF32 off, against the CPU's convolutions), then from the card's own maps
+# the keypoints of valid slots (px) and the descriptors' relative L2
+ALIKED_MAP_TOL = 1e-4
+ALIKED_KP_TOL = 1e-4
+ALIKED_DESC_TOL = 1e-5
+# (d): refined coordinates (px) and ZNCC peaks, card against host. Where two
+# displacements score within rounding of each other the first maximum can
+# differ by a pixel between card and host; such an observation is a near-tie
+# when its peaks agree within ZNCC_PEAK_TOL, and at most ZNCC_TIE_SHARE of
+# the observations may be one
+ZNCC_UV_TOL = 1e-4
+ZNCC_PEAK_TOL = 1e-5
+ZNCC_TIE_SHARE = 1e-3
+# (e): the largest distance between the card's and the host's loop-closed
+# trajectories after one similarity, on a circle of radius 5; the card's
+# trajectory without loop closure must lie outside it
+LOOP_TOL = 1e-2
+
+
+def write_loop_chunks(out: str, rng, n_frames=150, n_landmarks=2500, chunk_length=30, overlap=5,
+                      n_kp=100, noise_px=0.4, pt_sigma=0.03, desc_dim=64) -> np.ndarray:
+    """tests/test_loop_system.py's scene, copied with numpy and scipy: a
+    closed circle of radius 5 (cameras facing outward) around a landmark
+    ring, each chunk in its own random Sim3 gauge with point noise, and a
+    unit descriptor per landmark, so the revisit is found by appearance.
+    Returns the true camera centers."""
+    from scipy.spatial.transform import Rotation
+
+    from pi3_slam_tpu_torch.data.datasets import chunk_windows
+
+    w, h, f = 640, 480, 500.0
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])
+    theta = 2 * np.pi * np.arange(n_frames) / n_frames
+    centers = np.stack([5 * np.cos(theta), 5 * np.sin(theta), np.zeros(n_frames)], axis=1)
+    rots = np.stack([np.stack([[-np.sin(t), np.cos(t), 0.0], [0.0, 0.0, 1.0],
+                               [np.cos(t), np.sin(t), 0.0]], axis=1) for t in theta])
+    phi = rng.uniform(0, 2 * np.pi, n_landmarks)
+    rad = rng.uniform(9, 13, n_landmarks)
+    landmarks = np.stack([rad * np.cos(phi), rad * np.sin(phi),
+                          rng.uniform(-2.5, 2.5, n_landmarks)], axis=1)
+    desc = rng.normal(size=(n_landmarks, desc_dim))
+    desc = (desc / np.linalg.norm(desc, axis=-1, keepdims=True)).astype(np.float32)
+    os.makedirs(os.path.join(out, "chunks"), exist_ok=True)
+    for ci, (s, e) in enumerate(chunk_windows(n_frames, chunk_length, overlap)):
+        frames = list(range(s, e))
+        nf = len(frames)
+        g_s = rng.uniform(0.8, 1.25)
+        g_R = Rotation.from_rotvec(rng.normal(size=3) * 0.08).as_matrix()
+        g_t = rng.normal(size=3) * 0.4
+        kps = np.zeros((nf, n_kp, 2), np.float32)
+        pts = np.zeros((nf, n_kp, 3), np.float32)
+        descs = np.zeros((nf, n_kp, desc_dim), np.float32)
+        poses = np.tile(np.eye(4), (nf, 1, 1))
+        for j, fidx in enumerate(frames):
+            cam = (landmarks - centers[fidx]) @ rots[fidx]
+            z = cam[:, 2]
+            uv = np.stack([K[0, 0] * cam[:, 0] / z + K[0, 2], K[1, 1] * cam[:, 1] / z + K[1, 2]], 1)
+            vis = (z > 1.0) & (uv[:, 0] > 5) & (uv[:, 0] < w - 5) & (uv[:, 1] > 5) & (uv[:, 1] < h - 5)
+            sel_rng = np.random.default_rng(fidx)  # the same keypoints in every chunk
+            vis_ids = np.nonzero(vis)[0]
+            sel = vis_ids[sel_rng.permutation(len(vis_ids))[:n_kp]]
+            sel = np.concatenate([sel, np.repeat(sel[-1:], n_kp - len(sel))])
+            kps[j] = uv[sel] + sel_rng.normal(size=(n_kp, 2)) * noise_px
+            pw = g_s * landmarks[sel] @ g_R.T + g_t
+            pts[j] = pw + rng.normal(size=pw.shape) * (pt_sigma * g_s)
+            descs[j] = desc[sel]
+            poses[j, :3, :3] = g_R @ rots[fidx]
+            poses[j, :3, 3] = g_s * g_R @ centers[fidx] + g_t
+        np.savez_compressed(
+            os.path.join(out, "chunks", f"chunk_{ci:06d}.npz"),
+            keypoints=kps.astype(np.float16), points=pts.astype(np.float16),
+            colors=np.full((nf, n_kp, 3), 128, np.uint8), camera_poses=poses.astype(np.float32),
+            intrinsics=np.tile(K, (nf, 1, 1)).astype(np.float32),
+            image_paths=np.asarray([f"frame_{i:04d}.png" for i in frames]),
+            original_width=w, original_height=h, masks=np.ones((nf, n_kp), bool),
+            descriptors=descs.astype(np.float16))
+    with open(os.path.join(out, "chunk_metadata.json"), "w") as fj:
+        json.dump({"chunk_length": chunk_length, "overlap": overlap}, fj)
+    return centers
+
+
+def rel_l2(got, want) -> float:
+    import torch
+
+    got, want = got.double().cpu(), want.double().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def appearance_chunks(out: str, records: list) -> None:
+    """The eval tool's appearance chunks: keypoint validity, float16
+    descriptors and the refined fan (int16 frames, float32 coordinates), all
+    finite; per chunk the share of refined observations and the seconds of
+    ALIKED, of the refinement and of the whole chunk."""
+    import glob
+
+    paths = sorted(glob.glob(os.path.join(out, "chunks", "chunk_*.npz")))
+    if len(paths) != len(records) or len(paths) != 2:
+        raise RuntimeError(f"{out}: {len(paths)} chunk files, {len(records)} records")
+    for path, rec in zip(paths, records):
+        with np.load(path) as z:
+            want = {"keypoint_valid": np.bool_, "descriptors": np.float16, "obs_frame": np.int16,
+                    "obs_uv": np.float32, "obs_valid": np.bool_, "obs_refined": np.bool_}
+            for key, dtype in want.items():
+                if key not in z.files or z[key].dtype != dtype:
+                    raise RuntimeError(f"{path}: {key} missing or not {np.dtype(dtype)}")
+                if not np.isfinite(z[key].astype(np.float32)).all():
+                    raise RuntimeError(f"{path}: {key} not finite")
+            n, k, m = z["obs_frame"].shape
+            if z["descriptors"].shape != (n, k, 128) or z["obs_uv"].shape != (n, k, m, 2):
+                raise RuntimeError(f"{path}: descriptors {z['descriptors'].shape}, obs_uv "
+                                   f"{z['obs_uv'].shape}")
+            fan = z["obs_valid"][:, :, 1:]
+            share = z["obs_refined"].sum() / max(1, fan.sum())
+            log(f"      {os.path.basename(path)}: {n} frames x {k} keypoints "
+                f"({z['keypoint_valid'].mean():.3f} valid), fan {m}; "
+                f"{fan.sum()} projected observations in bounds, {share:.4f} of them refined; "
+                f"ALIKED {rec['aliked_s']:.3f}s, refinement {rec['refine_s'] * 1e3:.2f} ms "
+                f"(device), whole chunk {rec['infer_s']:.3f}s ({rec['fps']:.2f} frames/s)")
+
+
+def aliked_card_vs_host(aliked: str, frames: str) -> None:
+    """(c) ALIKED-n16 on eight 308x406 frames: the dense maps on the card
+    and on the host CPU; then detection and SDDH on both from the card's own
+    maps. Then the card's time for a 100-frame chunk."""
+    import torch
+    from PIL import Image
+
+    from pi3_slam_tpu_torch.models.aliked import (
+        aliked_dense_maps,
+        aliked_state_from_jax,
+        build_aliked,
+        describe_keypoints,
+        detect_keypoints,
+    )
+    from pi3_slam_tpu_torch.models.convert import load_aliked_checkpoint
+    from pi3_slam_tpu_torch.utils.keypoints import ALIKEDExtractor
+
+    tree, cfg = load_aliked_checkpoint(aliked)
+    card = build_aliked(cfg, aliked_state_from_jax(tree), "cuda")
+    host = build_aliked(cfg, aliked_state_from_jax(tree), "cpu")
+    imgs = np.stack([np.asarray(Image.open(os.path.join(frames, f"frame_{i:04d}.png"))
+                                .resize((406, 308), Image.BILINEAR)) for i in range(0, 120, 15)])
+    x = torch.from_numpy(imgs.transpose(0, 3, 1, 2).copy()).float() / 255.0
+    with torch.no_grad():
+        fc, sc = aliked_dense_maps(card, x.cuda())
+        fh, sh = aliked_dense_maps(host, x)
+        e_f, e_s = rel_l2(fc, fh), rel_l2(sc, sh)
+        log(f"    (c) ALIKED-n16 dense maps, 8 frames at 308x406, card vs host: relative L2 "
+            f"features {e_f:.3e}, scores {e_s:.3e} (tol {ALIKED_MAP_TOL:g})")
+        if max(e_f, e_s) > ALIKED_MAP_TOL:
+            raise RuntimeError(f"ALIKED dense maps: card vs host {e_f}, {e_s}")
+        dc = detect_keypoints(sc, 400, cfg.nms_radius, cfg.detection_threshold)
+        dh = detect_keypoints(sc.cpu(), 400, cfg.nms_radius, cfg.detection_threshold)
+        valid = dh["valid"]
+        if not torch.equal(dc["valid"].cpu(), valid):
+            raise RuntimeError("ALIKED detection: card and host validity differ")
+        kp_err = (dc["keypoints"].cpu() - dh["keypoints"])[valid].abs().max().item()
+        desc_c = describe_keypoints(card, fc, dc["keypoints"])
+        desc_h = describe_keypoints(host, fc.cpu(), dh["keypoints"])
+        e_d = rel_l2(desc_c, desc_h)
+        log(f"    (c) from the card's maps: {int(valid.sum())} of {valid.numel()} slots valid on "
+            f"both, keypoints max |err| {kp_err:.3e} px (tol {ALIKED_KP_TOL:g}), descriptors "
+            f"relative L2 {e_d:.3e} (tol {ALIKED_DESC_TOL:g})")
+        if kp_err > ALIKED_KP_TOL or e_d > ALIKED_DESC_TOL:
+            raise RuntimeError(f"ALIKED detection / SDDH: card vs host {kp_err} px, {e_d}")
+    chunk = np.repeat(imgs.transpose(0, 3, 1, 2), 13, axis=0)[:100]
+    ex = ALIKEDExtractor(aliked, max_num_keypoints=400, device="cuda")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.extract(chunk)
+        times.append(time.perf_counter() - t0)
+    log(f"    (c) ALIKED-n16 on a 100-frame chunk at 308x406, 400 keypoints (mini-batches of 8, "
+        f"uint8 from the host to the host copy): {', '.join(f'{t:.3f}' for t in times)} s")
+
+
+def zncc_on_card() -> None:
+    """(d) ZNCC refinement on the card: planted sub-pixel shifts recovered
+    (tests/test_correlation.py's bounds), then 100 smooth 308x406 frames at
+    the eval settings, card against host with a keypoint at the last frame's
+    bottom-right corner, and the card's time at 300 keypoints with fan 7 and
+    400 with fan 10."""
+    import torch
+    from scipy.ndimage import gaussian_filter, shift as ndshift
+
+    from pi3_slam_tpu_torch.ops.correlation import zncc_refine_observations
+
+    rng = np.random.default_rng(0)
+
+    def smooth(h, w):
+        img = gaussian_filter(rng.normal(size=(h, w)), 2.0)
+        return ((img - img.min()) / (img.max() - img.min())).astype(np.float32)
+
+    h, w = 64, 80
+    img0 = smooth(h, w)
+    true = (1.3, -0.7)
+    t = 50
+    tu, tv = rng.uniform(15, w - 15, t), rng.uniform(15, h - 15, t)
+    obs = np.stack([tu + true[1], tv + true[0]], axis=1) + rng.normal(size=(t, 2))
+    ruv, peak, ok = zncc_refine_observations(
+        torch.tensor(np.stack([img0, ndshift(img0, true, order=3, mode="nearest")]), device="cuda"),
+        torch.zeros(t, dtype=torch.long, device="cuda"),
+        torch.tensor(np.stack([tu, tv], axis=1), dtype=torch.float32, device="cuda"),
+        torch.ones((t, 1), dtype=torch.long, device="cuda"),
+        torch.tensor(obs[:, None], dtype=torch.float32, device="cuda"),
+        patch_radius=4, search_radius=4)
+    ok = ok.cpu().numpy()[:, 0]
+    gt = np.stack([tu + true[1], tv + true[0]], axis=1)
+    before = np.linalg.norm(obs - gt, axis=1)[ok].mean()
+    after = np.linalg.norm(ruv.cpu().numpy()[:, 0] - gt, axis=1)[ok].mean()
+    log(f"    (d) planted shift (1.3, -0.7) px: {ok.mean():.2f} refined, mean error {before:.3f} -> "
+        f"{after:.3f} px, mean peak {peak.cpu().numpy()[:, 0][ok].mean():.3f}")
+    if ok.mean() <= 0.9 or after >= 0.25 or after >= 0.3 * before:
+        raise RuntimeError(f"ZNCC on the card: {ok.mean()} refined, {before} -> {after} px")
+
+    n, h, w = 100, 308, 406
+    base = smooth(h, w)
+    shifts = rng.uniform(-2, 2, (n, 2))
+    gray = np.stack([ndshift(base, s, order=1, mode="nearest") for s in shifts])
+
+    def observations(k, fan):
+        tf = np.repeat(np.arange(n), k)
+        tuv = np.stack([rng.uniform(0, w - 1, n * k), rng.uniform(0, h - 1, n * k)], axis=1)
+        of = rng.integers(0, n, (n * k, fan - 1))
+        ouv = tuv[:, None] + (shifts[of] - shifts[tf][:, None])[..., ::-1]
+        ouv = ouv + rng.normal(size=ouv.shape)
+        tf[-1], tuv[-1], of[-1], ouv[-1] = n - 1, (w - 1, h - 1), n - 1, (w - 1, h - 1)
+        return [torch.tensor(a, dtype=dt) for a, dt in ((tf, torch.long), (tuv, torch.float32),
+                                                      (of, torch.long), (ouv, torch.float32))]
+
+    gray_t = torch.from_numpy(gray)
+    for k, fan in ((300, 7), (400, 10)):
+        args = observations(k, fan)
+        card_args = [gray_t.cuda()] + [a.cuda() for a in args]
+        card = zncc_refine_observations(*card_args)
+        torch.cuda.synchronize()  # a device-side fault surfaces here
+        ms = time_ms(lambda: zncc_refine_observations(*card_args), 5)
+        line = (f"    (d) {n} frames at {h}x{w}, {k} keypoints, fan {fan}: {args[2].numel()} "
+                f"observations, {ms:.2f} ms on the card, {card[2].float().mean().item():.3f} refined")
+        if fan == 7:
+            host = zncc_refine_observations(gray_t, *args)
+            same = torch.equal(card[2].cpu(), host[2])
+            d_uv = (card[0].cpu() - host[0]).abs().amax(-1)
+            ties = d_uv > ZNCC_UV_TOL
+            e_uv = d_uv[~ties].max().item()
+            e_pk = (card[1].cpu() - host[1]).abs().max().item()
+            line += (f"; card vs host: flags {'equal' if same else 'DIFFER'}, uv max |err| "
+                     f"{e_uv:.2e} px (tol {ZNCC_UV_TOL:g}) but for {int(ties.sum())} near-ties "
+                     f"(share {ties.float().mean().item():.2e}, tol {ZNCC_TIE_SHARE:g}; largest "
+                     f"{d_uv.max().item():.3f} px), peak {e_pk:.2e} (tol {ZNCC_PEAK_TOL:g}); "
+                     f"the last frame's bottom-right corner "
+                     f"{'refined' if card[2][-1, -1] else 'kept'}, finite")
+            if (not same or e_pk > ZNCC_PEAK_TOL
+                    or ties.float().mean().item() > ZNCC_TIE_SHARE):
+                raise RuntimeError(f"ZNCC card vs host: flags {same}, peaks {e_pk}, "
+                                   f"{int(ties.sum())} coordinates apart")
+            if not torch.isfinite(card[0]).all():
+                raise RuntimeError("ZNCC on the card: refined coordinates not finite")
+        log(line)
+
+
+def loop_closure_on_card(tmp: str) -> None:
+    """(e) The reconstructor CLI on tests/test_loop_system.py's circle (150
+    frames, six chunks of 30): with --loop-closure on the card, without it on
+    the card, and with it on the host CPU. The first-last edge is found, the
+    loop-closed APE is below the open one, and the card's loop-closed
+    trajectory lies within LOOP_TOL of the host's after one similarity while
+    the open one does not."""
+    from pi3_slam_tpu_torch.io.tum import read_tum_trajectory
+    from pi3_slam_tpu_torch.reconstruct_offline import reconstruct
+    from pi3_slam_tpu_torch.utils.evaluation import ape_translation
+
+    scene = os.path.join(tmp, "loop")
+    truth = write_loop_chunks(scene, np.random.default_rng(0))
+    runs, traj = {}, {}
+    for name, extra in (("card, loop closure", ["--loop-closure"]), ("card, open", []),
+                        ("host, loop closure", ["--loop-closure", "--device", "cpu"])):
+        out = os.path.join(tmp, "loop_" + name.replace(", ", "_").replace(" ", "_"))
+        argv = ["--chunks", scene, "--output", out, "--max-observations-per-track", "6",
+                "--ba-iterations", "3", *extra]
+        log("    python -m pi3_slam_tpu_torch.reconstruct_offline " + " ".join(argv))
+        t0 = time.perf_counter()
+        runs[name] = r = reconstruct(argv)
+        seconds = time.perf_counter() - t0
+        traj[name] = read_tum_trajectory(r["artifacts"]["trajectory"])["positions"]
+        ape = ape_translation(truth, traj[name]).rmse
+        stats = r["loop_closure"]
+        line = f"    (e) {name}: {seconds:.2f}s, APE RMSE {ape:.4f} m"
+        if stats is not None:
+            edges = ", ".join(f"{e.i}-{e.j} ({e.num_inliers}/{e.num_matches})"
+                              for e in stats["edges"])
+            line += (f"; loop closure {stats['seconds']:.3f}s, edges {edges or 'none'}, pose-graph "
+                     f"cost {stats.get('initial_cost', 0):.4f} -> {stats.get('final_cost', 0):.4f}")
+        log(line)
+        runs[name] = (r, ape)
+    r, ape_loop = runs["card, loop closure"]
+    n_chunks = len(r["reconstructions"])
+    if (0, n_chunks - 1) not in [(e.i, e.j) for e in r["loop_closure"]["edges"]]:
+        raise RuntimeError("loop closure on the card: no edge between the first and last chunks")
+    if ape_loop >= runs["card, open"][1]:
+        raise RuntimeError(f"loop closure on the card: APE {ape_loop} not below the open "
+                           f"{runs['card, open'][1]}")
+    worst, rms = pose_distance(traj["card, loop closure"], traj["host, loop closure"])
+    control = pose_distance(traj["card, open"], traj["host, loop closure"])[0]
+    log(f"    (e) loop-closed trajectory, card vs host after a similarity: largest {worst:.3e} "
+        f"(tol {LOOP_TOL:g}), RMS {rms:.3e}; the card's open trajectory vs the host {control:.3e} "
+        f"{'ok' if worst <= LOOP_TOL < control else 'FAIL'}")
+    if worst > LOOP_TOL:
+        raise RuntimeError(f"loop closure: a card pose lies {worst} from the host's")
+    if control <= LOOP_TOL:
+        raise RuntimeError(f"loop closure: the tolerance {LOOP_TOL} passes the open run "
+                           f"({control})")
+
+
+def phase_appearance(tmp: str) -> dict:
+    """(a) the converter CLI on a lightglue-named aliked-n16 state dict;
+    (b) the eval tool's 7-Scenes offline and online runs with --keypoints
+    aliked --refine --loop on phase 8's scene and checkpoints; (c) ALIKED
+    card vs host; (d) ZNCC on the card; (e) loop closure on the card.
+    Returns (b)'s launch counts."""
+    import torch
+
+    from pi3_slam_tpu_torch.models.aliked import CONFIGS, aliked_state_from_jax, init_aliked_params
+    from pi3_slam_tpu_torch.models.convert import load_params_npz
+    from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pi3_slam_tpu_torch.tools.eval import run as evaluate
+
+    ckpt = os.path.join(tmp, "ckpt")
+    log("  (a) the converter: a lightglue-named aliked-n16 state dict from init_aliked_params(0)")
+    tree = init_aliked_params(0, CONFIGS["aliked-n16"])
+    src = os.path.join(ckpt, "aliked-n16.pth")
+    torch.save(aliked_state_from_jax(tree), src)
+    aliked = os.path.join(ckpt, "aliked.npz")
+    seconds = convert("aliked", src, aliked)
+    params = load_params_npz(aliked)
+    if str(params.pop("_model_name")) != "aliked-n16":
+        raise RuntimeError("the converted ALIKED file names another variant")
+    f32 = {k: v for k, v in tree_leaves(tree)}
+    n = same_tree("ALIKED", dict(tree_leaves(params)),
+                  {k: np.asarray(v, np.float32) for k, v in f32.items()})
+    log(f"    ALIKED: {n} leaves equal to the tree in float32 (the state dict's dtype); "
+        f"{seconds:.2f}s")
+
+    pi3, moge = os.path.join(ckpt, "pi3.npz"), os.path.join(ckpt, "moge.npz")
+    data, no_gt = os.path.join(tmp, "7scenes"), os.path.join(tmp, "no_gt")
+    reset_launch_counts()
+    for mode, label in (("offline", "(b)"), ("online", "(b)")):
+        log(f"  {label} 7-Scenes {mode} with --keypoints aliked --refine --loop: 130 frames")
+        argv = ["7scenes", data, pi3, moge, os.path.join(tmp, f"appearance_{mode}"), "--scenes",
+                "scene", "--mode", mode, "--gt-dir", no_gt, "--keypoints", "aliked",
+                "--aliked-npz", aliked, "--refine", "--loop"]
+        log("    python -m pi3_slam_tpu_torch.tools.eval " + " ".join(argv))
+        res = evaluate(argv)["scene"]
+        steps = res["steps"]
+        if mode == "offline":
+            records = steps["create_offline_chunks"]
+            per_chunk = [nonzero(r["launches"]) for r in records]
+            appearance_chunks(os.path.dirname(res["gt"]), records)
+            stats = steps["reconstruct_offline"]["loop_closure"]
+        else:
+            per_chunk = [nonzero(c) for c in steps["pi3_slam_online"]["chunk_launches"]]
+            stats = steps["pi3_slam_online"]["loop_closure"]
+        if per_chunk != [PATH_LAUNCHES["metric_depth"]] * 2:
+            raise RuntimeError(f"appearance {mode}: launches per chunk {per_chunk}")
+        if stats is None or not math.isfinite(res["rmse"]) or res["pairs"] != 130:
+            raise RuntimeError(f"appearance {mode}: loop closure {stats}, APE {res['rmse']} over "
+                               f"{res['pairs']} pairs")
+        log(f"    {mode}: {res['seconds']:.2f}s, loop closure {stats['num_loop_edges']} edges "
+            f"(two chunks: detection pairs chunks three or more apart), APE RMSE {res['rmse']:.4f} m over "
+            f"{res['pairs']} poses (random weights: printed, not held)")
+    counts = nonzero(launch_counts())
+    log("  (b) steady chunks: phase 7's 340 frames through the creator CLI with MoGe-2, grid "
+        "keypoints, then --keypoints aliked --refine-observations")
+    from pi3_slam_tpu_torch.create_offline_chunks import create_chunks
+
+    steady = {}
+    for name, extra in (("grid", []), ("aliked + refine", [
+            "--keypoints", "aliked", "--aliked-path", aliked, "--refine-observations"])):
+        argv = ["--images", os.path.join(tmp, "frames340"), "--output",
+                os.path.join(tmp, "steady_" + name.split()[0]), "--chunk-length", "100",
+                "--overlap", "20", "--max-kp", "400", "--moge-path", moge, *extra]
+        log("    python -m pi3_slam_tpu_torch.create_offline_chunks " + " ".join(argv))
+        records = create_chunks(argv)
+        if [nonzero(r["launches"]) for r in records] != [PATH_LAUNCHES["metric_depth"]] * 5:
+            raise RuntimeError(f"steady {name}: launches {[r['launches'] for r in records]}")
+        steady[name] = [r["infer_s"] for r in records]
+        line = (f"    {name}: seconds per chunk {', '.join(f'{t:.3f}' for t in steady[name])} "
+                f"(chunks 1-3 steady)")
+        if records[0]["aliked_s"] is not None:
+            line += (f"; ALIKED {', '.join(f'{r['aliked_s']:.3f}' for r in records)} s; "
+                     f"refinement {', '.join(f'{r['refine_s'] * 1e3:.1f}' for r in records)} ms")
+        log(line)
+    delta = np.median(steady["aliked + refine"][1:4]) - np.median(steady["grid"][1:4])
+    log(f"    the steady chunk, median of chunks 1-3: {np.median(steady['grid'][1:4]):.3f} s with "
+        f"grid keypoints, {np.median(steady['aliked + refine'][1:4]):.3f} s with ALIKED and the "
+        f"refinement ({delta:+.3f} s)")
+    log("  (c) ALIKED-n16, card vs host")
+    aliked_card_vs_host(aliked, os.path.join(tmp, "frames"))
+    log("  (d) ZNCC refinement on the card")
+    zncc_on_card()
+    log("  (e) loop closure on the card: tests/test_loop_system.py's circle")
+    loop_closure_on_card(tmp)
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "pi3_slam_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -2316,6 +2744,8 @@ def main() -> int:
         by_path["online"] = phase_online(tmp)
         log("[8] eval: the checkpoint converters and the 7-Scenes / EuRoC eval tool")
         by_path["eval"] = phase_eval(tmp)
+        log("[9] appearance: ALIKED and its converter, ZNCC refinement, loop closure")
+        by_path["appearance"] = phase_appearance(tmp)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]

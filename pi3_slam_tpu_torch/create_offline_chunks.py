@@ -1,5 +1,6 @@
-"""CLI: create offline chunks with the PyTorch port (Pi3 inference + grid
-keypoints + intrinsics + MoGe-2 metric scale), on the GPU by default.
+"""CLI: create offline chunks with the PyTorch port (Pi3 inference + grid or
+ALIKED keypoints + intrinsics + MoGe-2 metric scale + optional ZNCC
+observation refinement), on the GPU by default.
 
     python -m pi3_slam_tpu_torch.create_offline_chunks --images <dir> \\
         --output <out> --chunk-length 100 --overlap 20 --max-kp 400 --moge-path moge.npz
@@ -57,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--moge-path", default=None,
                         help="Converted MoGe-2 weights (.npz, the JAX package's format)")
     parser.add_argument("--keypoints", default="grid", choices=["aliked", "grid", "none"])
-    parser.add_argument("--aliked-path", default=None, help="ALIKED weights, for --keypoints aliked")
+    parser.add_argument("--aliked-path", default=None, help="Converted ALIKED weights (.npz, tools/convert_checkpoint.py --model "
+                             "aliked), for --keypoints aliked")
     parser.add_argument("--max-kp", type=int, default=200)
     parser.add_argument("--kp-threshold", type=float, default=0.005,
                         help="ALIKED detection threshold, for --keypoints aliked")
@@ -79,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Spatial subsampling of the dense maps. Default: 2 with "
                              "--save-dense, 1 with --keypoints none")
     parser.add_argument("--refine-observations", action="store_true",
-                        help="ZNCC observation refinement (not yet ported)")
+                        help="ZNCC refinement of the track observation fan inside the chunk "
+                             "step; the reconstructor then uses the stored observations")
     parser.add_argument("--refine-max-observations", type=int, default=10,
                         help="Observation-fan width, for --refine-observations")
     parser.add_argument("--global-kv-merge", type=int, default=1,
@@ -100,11 +103,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def unported(args) -> str | None:
     """The message for the first requested feature this port lacks, or None."""
-    if args.keypoints == "aliked":
-        return "--keypoints aliked is not yet ported (ROADMAP.md Queue 1: off the main path, ALIKED)"
-    if args.refine_observations:
-        return ("--refine-observations is not yet ported (ROADMAP.md Queue 1: off the main "
-                "path, ops/correlation.py ZNCC refinement)")
     for flag, value in (("--data-parallel-chunks", args.data_parallel_chunks),
                         ("--tensor-parallel", args.tensor_parallel),
                         ("--sequence-parallel", args.sequence_parallel)):
@@ -144,7 +142,9 @@ def create_chunks(argv=None) -> list[dict]:
         use_metric_depth=args.metric_depth,
         moge_checkpoint_path=args.moge_path,
         keypoint_type=args.keypoints,
+        aliked_checkpoint_path=args.aliked_path,
         max_keypoints=args.max_kp,
+        keypoint_threshold=args.kp_threshold,
         estimate_camera_params=args.estimate_intrinsics,
         cam_dist_path=args.cam_dist_path,
         num_loader_workers=args.num_workers,
@@ -153,6 +153,8 @@ def create_chunks(argv=None) -> list[dict]:
         dense_stride=args.dense_stride or (2 if args.save_dense else 1),
         chunk_compression=args.chunk_compression,
         profile_dir=args.profile_dir,
+        refine_observations=args.refine_observations,
+        refine_max_observations=args.refine_max_observations,
     )
     return OfflineChunkCreator(config).process_and_save(paths)
 

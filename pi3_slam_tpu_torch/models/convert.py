@@ -22,6 +22,10 @@ trees and this port's ``Pi3`` and ``MoGe`` modules.
   converters; :func:`check_pi3_config` holds a Pi3Config to the weights and
   :func:`save_pi3_checkpoint` writes the tree with it embedded
   (``tools/convert_checkpoint.py`` is the command line).
+* :func:`convert_aliked_state_dict` turns a lightglue ALIKED state dict into
+  the JAX layout and :func:`load_aliked_checkpoint` reads the ``.npz`` back
+  with its variant's config (the module and its carrier are in
+  ``models/aliked.py``).
 * :func:`cross_block_state_from_jax` and :func:`init_cross_block_params` do
   the same for the cross-attention block (``models/cross_attention.py``);
   no cross-block checkpoint is in the repository, so runs use the random
@@ -504,6 +508,72 @@ def convert_moge_state_dict(sd, model_config: Dict[str, Any]) -> Dict[str, Any]:
             i += 2  # the Linear layers sit at the even indices, a ReLU between them
         params["scale_head"] = layers
     return params
+
+
+def convert_aliked_state_dict(sd, model_name: str = "aliked-n16") -> Dict[str, Any]:
+    """A lightglue ALIKED state dict -> the JAX layout of
+    ``models/aliked.init_aliked_params`` (HWIO kernels) with a ``_model_name``
+    leaf. A bias the state dict lacks stays out of the tree; any key left
+    unread (``num_batches_tracked`` aside) raises, so a layout the converter
+    does not know fails here rather than loading wrong weights."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    used = set()
+
+    def get(name):
+        used.add(name)
+        return sd[name]
+
+    def bn(prefix):
+        return {leaf: get(f"{prefix}.{leaf}")
+                for leaf in ("weight", "bias", "running_mean", "running_var")}
+
+    def conv_block(prefix):
+        return {"conv1_kernel": _hwio(get(f"{prefix}.conv1.weight")), "conv1_bn": bn(f"{prefix}.bn1"),
+                "conv2_kernel": _hwio(get(f"{prefix}.conv2.weight")), "conv2_bn": bn(f"{prefix}.bn2")}
+
+    def res_block(prefix):
+        out = conv_block(prefix)
+        out["downsample_kernel"] = _hwio(get(f"{prefix}.downsample.weight"))
+        if f"{prefix}.downsample.bias" in sd:
+            out["downsample_bias"] = get(f"{prefix}.downsample.bias")
+        return out
+
+    params = {
+        "block1": conv_block("block1"),
+        "block2": res_block("block2"),
+        "block3": res_block("block3"),
+        "block4": res_block("block4"),
+        **{f"conv{i}_kernel": _hwio(get(f"conv{i}.weight")) for i in range(1, 5)},
+        "score_head": {f"conv{i}_kernel": _hwio(get(f"score_head.{2 * (i - 1)}.weight"))
+                       for i in range(1, 5)},
+        "offset_conv1_kernel": _hwio(get("desc_head.offset_conv.0.weight")),
+        "offset_conv1_bias": get("desc_head.offset_conv.0.bias"),
+        "offset_conv2_kernel": _hwio(get("desc_head.offset_conv.2.weight")),
+        "offset_conv2_bias": get("desc_head.offset_conv.2.bias"),
+        "sf_conv_kernel": _hwio(get("desc_head.sf_conv.weight")),
+        "agg_weights": get("desc_head.agg_weights"),
+    }
+    for i in range(1, 5):
+        if f"score_head.{2 * (i - 1)}.bias" in sd:
+            params["score_head"][f"conv{i}_bias"] = get(f"score_head.{2 * (i - 1)}.bias")
+    unmatched = sorted(k for k in sd if k not in used and "num_batches_tracked" not in k)
+    if unmatched:
+        raise ValueError(
+            f"ALIKED state_dict has {len(unmatched)} unmatched keys (layout "
+            f"drift?): {unmatched[:10]}{'...' if len(unmatched) > 10 else ''}")
+    params["_model_name"] = model_name
+    return params
+
+
+def load_aliked_checkpoint(path: str):
+    """An ALIKED ``.npz`` (``tools/convert_checkpoint.py --model aliked``) ->
+    (JAX-layout tree, ALIKEDConfig of its ``_model_name``; aliked-n16 when the
+    file names none or an unknown variant, as the JAX extractor reads it)."""
+    from .aliked import CONFIGS
+
+    params = load_params_npz(path)
+    name = str(params.pop("_model_name", "aliked-n16"))
+    return params, CONFIGS.get(name, CONFIGS["aliked-n16"])
 
 
 def _trunc(rng: np.random.Generator, shape, std=0.02) -> np.ndarray:

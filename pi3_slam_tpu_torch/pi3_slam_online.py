@@ -1,6 +1,7 @@
 """CLI: online streaming SLAM with the PyTorch port (chunked Pi3 inference,
-MoGe-2 metric scale, per-chunk BA and incremental Sim3 alignment), on the GPU
-by default.
+grid or ALIKED keypoints, MoGe-2 metric scale, optional ZNCC observation
+refinement, per-chunk BA, incremental Sim3 alignment and optional loop
+closure after processing), on the GPU by default.
 
     python -m pi3_slam_tpu_torch.pi3_slam_online --images <dir> --output <out> \\
         --chunk-length 100 --overlap 20 --max-kp 400 --moge-path moge.npz --save-tum
@@ -71,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="npz deflate level for dense stashes: 'default' zlib-6, "
                              "'fast' zlib-1, 'none' STORED")
     g_proc.add_argument("--refine-observations", action="store_true",
-                        help="ZNCC observation refinement (not yet ported)")
+                        help="ZNCC refinement of the track observation fan inside the chunk "
+                             "step (as create_offline_chunks --refine-observations)")
     g_proc.add_argument("--global-kv-merge", type=int, default=1,
                         help="EXPERIMENTAL: merge this many consecutive frames' k/v "
                              "tokens in global attention (FastVGGT-style); "
@@ -89,7 +91,7 @@ def build_parser() -> argparse.ArgumentParser:
     g_kp.add_argument("--keypoints", "--keypoint_type", default="grid",
                       choices=["grid", "aliked"])
     g_kp.add_argument("--aliked-path", default=None,
-                      help="ALIKED weights, for --keypoints aliked (not yet ported)")
+                      help="Converted ALIKED weights (.npz), for --keypoints aliked")
     g_kp.add_argument("--max-kp", "--max_num_keypoints", type=int, default=1000)
     g_kp.add_argument("--kp-threshold", "--keypoint_detection_threshold",
                       type=float, default=0.005,
@@ -147,7 +149,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "ids, common-track counts, conf stats) and append them "
                             "to <output>/overlap_debug.jsonl")
     g_out.add_argument("--loop-closure", action="store_true",
-                       help="Loop-closure finalization (not yet ported)")
+                       help="Loop closure over the chunks after processing (needs "
+                            "--keypoints aliked)")
     g_out.add_argument("--save-dense", action="store_true",
                        help="Stash strided dense per-pixel maps per chunk under "
                             "<output>/dense/")
@@ -200,8 +203,9 @@ def _frames(args, parser) -> list:
 def run_online(argv=None) -> dict:
     """Parse ``argv``, run online SLAM and write its outputs. Returns
     ``Pi3SLAMOnline.process_image_paths``'s result with ``queue_status``,
-    ``chunk_launches`` (kernel launches of each chunk's step and MoGe-2) and
-    ``artifacts`` (output paths). Exits with code 2 on an unported flag or
+    ``chunk_launches`` (kernel launches of each chunk's step and MoGe-2),
+    ``loop_closure`` (``apply_loop_closure``'s statistics, None without
+    ``--loop-closure``) and ``artifacts`` (output paths). Exits with code 2 on an unported flag or
     when no frame is found."""
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -269,6 +273,7 @@ def run_online(argv=None) -> dict:
 
     slam = Pi3SLAMOnline(config)
     result = slam.process_image_paths(paths)
+    loop_stats = slam.apply_loop_closure()
     os.makedirs(args.output, exist_ok=True)
     ply_path = os.path.join(args.output, "final_points.ply")
     slam.save_final_result(ply_path, max_points=args.max_points)
@@ -289,7 +294,8 @@ def run_online(argv=None) -> dict:
         artifacts["trajectory_tum"] = os.path.join(args.output, "trajectory.tum")
         shutil.copyfile(tum_path, artifacts["trajectory_tum"])
     return {**result, "queue_status": slam.queue_status(),
-            "chunk_launches": slam.chunk_launches, "artifacts": artifacts}
+            "chunk_launches": slam.chunk_launches, "loop_closure": loop_stats,
+            "artifacts": artifacts}
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,5 @@
 """CLI: reconstruct from saved chunks with the PyTorch port (per-chunk BA,
-Sim3 chaining, export), on the GPU by default.
+Sim3 chaining, optional loop closure, export), on the GPU by default.
 
     python -m pi3_slam_tpu_torch.reconstruct_offline --chunks <out> [--device cpu]
 
@@ -39,7 +39,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--gravity-sigma", type=float, default=0.05,
                         help="Gravity direction residual sigma, for --telemetry")
     parser.add_argument("--loop-closure", action="store_true",
-                        help="Loop closure over non-adjacent chunks (not yet ported)")
+                        help="Loop closure over non-adjacent chunks: descriptor matching, "
+                             "geometric verification and a Sim3 pose graph (needs "
+                             "--keypoints aliked chunks)")
     parser.add_argument("--loop-min-inliers", type=int, default=20,
                         help="Minimum verified 3D inliers of a loop edge, for --loop-closure")
     parser.add_argument("--save-colmap", action="store_true",
@@ -61,7 +63,6 @@ def unported(args) -> str | None:
     """The message for the first requested feature this port lacks, or None."""
     entries = (
         ("--telemetry", args.telemetry is not None, "sfm/priors.py: telemetry priors"),
-        ("--loop-closure", args.loop_closure, "sfm/loops.py and sfm/posegraph.py: loop closure"),
         ("--save-colmap", args.save_colmap, "io/colmap.py"),
         ("--export-mesh", args.export_mesh, "mapping/: TSDF, raycast, fuse, surface nets"),
         ("--save-volume", args.save_volume, "mapping/: TSDF, raycast, fuse, surface nets"),
@@ -98,6 +99,8 @@ def reconstruct(argv=None) -> dict:
         ba_iterations=args.ba_iterations,
         save_debug=args.save_per_chunk,
         device=args.device,
+        loop_closure=args.loop_closure,
+        loop_min_inliers=args.loop_min_inliers,
     )
     return OfflineReconstructor(config).run()
 

@@ -60,6 +60,15 @@ def mutual_nn_match(query_desc: np.ndarray, ref_desc: np.ndarray,
     return rows[ok], best_r[ok]
 
 
+def subsample_live_tracks(recon: ChunkReconstruction, cap: int) -> np.ndarray:
+    """Evenly subsampled live-track indices (tracks are stored frame-major,
+    so this keeps the spatial coverage); loop detection's descriptor sets."""
+    live = np.nonzero(recon.track_valid > 0)[0]
+    if live.size <= cap:
+        return live
+    return live[np.linspace(0, live.size - 1, cap).astype(np.int64)]
+
+
 def match_tracks_by_descriptor(ref: ChunkReconstruction, query: ChunkReconstruction,
                                frame_map: np.ndarray, min_cosine: float = 0.8,
                                max_px: float = 8.0) -> Tuple[np.ndarray, np.ndarray]:

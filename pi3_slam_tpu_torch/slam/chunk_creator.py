@@ -12,6 +12,16 @@ tail chunk is padded to ``chunk_length`` by repeating its last frame, as the
 JAX creator pads it by default (the padded frames take part in Pi3's global
 attention, so they change the tail's outputs), and its per-frame outputs are
 sliced back; ``pad_tail_chunks=False`` (``--no-pad-tail``) runs it unpadded.
+
+With ``keypoint_type='aliked'`` the keypoints come from the port's ALIKED on
+the device before the step (``utils/keypoints.ALIKEDExtractor``); the chunk
+then stores ``keypoint_valid`` and float16 ``descriptors``, and its masks
+drop the sub-threshold slots. With ``refine_observations`` the step also
+projects each keypoint into its candidate frames (the reconstructor's fan,
+over the chunk's real frame count) and refines every projection by ZNCC
+(``ops/correlation.py``) while the frames are on the device; the chunk
+stores ``obs_frame`` (int16), ``obs_uv`` (float32), ``obs_valid`` and
+``obs_refined``, which the reconstructor uses in place of its own fan.
 """
 
 from __future__ import annotations
@@ -36,8 +46,10 @@ from ..models.convert import build_pi3, init_pi3_params, load_pi3_checkpoint, pi
 from ..models.moge import MISSING_CHECKPOINT, MoGeRunner
 from ..models.pi3 import Pi3, Pi3Config
 from ..ops import launch_counts
+from ..ops.correlation import rgb_to_gray, zncc_refine_observations
 from ..ops.interpolate import grid_sample_frames
-from ..utils.keypoints import grid_keypoints
+from ..sfm.reconstruction import _candidate_frames
+from ..utils.keypoints import ALIKEDExtractor, create_keypoint_extractor, grid_keypoints
 from .config import OfflineCreatorConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -52,6 +64,118 @@ def compute_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def _fan_table(n_real: int, n_padded: int, max_obs: int) -> np.ndarray:
+    """Candidate frames of the in-step observation fan, (n_padded, max_obs - 1)
+    int32, -1 padded: the reconstructor's fan over the REAL frame count (the
+    padded tail frames get no slot and spend none of the earlier frames'
+    budget); the rows of padded frames stay -1."""
+    t = np.full((n_padded, max_obs - 1), -1, np.int32)
+    for f in range(n_real):
+        c = _candidate_frames(f, n_real, max_obs)
+        t[f, : c.size] = c
+    return t
+
+
+def _project_and_refine_observations(images, keypoints, pts_kp, poses, cam, refine_obs, cand):
+    """The observation fan and its ZNCC refinement inside the step.
+
+    Projects each frame's keypoint points into its candidate frames (``cand``,
+    the :func:`_fan_table`) with the in-bounds rule of the reconstructor's
+    fan, and re-measures every projection photometrically
+    (``zncc_refine_observations`` on the [0, 1] grey frames). Returns
+    (N, K, M) arrays, slot 0 the detection itself, so that the tail slicing
+    applies per frame. Frames whose estimated focal is degenerate take the
+    default intrinsics, as ``build_chunk_reconstruction`` does."""
+    m_obs, patch_r, search_r, min_zncc = refine_obs
+    n, _, h, w = images.shape
+    k = keypoints.shape[1]
+    t = n * k
+    dev = images.device
+    cand_safe = cand.clamp_min(0).long()
+
+    f_default = float(max(w, h))
+    default4 = torch.tensor([f_default, f_default, w / 2.0, h / 2.0], dtype=torch.float32,
+                            device=dev)
+    if cam is not None:
+        intr4 = torch.stack([cam["fx"], cam["fy"], cam["cx"], cam["cy"]], dim=-1).float()
+        bad = (intr4[:, 0] <= 1.0) | (intr4[:, 1] <= 1.0) | ~torch.isfinite(intr4[:, :2]).all(1)
+        intr4 = torch.where(bad[:, None], default4[None], intr4)
+    else:
+        intr4 = default4.expand(n, 4)
+
+    R_cw = poses[:, :3, :3].transpose(1, 2)
+    centers = poses[:, :3, 3]
+    Rc = R_cw[cand_safe]  # (N, M-1, 3, 3)
+    cc = centers[cand_safe]  # (N, M-1, 3)
+    ic = intr4[cand_safe]  # (N, M-1, 4)
+    X = pts_kp.float()  # (N, K, 3)
+    xc = torch.einsum("nmij,nmkj->nmki", Rc, X[:, None, :, :] - cc[:, :, None, :])
+    z = xc[..., 2]
+    zs = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+    u = ic[..., 0][..., None] * xc[..., 0] / zs + ic[..., 2][..., None]
+    v = ic[..., 1][..., None] * xc[..., 1] / zs + ic[..., 3][..., None]
+    inb = (z > 0) & (u >= 0) & (u < w) & (v >= 0) & (v < h) & (cand >= 0)[..., None]
+
+    # tracks frame-major, as the reconstructor lays them out
+    obs_uv = torch.stack([u, v], dim=-1).permute(0, 2, 1, 3).reshape(t, m_obs - 1, 2)
+    obs_valid = inb.permute(0, 2, 1).reshape(t, m_obs - 1)
+    obs_frame = cand_safe[:, None, :].expand(n, k, m_obs - 1).reshape(t, m_obs - 1)
+    tmpl_frame = torch.arange(n, device=dev).repeat_interleave(k)
+    tmpl_uv = keypoints.reshape(t, 2).float()
+
+    refined_uv, _, refined = zncc_refine_observations(
+        rgb_to_gray(images.float()), tmpl_frame, tmpl_uv, obs_frame, obs_uv,
+        patch_radius=patch_r, search_radius=search_r, min_zncc=min_zncc)
+    refined = refined & obs_valid
+    obs_uv = torch.where(refined[..., None], refined_uv, obs_uv)
+
+    full_frame = torch.cat([tmpl_frame[:, None], obs_frame], dim=1)
+    full_uv = torch.cat([tmpl_uv[:, None, :], obs_uv], dim=1)
+    full_valid = torch.cat([torch.ones_like(obs_valid[:, :1]), obs_valid], dim=1)
+    full_refined = torch.cat([torch.zeros_like(refined[:, :1]), refined], dim=1)
+    return {
+        "obs_frame": full_frame.reshape(n, k, m_obs).int(),
+        "obs_uv": full_uv.reshape(n, k, m_obs, 2),
+        "obs_valid": full_valid.reshape(n, k, m_obs),
+        "obs_refined": full_refined.reshape(n, k, m_obs),
+    }
+
+
+def _store_refined_observations(result: Dict, host: Dict, n_real: int) -> None:
+    """The refined observation arrays of the real frames: obs_frame as int16,
+    obs_uv as float32 (float16's 0.25 px step above u = 256 would erase the
+    sub-pixel refinement), observations in padded frames invalidated."""
+    of = np.asarray(host["obs_frame"])[:n_real]
+    result["obs_frame"] = of.astype(np.int16)
+    result["obs_uv"] = np.asarray(host["obs_uv"])[:n_real].astype(np.float32)
+    result["obs_valid"] = np.asarray(host["obs_valid"])[:n_real] & (of < n_real)
+    result["obs_refined"] = np.asarray(host["obs_refined"])[:n_real]
+
+
+class _Interval:
+    """Device time of a stretch of the step: CUDA events on the card (no
+    sync until it is read), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.begin = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.begin.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self) -> "_Interval":
+        if self.cuda:
+            self.end.record()
+        else:
+            self.seconds = time.perf_counter() - self.t0
+        return self
+
+    def read(self) -> float:
+        return self.begin.elapsed_time(self.end) / 1e3 if self.cuda else self.seconds
+
+
 def make_chunk_step(
     model: Pi3,
     conf_threshold: float,
@@ -59,12 +183,17 @@ def make_chunk_step(
     estimate_intrinsics: bool,
     return_dense: bool = False,
     dense_stride: int = 1,
+    refine_obs: tuple | None = None,
 ):
     """Per-chunk device step: step(images (N, 3, H, W) uint8, keypoints
-    (N, K, 2)) -> dict of device tensors."""
+    (N, K, 2), cand) -> dict of device tensors. ``refine_obs`` =
+    (max_obs, patch_radius, search_radius, min_zncc) adds the refined
+    observation fan (``cand``: the chunk's :func:`_fan_table` on the device)
+    and a ``_refine`` interval (its device time) to the outputs."""
 
     @torch.no_grad()
-    def step(images: torch.Tensor, keypoints: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def step(images: torch.Tensor, keypoints: torch.Tensor,
+             cand: torch.Tensor | None = None) -> Dict[str, torch.Tensor]:
         images = images.float() / 255.0
         out = model(images[None])
         local = out["local_points"][0]  # (N, H, W, 3)
@@ -89,8 +218,16 @@ def make_chunk_step(
             "depth0": local[0, ..., 2],
             "mask0": masks[0],
         }
+        cam = None
         if estimate_intrinsics:
-            result["intrinsics"] = estimate_camera_parameters(local, conf)["intrinsics"]
+            cam = estimate_camera_parameters(local, conf)
+            result["intrinsics"] = cam["intrinsics"]
+        if refine_obs is not None:
+            # on the unscaled geometry: the metric scale is applied on the host
+            interval = _Interval(images.device)
+            result.update(_project_and_refine_observations(
+                images, keypoints, result["points_kp"], poses, cam, refine_obs, cand))
+            result["_refine"] = interval.stop()
         if return_dense:
             s = dense_stride
             result["local_points_dense"] = local[:, ::s, ::s].half()
@@ -108,6 +245,7 @@ _DENSE_KEYS = ("local_points_dense", "conf_dense", "masks_dense")
 _PER_FRAME_KEYS = (
     "points_kp", "local_points_kp", "conf_kp", "masks_kp", "colors_kp", "camera_poses",
     "local_points_dense", "conf_dense", "masks_dense", "intrinsics",
+    "obs_frame", "obs_uv", "obs_valid", "obs_refined",
 )
 
 
@@ -208,6 +346,56 @@ def metric_scale(moge_depth: np.ndarray | None, host: Dict) -> float | None:
     return float(np.median(ratio)) if ratio.size >= 10 else None
 
 
+def make_keypoint_extractor(config, device: torch.device) -> ALIKEDExtractor | None:
+    """The ALIKED extractor of a creator or online config with
+    ``keypoint_type='aliked'``; without ``aliked_checkpoint_path`` the factory
+    prints its warning and the config falls back to grid keypoints (the JAX
+    creator's behaviour). None for grid keypoints."""
+    if config.keypoint_type != "aliked":
+        return None
+    ex = create_keypoint_extractor(
+        "aliked", max_num_keypoints=config.max_keypoints,
+        detection_threshold=config.keypoint_threshold,
+        aliked_checkpoint_path=config.aliked_checkpoint_path, device=device)
+    if isinstance(ex, ALIKEDExtractor):
+        return ex
+    config.keypoint_type = "grid"
+    return None
+
+
+def refine_settings(config) -> tuple | None:
+    """(max_obs, patch_radius, search_radius, min_zncc) of a config with
+    ``refine_observations``, else None."""
+    if not config.refine_observations:
+        return None
+    return (config.refine_max_observations, config.refine_patch_radius,
+            config.refine_search_radius, config.refine_min_zncc)
+
+
+def detect(extractor: ALIKEDExtractor | None, images: torch.Tensor, max_keypoints: int):
+    """Keypoints (N, K, 2) float32 for a chunk's uploaded frames: ALIKED's on
+    the device (its outputs and their seconds returned beside them), else the
+    grid's. Returns (keypoints, detection or None, seconds or None)."""
+    N, _, H, W = images.shape
+    if extractor is None:
+        kp = grid_keypoints(H, W, max_keypoints)
+        return np.broadcast_to(kp[None], (N, kp.shape[0], 2)).astype(np.float32), None, None
+    t0 = time.perf_counter()
+    det = extractor.extract(images)  # ends with the host copy
+    return det["keypoints"].astype(np.float32), det, time.perf_counter() - t0
+
+
+def host_outputs(dev: Dict) -> Dict[str, np.ndarray]:
+    """The step's outputs on the host (the sync point; outputs already
+    pulled pass through) and its refinement's device seconds under
+    ``refine_s``, when it ran."""
+    host = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in dev.items() if k != "_refine"}
+    if "_refine" in dev:
+        host["refine_s"] = dev["_refine"].read()
+    return host
+
+
 class OfflineChunkCreator:
     def __init__(self, config: OfflineCreatorConfig, pi3_config: Pi3Config | None = None):
         self.config = config
@@ -217,6 +405,7 @@ class OfflineChunkCreator:
         self.target_size = None
         self.chunks_dir = os.path.join(config.output_dir, "chunks")
         os.makedirs(self.chunks_dir, exist_ok=True)
+        self.keypoint_extractor = make_keypoint_extractor(config, self.device)
         dense = config.keypoint_type == "none" or config.save_dense
         self._step = make_chunk_step(
             self.model,
@@ -225,6 +414,7 @@ class OfflineChunkCreator:
             config.estimate_camera_params,
             return_dense=dense,
             dense_stride=config.dense_stride,
+            refine_obs=refine_settings(config),
         )
 
     def _dispatch_chunk(self, images: np.ndarray, paths: List[str]) -> Dict:
@@ -232,32 +422,39 @@ class OfflineChunkCreator:
         its first frame (asynchronous on the GPU: nothing here waits for the
         device)."""
         N, _, H, W = images.shape
+        t0 = time.perf_counter()
+        launches0 = launch_counts()
+        imgs = torch.from_numpy(images).to(self.device, non_blocking=True)
         if self.config.keypoint_type == "none":
             # a single centre point keeps the step's outputs well-formed; the
             # dense maps are what is stored
-            kp = np.array([[W / 2.0, H / 2.0]], dtype=np.float32)
+            kps = np.full((N, 1, 2), [W / 2.0, H / 2.0], np.float32)
+            det = aliked_s = None
         else:
-            kp = grid_keypoints(H, W, self.config.max_keypoints)
-        kps = np.broadcast_to(kp[None], (N, kp.shape[0], 2)).astype(np.float32)
-        t0 = time.perf_counter()
-        launches0 = launch_counts()
+            kps, det, aliked_s = detect(self.keypoint_extractor, imgs, self.config.max_keypoints)
         target = self.config.chunk_length if self.config.pad_tail_chunks else 0
-        imgs, kps_dev = pad_tail(images, kps, target)
-        imgs = torch.from_numpy(imgs).to(self.device, non_blocking=True)
-        dev = self._step(imgs, torch.from_numpy(kps_dev).to(self.device))
+        if N < target:
+            imgs_np, kps_dev = pad_tail(images, kps, target)
+            imgs = torch.from_numpy(imgs_np).to(self.device, non_blocking=True)
+        else:
+            kps_dev = kps
+        cand = None
+        if self.config.refine_observations:
+            cand = torch.from_numpy(
+                _fan_table(N, imgs.shape[0], self.config.refine_max_observations)).to(self.device)
+        dev = self._step(imgs, torch.from_numpy(kps_dev).to(self.device), cand)
         # queued behind the Pi3 step before the host sync; the first frame is
         # sliced from the uploaded chunk
         moge = self.moge.infer_depth_async(imgs[0]) if self.moge is not None else None
-        return {"dev": dev, "moge": moge, "kps": kps, "t0": t0, "images": images,
-                "paths": paths, "launches0": launches0}
+        return {"dev": dev, "moge": moge, "kps": kps, "det": det, "aliked_s": aliked_s, "t0": t0,
+                "images": images, "paths": paths, "launches0": launches0}
 
     def _finish_chunk(self, pending: Dict) -> Dict:
         """Wait for a dispatched chunk and build its storage dict."""
         images = pending["images"]
         kps = pending["kps"]
         N = images.shape[0]
-        host = {k: v.cpu().numpy() for k, v in pending["dev"].items()}  # sync point
-        host = slice_tail(host, N)
+        host = slice_tail(host_outputs(pending["dev"]), N)  # sync point
         moge_depth = pending["moge"].cpu().numpy() if pending["moge"] is not None else None
         dt = max(1e-6, time.perf_counter() - pending["t0"])
         fps = N / dt
@@ -277,11 +474,15 @@ class OfflineChunkCreator:
         elif moge_depth is not None:
             print("   metric scale skipped: too few valid MoGe/Pi3 depth pairs")
         poses_cw = se3_inverse(torch.from_numpy(poses)).numpy().astype(np.float32)
+        det = pending["det"]
+        masks_kp = host["masks_kp"]
+        if det is not None:  # ALIKED's sub-threshold slots are no tracks
+            masks_kp = masks_kp & det["valid"]
         result = {
             "points": points_kp.astype(np.float16),
             "local_points": local_kp.astype(np.float16),
             "conf": host["conf_kp"].astype(np.float16),
-            "masks": host["masks_kp"],
+            "masks": masks_kp,
             "keypoints": kps.astype(np.float16),
             "colors": (host["colors_kp"] * 255).clip(0, 255).astype(np.uint8),
             "camera_poses": poses.astype(np.float32),
@@ -290,12 +491,18 @@ class OfflineChunkCreator:
             "original_height": self.target_size[0],
             "original_width": self.target_size[1],
             "_metrics": {"infer_s": dt, "num_frames": N, "fps": fps, "launches": launches,
-                         "metric_scale": scale_factor},
+                         "metric_scale": scale_factor, "aliked_s": pending["aliked_s"],
+                         "refine_s": host.get("refine_s")},
         }
         if scale_factor is not None:
             result["metric_scale"] = np.float32(scale_factor)
         if "intrinsics" in host:
             result["intrinsics"] = host["intrinsics"].astype(np.float32)
+        if det is not None:
+            result["keypoint_valid"] = det["valid"].astype(bool)
+            result["descriptors"] = det["descriptors"].astype(np.float16)
+        if "obs_frame" in host:
+            _store_refined_observations(result, host, N)
         _store_dense_maps(result, host, scale_factor, self.config.dense_stride, images)
         if self.config.keypoint_type == "none":
             for key in ("points", "local_points", "conf", "masks", "keypoints", "colors"):
@@ -332,9 +539,12 @@ class OfflineChunkCreator:
 
         Returns one record per chunk: ``path`` and ``num_frames``, and for a
         chunk computed in this call (not skipped by ``resume``) also
-        ``infer_s`` (upload to host copy), ``fps``, ``launches`` (kernel
-        launches of the chunk, by wrapper name; all 0 on the CPU) and
-        ``metric_scale`` (None without MoGe or with too few valid depth pairs).
+        ``infer_s`` (upload to host copy, ALIKED included), ``fps``,
+        ``launches`` (kernel launches of the chunk, by wrapper name; all 0 on
+        the CPU), ``metric_scale`` (None without MoGe or with too few valid
+        depth pairs), ``aliked_s`` (ALIKED's seconds to its host copy; None
+        for grid keypoints) and ``refine_s`` (the in-step refinement's device
+        seconds; None without ``refine_observations``).
         """
         if not image_paths:
             raise ValueError("image_paths is empty")
@@ -363,7 +573,8 @@ class OfflineChunkCreator:
                 result = self._profiled(run) if cfg.profile_dir and idx == 1 else run()
                 m = result.pop("_metrics")
                 record.update(infer_s=m["infer_s"], fps=m["fps"], launches=m["launches"],
-                              metric_scale=m["metric_scale"])
+                              metric_scale=m["metric_scale"], aliked_s=m["aliked_s"],
+                              refine_s=m["refine_s"])
                 total_frames += m["num_frames"]
                 total_s += m["infer_s"]
                 if m["num_frames"] == cfg.chunk_length:

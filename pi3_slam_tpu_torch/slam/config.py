@@ -30,9 +30,12 @@ class OfflineCreatorConfig:
     # metric scale from MoGe-2 depth on each chunk's first frame
     use_metric_depth: bool = True
     moge_checkpoint_path: Optional[str] = None  # MoGe .npz; None = no metric scale
-    # keypoints: 'grid', or 'none' (dense maps only)
+    # keypoints: 'grid', 'aliked' (learned, with descriptors) or 'none'
+    # (dense maps only)
     keypoint_type: str = "grid"
     max_keypoints: int = 1000
+    keypoint_threshold: float = 0.005  # ALIKED detection threshold (--kp-threshold)
+    aliked_checkpoint_path: Optional[str] = None  # converted ALIKED .npz
     # camera
     estimate_camera_params: bool = True
     cam_dist_path: Optional[str] = None  # calibration JSON for undistortion
@@ -48,13 +51,20 @@ class OfflineCreatorConfig:
     resume: bool = False  # skip chunks whose files already exist
     # torch.profiler trace of chunk 1 (the first after warm-up) into this dir
     profile_dir: Optional[str] = None
+    # ZNCC refinement of the observation fan inside the chunk step
+    # (ops/correlation.py); the reconstructor then uses the stored fan
+    refine_observations: bool = False
+    refine_max_observations: int = 10
+    refine_patch_radius: int = 3
+    refine_search_radius: int = 4
+    refine_min_zncc: float = 0.5
 
 
 @dataclass
 class ReconstructorConfig:
     """Port of the JAX package's ``ReconstructorConfig`` with the fields of
-    the ported offline path; telemetry priors, loop closure, COLMAP export
-    and mesh fusion are not ported (the CLI refuses their flags)."""
+    the ported offline path; telemetry priors, COLMAP export and mesh fusion
+    are not ported (the CLI refuses their flags)."""
 
     chunk_dir: str = "output_chunks"
     output_dir: Optional[str] = None
@@ -73,15 +83,20 @@ class ReconstructorConfig:
     save_debug: bool = False  # also save recon_XXXXXX.npz per chunk
     # where the bundle adjustments and Sim3 fits run ('cuda' or 'cpu')
     device: str = "cuda"
+    # loop closure over non-adjacent chunks (sfm/loops.py, sfm/posegraph.py);
+    # needs ALIKED chunks (descriptors): grid chunks detect nothing
+    loop_closure: bool = False
+    loop_min_inliers: int = 20
+    loop_min_cosine: float = 0.85
 
 
 @dataclass
 class OnlineConfig:
     """Port of the JAX package's ``OnlineConfig``: the same fields and
-    defaults, plus ``device``. The fields of parts not ported yet (ALIKED,
-    observation refinement, loop closure, telemetry, the viewer, debug
-    projections, mesh fusion, multi-device) are kept so a config reads the
-    same; ``Pi3SLAMOnline`` refuses them (``slam.online.unported``)."""
+    defaults, plus ``device``. The fields of parts not ported yet (telemetry,
+    the viewer, debug projections, mesh fusion, multi-device) are kept so a
+    config reads the same; ``Pi3SLAMOnline`` refuses them
+    (``slam.online.unported``)."""
 
     chunk_length: int = 30
     overlap: int = 5

@@ -5,8 +5,9 @@ trajectory.
 Port of ``pi3_slam_tpu/slam/offline_reconstructor.py`` (``load_chunk_npz``,
 ``OfflineReconstructor.run`` and ``export``): the same artifacts
 (``final_points.ply``, ``final_camera_poses.ply``, ``trajectory_tum.txt``
-with integer timestamps, views deduplicated by name). The solves run on
-``config.device``.
+with integer timestamps, views deduplicated by name), with loop closure over
+non-adjacent chunks after the chain when ``config.loop_closure`` is set
+(``sfm/loops.py``). The solves run on ``config.device``.
 """
 
 from __future__ import annotations
@@ -84,7 +85,9 @@ class OfflineReconstructor:
 
     def run(self) -> Dict:
         """Returns {"reconstructions", "alignment" (one AlignmentResult per
-        chunk after the first), "artifacts" (output paths), "timings" (per
+        chunk after the first), "loop_closure" (``close_loops``'s statistics
+        plus its "seconds"; None without ``loop_closure``), "artifacts"
+        (output paths), "timings" (per
         chunk: "recon_s", the whole chunk reconstruction (observation fan on
         the host, copies, BA, pruning); "ba_s" and "ba_iterations", the BA
         alone; "align_s", the whole alignment, and "refine_iterations")}."""
@@ -128,8 +131,30 @@ class OfflineReconstructor:
                       f"scale {float(res.sim3.scale):.4f}) in {timing['align_s']:.2f}s")
             timings.append(timing)
             recons.append(recon)
-        return {"reconstructions": recons, "alignment": align_stats,
+        loop_stats = self._close_loops(recons) if cfg.loop_closure else None
+        return {"reconstructions": recons, "alignment": align_stats, "loop_closure": loop_stats,
                 "artifacts": self.export(recons), "timings": timings}
+
+    def _close_loops(self, recons: List[ChunkReconstruction]) -> Dict:
+        """Loop closure over the chain (``sfm/loops.close_loops``), printing
+        the JAX reconstructor's lines."""
+        from ..sfm.loops import close_loops
+
+        t0 = time.perf_counter()
+        stats = close_loops(recons, min_inliers=self.config.loop_min_inliers,
+                            min_cosine=self.config.loop_min_cosine, device=self.device)
+        stats["seconds"] = time.perf_counter() - t0
+        if stats["num_loop_edges"] == 0:
+            has_desc = any(r.track_desc is not None for r in recons)
+            why = "" if has_desc else " (grid chunks carry no descriptors — use --keypoints aliked)"
+            print(f"loop closure: no verified loop edges{why}")
+        else:
+            for e in stats["edges"]:
+                print(f"loop closure: chunk {e.j} -> {e.i} "
+                      f"({e.num_inliers}/{e.num_matches} inliers, rms {e.inlier_rms:.3f})")
+            print(f"loop closure: pose graph over {len(recons)} chunks, cost "
+                  f"{stats['initial_cost']:.4f} -> {stats['final_cost']:.4f}")
+        return stats
 
     def export(self, recons: List[ChunkReconstruction]) -> Dict[str, str]:
         """Merged exports, views deduplicated by name (first occurrence wins)."""

@@ -22,11 +22,17 @@ Port of ``pi3_slam_tpu/slam/online.py`` (``Pi3SLAMOnline``) on one device:
   preempt the forward's running blocks, so beside a forward BA's chain of
   small kernels still takes about the forward's length: PERF.md §6, PR 15.)
 
+With ``keypoint_type='aliked'`` ALIKED runs on the device at dispatch, before
+the step, and the chunk carries ``keypoint_valid`` and descriptors; with
+``refine_observations`` the step returns the ZNCC-refined observation fan
+(``slam/chunk_creator.py``), which the chunk reconstruction uses; and
+``apply_loop_closure`` closes loops over the chain after processing
+(``sfm/loops.py``, on the SfM device).
+
 An error in the consumer stops it and reaches the caller from the drive
-thread; no chunk is consumed twice. The JAX
-class's backend-reset recovery and its multi-device, ALIKED, refinement,
-loop-closure, telemetry, viewer, debug-projection and mesh parts are not
-ported: ``unported`` names each one's ROADMAP.md entry and the class
+thread; no chunk is consumed twice. The JAX class's backend-reset recovery
+and its multi-device, telemetry, viewer, debug-projection and mesh parts are
+not ported: ``unported`` names each one's ROADMAP.md entry and the class
 refuses a config that asks for it.
 """
 
@@ -55,14 +61,18 @@ from ..ops import launch_counts
 from ..sfm.alignment import align_chunks
 from ..sfm.reconstruction import ChunkReconstruction, build_chunk_reconstruction
 from ..sfm.serialization import save_reconstruction
-from ..utils.keypoints import grid_keypoints
 from ..utils.timing import TimingStats
 from .chunk_creator import (
+    _fan_table,
     _store_dense_maps,
+    detect,
+    host_outputs,
     load_models,
     make_chunk_step,
+    make_keypoint_extractor,
     metric_scale,
     pad_tail,
+    refine_settings,
     slice_tail,
 )
 from .config import OnlineConfig
@@ -75,10 +85,6 @@ def unported(config: OnlineConfig) -> str | None:
     """The message for the first part ``config`` asks for that the port
     lacks, or None; each names its ROADMAP.md entry."""
     entries = (
-        ("--keypoints aliked", config.keypoint_type == "aliked", "ALIKED"),
-        ("--refine-observations", config.refine_observations,
-         "ops/correlation.py ZNCC refinement"),
-        ("--loop-closure", config.loop_closure, "sfm/loops.py and sfm/posegraph.py: loop closure"),
         ("--telemetry", config.telemetry_path is not None, "sfm/priors.py: telemetry priors"),
         ("--visualize", config.visualize, "viz/visualizer.py, the online viewer"),
         ("--save-debug-projections", config.save_debug_projections,
@@ -121,10 +127,11 @@ class Pi3SLAMOnline:
         # 'auto' and 'default': the model's device ('cpu' is the host mode)
         self.sfm_device = torch.device("cpu") if config.sfm_backend == "cpu" else self.device
         self.undistorter = create_undistorter(config.cam_dist_path) if config.cam_dist_path else None
+        self.keypoint_extractor = make_keypoint_extractor(config, self.device)
         self.step = make_chunk_step(
             self.model, config.conf_threshold, config.depth_edge_rtol,
             config.estimate_camera_params, return_dense=config.save_dense,
-            dense_stride=config.dense_stride,
+            dense_stride=config.dense_stride, refine_obs=refine_settings(config),
         )
         self.reconstructions: List[ChunkReconstruction] = []
         self.alignment_results = []
@@ -142,27 +149,35 @@ class Pi3SLAMOnline:
         in flight while the host consumes the previous chunk) and an event
         marks their end; without it they are pulled here."""
         images = batch["images"]
-        N, _, H, W = images.shape
-        kp = grid_keypoints(H, W, self.config.max_keypoints)
-        kps = np.broadcast_to(kp[None], (N, kp.shape[0], 2)).astype(np.float32)
+        N = images.shape[0]
         launches0 = launch_counts()
         with self.timing.track("dispatch"):
+            imgs = torch.from_numpy(images).to(self.device, non_blocking=True)
+            kps, det, _ = detect(self.keypoint_extractor, imgs, self.config.max_keypoints)
             target = self.config.chunk_length if self.config.pad_tail_chunks else 0
-            imgs, kps_dev = pad_tail(images, kps, target)
-            imgs = torch.from_numpy(imgs).to(self.device, non_blocking=True)
-            dev = self.step(imgs, torch.from_numpy(kps_dev).to(self.device))
+            if N < target:
+                imgs_np, kps_dev = pad_tail(images, kps, target)
+                imgs = torch.from_numpy(imgs_np).to(self.device, non_blocking=True)
+            else:
+                kps_dev = kps
+            cand = None
+            if self.config.refine_observations:
+                cand = torch.from_numpy(_fan_table(N, imgs.shape[0],
+                                                   self.config.refine_max_observations))
+                cand = cand.to(self.device)
+            dev = self.step(imgs, torch.from_numpy(kps_dev).to(self.device), cand)
             # the first frame is sliced from the uploaded chunk
             moge_depth = self.moge.infer_depth_async(imgs[0]) if self.moge is not None else None
             ready = None
             if not self.config.overlap_device_host:
-                dev = {k: _host(v) for k, v in dev.items()}
+                dev = host_outputs(dev)
                 moge_depth = _host(moge_depth)
             elif self.device.type == "cuda":
                 ready = torch.cuda.Event()
                 ready.record()
         self.chunk_launches.append({k: v - launches0[k] for k, v in launch_counts().items()})
         self._produced += 1
-        return {"dev": dev, "moge_depth": moge_depth, "ready": ready, "kps": kps,
+        return {"dev": dev, "moge_depth": moge_depth, "ready": ready, "kps": kps, "det": det,
                 "batch": batch}
 
     def _consume(self, pending: Dict) -> ChunkReconstruction:
@@ -180,7 +195,7 @@ class Pi3SLAMOnline:
                 # this thread's stream waits for the drive thread's step; the
                 # pull blocks, so the step's tensors are free to drop after it
                 torch.cuda.current_stream(self.device).wait_event(pending["ready"])
-            host = {k: _host(v) for k, v in pending["dev"].items()}
+            host = host_outputs(pending["dev"])
             moge_depth = _host(pending["moge_depth"])
         pending["dev"] = pending["moge_depth"] = None
         n_frames = batch["images"].shape[0]
@@ -205,6 +220,18 @@ class Pi3SLAMOnline:
         }
         if "intrinsics" in host:
             chunk["intrinsics"] = host["intrinsics"].astype(np.float64)
+        if "obs_frame" in host:
+            # the refined fan from the step; observations in padded frames go
+            of = host["obs_frame"]
+            chunk["obs_frame"] = of
+            chunk["obs_uv"] = host["obs_uv"]
+            chunk["obs_valid"] = host["obs_valid"] & (of < n_frames)
+        det = pending.get("det")
+        if det is not None:
+            # ALIKED: sub-threshold slots spawn no live track; descriptors
+            # add matches to the cross-chunk alignment and feed loop closure
+            chunk["keypoint_valid"] = det["valid"].astype(bool)
+            chunk["descriptors"] = det["descriptors"].astype(np.float32)
         if "local_points_dense" in host:
             self._stash_dense(host, poses, chunk, scale_factor,
                               self._consumed if idx is None else idx, batch["images"])
@@ -301,6 +328,27 @@ class Pi3SLAMOnline:
             os.makedirs(ddir, exist_ok=True)
             save_npz(os.path.join(ddir, f"dense_{idx:06d}.npz"), self.config.chunk_compression,
                      **dense)
+
+    def apply_loop_closure(self):
+        """Loop closure over the accumulated chunk reconstructions
+        (``sfm/loops.close_loops`` on the SfM device): revisits found by
+        descriptor matching, the drift spread by the Sim3 pose graph. Call
+        after processing; needs ALIKED chunks. None when ``loop_closure`` is
+        off or fewer than two chunks exist."""
+        if not self.config.loop_closure or len(self.reconstructions) < 2:
+            return None
+        from ..sfm.loops import close_loops
+
+        stats = close_loops(self.reconstructions, min_inliers=self.config.loop_min_inliers,
+                            min_cosine=self.config.loop_min_cosine, device=self.sfm_device)
+        if stats["num_loop_edges"]:
+            print(f"loop closure: {stats['num_loop_edges']} edge(s), pose-graph "
+                  f"cost {stats['initial_cost']:.4f} -> {stats['final_cost']:.4f}")
+        else:
+            has_desc = any(r.track_desc is not None for r in self.reconstructions)
+            why = "" if has_desc else " (grid chunks carry no descriptors — use --keypoints aliked)"
+            print(f"loop closure: no verified loop edges{why}")
+        return stats
 
     # ----- drive loops -----
 

@@ -6,12 +6,14 @@ package's) load.
         --input model.safetensors --output pi3.npz
     python -m pi3_slam_tpu_torch.tools.convert_checkpoint --model moge \\
         --input model.pt --output moge.npz
+    python -m pi3_slam_tpu_torch.tools.convert_checkpoint --model aliked \\
+        --aliked-name aliked-n16 --input aliked-n16.pth --output aliked.npz
 
 The options of the JAX package's ``tools/convert_checkpoint.py``. Local files
 only: ``.safetensors`` through ``io/safetensors.py`` (no ``safetensors``
 package needed), ``.pt`` / ``.pth`` through ``torch.load(weights_only=True)``.
-Host numpy work: no GPU is touched. ``--model aliked`` and MoGe v1 checkpoints
-exit 2, naming their ROADMAP.md entries.
+Host numpy work: no GPU is touched. MoGe v1 checkpoints exit 2, naming their
+ROADMAP.md entry.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--model", choices=["pi3", "moge", "aliked"], required=True)
     parser.add_argument("--aliked-name", default="aliked-n16",
-                        help="ALIKED variant (aliked-t16/n16/n16rot/n32; not yet ported)")
+                        help="ALIKED variant (aliked-t16/n16/n16rot/n32)")
     parser.add_argument("--input", required=True, help="Local checkpoint file")
     parser.add_argument("--output", required=True, help="Output .npz path")
     parser.add_argument(
@@ -73,15 +75,13 @@ def _count(node) -> int:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.model == "aliked":
-        parser.error("--model aliked is not yet ported (ROADMAP.md Queue 1: off the main path, "
-                     "ALIKED)")
     if not os.path.isfile(args.input):
         parser.error(f"--input {args.input}: no such file (the port reads local checkpoint "
                      "files only; it resolves no hub id)")
 
     from ..models.convert import (
         check_pi3_config,
+        convert_aliked_state_dict,
         convert_moge_state_dict,
         convert_pi3_state_dict,
         save_params_npz,
@@ -101,6 +101,10 @@ def main(argv=None) -> int:
             config = Pi3Config()
         check_pi3_config(params, config)
         save_pi3_checkpoint(args.output, params, config)
+    elif args.model == "aliked":
+        params = convert_aliked_state_dict(sd, model_name=args.aliked_name)
+        del sd
+        save_params_npz(args.output, params)
     else:
         if model_config is None:
             raise SystemExit("MoGe checkpoint must carry model_config (expected model.pt format)")

@@ -12,7 +12,9 @@ The scripts' positional arguments, and their environment knobs as flags
 (``--chunk-length``, ``--overlap``, ``--max-kp``, ``--max-obs``, ``--mode``,
 ``--scenes`` / ``--seqs``, ``--keypoints``, ``--aliked-npz``, ``--loop``,
 ``--refine``, ``--gt-dir``, ``--device``). The CLIs get the scripts' flags one
-for one, so a flag naming an unported part exits 2 there. Ground truth comes
+for one: ``--keypoints aliked --aliked-npz <npz>`` reaches both CLIs,
+``--refine`` the chunk step (``--refine-observations``), ``--loop`` the
+reconstruction (``--loop-closure``). Ground truth comes
 from ``--gt-dir`` where it holds ``<scene>.txt``, else from the pose files
 (``make_7scenes_gt``, ``make_euroc_gt``). Prints the scripts' lines:
 ``<scene> APE RMSE: <x> m`` and the summary for 7-Scenes, ``<seq> APE RMSE:

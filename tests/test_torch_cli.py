@@ -36,8 +36,6 @@ def test_defaults_match_except_device():
 @pytest.mark.parametrize(
     "flags,entry",
     [
-        (["--no-metric-depth", "--keypoints", "aliked"], "ALIKED"),
-        (["--no-metric-depth", "--refine-observations"], "ZNCC"),
         (["--no-metric-depth", "--data-parallel-chunks", "2"], "multi-device"),
         (["--no-metric-depth", "--tensor-parallel", "2"], "multi-device"),
         (["--no-metric-depth", "--sequence-parallel", "2"], "multi-device"),

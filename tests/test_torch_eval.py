@@ -197,15 +197,3 @@ def test_ground_truth_from_gt_dir_and_a_missing_one(data, tmp_path, capsys):
                           str(tmp_path / "o2"), "--seqs", "V1_01", *TINY_RUN])
     assert results == {}
     assert "no ground truth at" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("flags,entry", [(["--keypoints", "aliked"], "ALIKED"),
-                                         (["--refine"], "ZNCC"),
-                                         (["--loop"], "loop closure")])
-def test_unported_options_exit_2_in_the_cli(data, tmp_path, capsys, flags, entry):
-    with pytest.raises(SystemExit) as e:
-        eval_tool.run(["7scenes", data["7scenes"], data["ckpt"], "", str(tmp_path / "o"),
-                    "--scenes", "alpha", *flags, *TINY_RUN])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and entry in err

@@ -319,8 +319,9 @@ def test_consumer_error_reaches_the_caller(image_dir, ckpt, tmp_path):
 def test_sfm_backend_and_unported_parts_are_refused(ckpt):
     with pytest.raises(ValueError, match="sfm_backend"):
         online.Pi3SLAMOnline(OnlineConfig(device="cpu", sfm_backend="tpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: off the main path, ALIKED"):
-        online.Pi3SLAMOnline(OnlineConfig(device="cpu", keypoint_type="aliked"))
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1: off the main path, sfm/priors.py"):
+        online.Pi3SLAMOnline(OnlineConfig(device="cpu", telemetry_path="t.json"))
 
 
 # ----- the CLI -----
@@ -340,9 +341,6 @@ def test_cli_has_every_jax_option_with_its_default():
 
 
 @pytest.mark.parametrize("flags,entry", [
-    (["--keypoints", "aliked"], "ALIKED"),
-    (["--refine-observations"], "ZNCC refinement"),
-    (["--loop-closure"], "loop closure"),
     (["--telemetry", "t.json"], "telemetry priors"),
     (["--visualize"], "online viewer"),
     (["--keep-viz-open"], "online viewer"),

@@ -141,6 +141,21 @@ def test_port_imports_and_runs_without_jax():
         pts = torch.rand(10, 3)
         assert float(robust_umeyama(pts, 2 * pts).scale) > 1.9
         assert ape_translation(np.random.rand(5, 3), np.random.rand(5, 3)).rmse >= 0
+        # the appearance path: ALIKED, ZNCC refinement, the Sim3 pose graph
+        from pi3_slam_tpu_torch.models.aliked import (CONFIGS, aliked_extract,
+            aliked_state_from_jax, build_aliked, init_aliked_params)
+        from pi3_slam_tpu_torch.ops.correlation import zncc_refine_observations
+        from pi3_slam_tpu_torch.sfm.posegraph import (optimize_sim3_pose_graph,
+            sequential_edges, stack_sim3)
+        cfg = CONFIGS["aliked-t16"]
+        aliked = build_aliked(cfg, aliked_state_from_jax(init_aliked_params(0, cfg)))
+        assert aliked_extract(aliked, torch.rand(1, 3, 32, 48), 20)["descriptors"].shape == (1, 20, 64)
+        uv, _, _ = zncc_refine_observations(torch.rand(2, 32, 32), torch.zeros(3, dtype=torch.long),
+            torch.full((3, 2), 16.0), torch.ones((3, 1), dtype=torch.long), torch.full((3, 1, 2), 16.0))
+        assert torch.isfinite(uv).all()
+        i, j, meas = sequential_edges(3)
+        res = optimize_sim3_pose_graph(stack_sim3(meas + meas[:1]), i, j, stack_sim3(meas), device="cpu")
+        assert res.final_cost <= res.initial_cost + 1e-9
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert "pi3_slam_tpu" not in sys.modules, sorted(
             m for m in sys.modules if m.split(".")[0] == "pi3_slam_tpu")
