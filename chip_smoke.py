@@ -142,6 +142,31 @@ Phases, each of which raises (exit code 1) on failure:
    circle (copied): the first-last loop edge found on the card, the
    loop-closed APE below the open one, the card's loop-closed trajectory
    within LOOP_TOL of the host's after a similarity and the open one outside.
+10. localization and telemetry: (a) a second camera: the creator CLI with
+   --keypoints aliked on phase 8's scene frames from the 16th on (two chunks,
+   each launching the metric-depth path's kernels: the kernels line's
+   "localization" path), then python -m pi3_slam_tpu_torch.localize_camera
+   --query-chunks against phase 9's offline ALIKED map on the card: exit code
+   0 or 1 and one stats entry per chunk (random weights match nothing:
+   printed, not held); (b) planted registration at eval scale: a map of 4
+   chunks x 100 frames x 400 tracks with 128-d unit descriptors, 2 query
+   chunks under a known Sim3 (scale 1.3) with 20% of the points displaced,
+   register_reconstruction on the card and the host: the Sim3 against the
+   truth and card against host; (c) planted PnP: 100 query images with 1000
+   matches each against the pooled map, 0.5 px noise, 30% outliers,
+   localize_by_descriptors on the card (and on the host for every fifth
+   image, the same samples): poses against the truth, card against host, the
+   same inlier counts, the per-image seconds of matching, RANSAC and
+   refinement; then triangulate_points of a planted cloud from the localized
+   views: the reprojection RMS under the CLI's 3 px gate and the points
+   against the truth, card against host; (d) the reconstructor CLI with
+   --telemetry --gps-sigma 0.5 --save-colmap on 260 frames of phase 6's
+   chunks (with a sideways sway, frames named by timestamps) and
+   generic-JSON telemetry (GPS about the true ENU track with 0.5 m noise,
+   camera-frame gravity with noise), on the card and on the host: the
+   georeferenced trajectory against the true ENU track and card against host
+   with no similarity, the gravity residual, the COLMAP model's counts, and
+   the telemetry refine's seconds a chunk.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1363,14 +1388,16 @@ def phase_sol() -> dict:
 # numpy and scipy so that this script imports nothing of the JAX package
 
 
-def synthetic_sequence(rng, n_frames, n_landmarks, width, height, step, yaw_rate):
-    """Smooth forward trajectory with yaw, landmarks ahead of the cameras."""
+def synthetic_sequence(rng, n_frames, n_landmarks, width, height, step, yaw_rate, sway=0.05,
+                       sway_rate=0.4):
+    """Smooth forward trajectory with yaw (and a sideways sway of amplitude
+    ``sway``), landmarks ahead of the cameras."""
     from scipy.spatial.transform import Rotation
 
     f = 500.0
     K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]])
     i = np.arange(n_frames)
-    centers = np.stack([step * i, 0.05 * np.sin(i * 0.4), 0.05 * step * i], axis=1)
+    centers = np.stack([step * i, sway * np.sin(i * sway_rate), 0.05 * step * i], axis=1)
     rots = np.stack([Rotation.from_euler("y", yaw_rate * j).as_matrix() for j in i])
     landmarks = np.stack([rng.uniform(-4, 4 + step * n_frames, n_landmarks),
                           rng.uniform(-3, 3, n_landmarks), rng.uniform(4, 10, n_landmarks)], axis=1)
@@ -1379,16 +1406,17 @@ def synthetic_sequence(rng, n_frames, n_landmarks, width, height, step, yaw_rate
 
 def write_synthetic_chunks(out, rng, n_frames=420, n_landmarks=5000, chunk_length=100,
                            overlap=20, n_kp=400, noise_px=0.4, step=0.08, yaw_rate=0.0007,
-                           width=640, height=480):
+                           width=640, height=480, frame_name=None, sway=0.05, sway_rate=0.4):
     """Chunk files of a synthetic scene, each chunk in its own random Sim3
     gauge, with confidence-correlated pixel / point noise and gross outliers
-    among low-confidence keypoints. Returns the true camera centers."""
+    among low-confidence keypoints; frame i is named frame_i:04d.png or
+    ``frame_name(i)``. Returns the true camera centers."""
     from scipy.spatial.transform import Rotation
 
     from pi3_slam_tpu_torch.data.datasets import chunk_windows
 
     K, centers, rots, landmarks = synthetic_sequence(rng, n_frames, n_landmarks, width, height,
-                                                     step, yaw_rate)
+                                                     step, yaw_rate, sway, sway_rate)
     os.makedirs(os.path.join(out, "chunks"), exist_ok=True)
     for ci, (s, e) in enumerate(chunk_windows(n_frames, chunk_length, overlap)):
         frames = list(range(s, e))
@@ -1428,7 +1456,8 @@ def write_synthetic_chunks(out, rng, n_frames=420, n_landmarks=5000, chunk_lengt
             colors=np.full((nf, n_kp, 3), 128, np.uint8), camera_poses=poses.astype(np.float32),
             camera_poses_cw=np.linalg.inv(poses).astype(np.float32),
             intrinsics=np.tile(K, (nf, 1, 1)).astype(np.float32),
-            image_paths=np.asarray([f"frame_{i:04d}.png" for i in frames]),
+            image_paths=np.asarray([frame_name(i) if frame_name else f"frame_{i:04d}.png"
+                                    for i in frames]),
             original_width=width, original_height=height, masks=np.ones((nf, n_kp), bool),
             conf=confs.astype(np.float16))
     with open(os.path.join(out, "chunk_metadata.json"), "w") as f:
@@ -2702,6 +2731,463 @@ def phase_appearance(tmp: str) -> dict:
     return counts
 
 
+# --- phase 10: localization and telemetry (the second camera, georeferencing)
+
+# (b) planted registration: the Sim3 against the truth (rotation angle in
+# rad, translation in m, scale relative) and the card's Sim3 against the
+# host's (largest entry difference)
+REG_ROT_TOL = 1e-3
+REG_T_TOL = 1e-2
+REG_S_TOL = 1e-3
+REG_HOST_TOL = 1e-4
+# (c) planted PnP: each pose against the truth (rad, m) and the card's
+# against the host's on the same samples; the triangulated cloud against the
+# truth (its median, and the largest distance among points seen from ten or
+# more views, m) and the card's against the host's. The refinement keeps the
+# best sample's inliers; where that 8-point DLT pose was off, they are a
+# part of the true ones on one side of the image, and with 2 mm point noise
+# and 0.5 px the pose rests a few 1e-3 rad and centimetres off (on an NVIDIA
+# H100 80GB HBM3 at 700 W up to 3.8e-3 rad and 4.4e-2 m over 100 images);
+# a wrong solve lands decimetres off
+PNP_ROT_TOL = 1e-2
+PNP_C_TOL = 0.1
+PNP_HOST_ROT_TOL = 1e-4
+PNP_HOST_C_TOL = 1e-3
+TRI_GATE_PX = 3.0  # the CLI's --triangulate-max-rms
+TRI_MEDIAN_TOL = 1e-2
+TRI_TOL = 0.15
+TRI_HOST_TOL = 1e-3
+# (d) the georeferenced trajectory against the true ENU track and the card's
+# against the host's, largest distance with no similarity (m); the largest
+# angle between a camera's estimated and true gravity direction (rad)
+GEO_TOL = 0.4
+GEO_HOST_TOL = 5e-2
+GRAVITY_TOL = 2e-2
+# (d)'s track: phase 6's corridor with a sideways sway of 1.5 m (period 21
+# s), so that GPS fixes the rotation about the direction of travel (on a
+# straight track only gravity does, and the per-chunk refine turns the chunks
+# slowly: 0.53 rad to 0.43 in its 20 iterations)
+GEO_SWAY = 1.5
+GEO_SWAY_RATE = 0.03
+# the WGS84 constants of sfm/priors.py, for the fixes of a known ENU track
+WGS84_A = 6378137.0
+WGS84_E2 = (1.0 / 298.257223563) * (2.0 - 1.0 / 298.257223563)
+
+
+def rotation_angle(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Angles (rad) of a b^T for (..., 3, 3) rotations."""
+    from scipy.spatial.transform import Rotation
+
+    return Rotation.from_matrix(np.asarray(a, np.float64) @ np.swapaxes(
+        np.asarray(b, np.float64), -1, -2)).magnitude()
+
+
+def unit_rows(rng, n: int, dim: int) -> np.ndarray:
+    d = rng.normal(size=(n, dim))
+    return (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def planted_chunk(names, K, centers, rots, landmarks, desc, sel, gauge=None, noise=0.002,
+                  rng=None, outliers=0.0):
+    """A ChunkReconstruction (no BA) whose frame j owns tracks at the
+    landmarks sel[j] (point noise ``noise`` m, a share ``outliers`` of them
+    displaced by N(0, 1 m)), with their descriptors; in the Sim3 gauge
+    (s, R, t) that takes map coordinates to the chunk's."""
+    from pi3_slam_tpu_torch.sfm.reconstruction import ChunkReconstruction
+
+    n, k = sel.shape
+    ids = sel.reshape(-1)
+    pts = landmarks[ids] + rng.normal(size=(ids.size, 3)) * noise
+    bad = rng.uniform(size=ids.size) < outliers
+    pts[bad] += rng.normal(size=(int(bad.sum()), 3))
+    r_cw = np.transpose(rots, (0, 2, 1))
+    cam = np.einsum("nij,nkj->nki", r_cw, landmarks[sel] - centers[:, None])
+    uv = np.stack([K[0, 0] * cam[..., 0] / cam[..., 2] + K[0, 2],
+                   K[1, 1] * cam[..., 1] / cam[..., 2] + K[1, 2]], -1).reshape(-1, 1, 2)
+    c = centers
+    if gauge is not None:
+        gs, gR, gt = gauge
+        pts, c, r_cw = gs * pts @ gR.T + gt, gs * centers @ gR.T + gt, r_cw @ gR.T
+    frame = np.repeat(np.arange(n), k).astype(np.int32)
+    return ChunkReconstruction(
+        frame_names=list(names), rotations=r_cw.astype(np.float32), centers=c.astype(np.float32),
+        intrinsics=np.tile([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], (n, 1)).astype(np.float32),
+        points=pts.astype(np.float32), colors=np.full((ids.size, 3), 0.5, np.float32),
+        track_frame=frame, track_kp=np.tile(np.arange(k), n).astype(np.int32),
+        track_uv=uv[:, 0].astype(np.float32), track_valid=np.ones(ids.size, np.float32),
+        obs_frame=frame[:, None].copy(), obs_uv=uv.astype(np.float32),
+        obs_valid=np.ones((ids.size, 1), np.float32), image_width=640, image_height=480,
+        track_desc=desc[ids])
+
+
+def visible(K, center, rot, points, margin=5.0, width=640, height=480):
+    """Indices of the points in front of a camera (camera-to-world ``rot``)
+    and inside its image, and their pixels."""
+    cam = (points - center) @ rot
+    z = cam[:, 2]
+    uv = np.stack([K[0, 0] * cam[:, 0] / z + K[0, 2], K[1, 1] * cam[:, 1] / z + K[1, 2]], 1)
+    ok = ((z > 0.5) & (uv[:, 0] > margin) & (uv[:, 0] < width - margin) & (uv[:, 1] > margin)
+          & (uv[:, 1] < height - margin))
+    return np.nonzero(ok)[0], uv
+
+
+def planted_scene(rng, n_map=400, chunk=100, n_kp=400, n_landmarks=20000, dim=128):
+    """The map: 4 chunks of 100 frames of phase 6's corridor, 400 tracks a
+    frame at landmarks (2 mm of point noise: at 5 mm, 8-point DLT samples of
+    the PnP phase come out centimetres off and a RANSAC vote at 5 px can find
+    none) with 128-d unit descriptors; and the second camera's path, 0.4 m
+    beside the map's with another yaw."""
+    from scipy.spatial.transform import Rotation
+
+    K, centers, rots, landmarks = synthetic_sequence(rng, n_map, n_landmarks, 640, 480, 0.08,
+                                                     0.0007)
+    desc = unit_rows(rng, n_landmarks, dim)
+    sel = np.zeros((n_map, n_kp), np.int64)
+    for i in range(n_map):
+        ids = visible(K, centers[i], rots[i], landmarks)[0]
+        sel[i] = rng.choice(ids, n_kp, replace=False)
+    recons = [planted_chunk([f"map_{i:04d}.png" for i in range(c, c + chunk)], K,
+                            centers[c:c + chunk], rots[c:c + chunk], landmarks, desc,
+                            sel[c:c + chunk], rng=rng) for c in range(0, n_map, chunk)]
+    q_centers = centers + np.array([0.0, 0.4, 0.1])
+    q_rots = np.stack([Rotation.from_euler("yx", [0.03 * np.sin(i / 20), 0.02]).as_matrix()
+                       for i in range(n_map)]) @ rots
+    return K, landmarks, desc, recons, q_centers, q_rots
+
+
+def registration_on_card(scene, rng) -> None:
+    """(b) Two query chunks of 100 frames, 400 tracks a frame, in the gauge
+    of a known Sim3 (scale 1.3), 20% of the points displaced, registered onto
+    the 4-chunk map by register_reconstruction on the card and on the host."""
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from pi3_slam_tpu_torch.sfm.localize import _pool_map_tracks, register_reconstruction
+
+    K, landmarks, desc, recons, q_centers, q_rots = scene
+    pool = _pool_map_tracks(recons)
+    s_true = 1.3
+    R_true = Rotation.from_euler("xyz", [0.3, -0.2, 0.5]).as_matrix()
+    t_true = np.array([2.0, -1.0, 0.5])
+    # the query gauge: map = s R q + t, so q = R^T (map - t) / s
+    gauge = (1.0 / s_true, R_true.T, -R_true.T @ t_true / s_true)
+    for c, start in enumerate((40, 240)):
+        frames = range(start, start + 100)
+        sel = np.stack([rng.choice(visible(K, q_centers[i], q_rots[i], landmarks)[0], 400,
+                                   replace=False) for i in frames])
+        window = slice(start, start + 100)
+        query = planted_chunk([f"query_{i:04d}.png" for i in frames], K, q_centers[window],
+                              q_rots[window], landmarks, desc, sel, gauge=gauge, rng=rng,
+                              outliers=0.2)
+        res = {}
+        for where, device in (("card", "cuda"), ("host", "cpu")):
+            t0 = time.perf_counter()
+            r = register_reconstruction(recons, query, map_pool=pool, apply=False, device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            res[where] = (r, time.perf_counter() - t0)
+        r = res["card"][0]
+        if not (r.success and res["host"][0].success):
+            raise RuntimeError(f"registration of query chunk {c} failed: {r}, {res['host'][0]}")
+        s, R, t = (x.detach().cpu().double().numpy() for x in r.sim3)
+        hs, hR, ht = (x.detach().cpu().double().numpy() for x in res["host"][0].sim3)
+        rot_err = float(rotation_angle(R, R_true))
+        t_err = float(np.linalg.norm(t - t_true))
+        s_err = abs(float(s) / s_true - 1.0)
+        host = max(abs(float(s - hs)), np.abs(R - hR).max(), np.abs(t - ht).max())
+        log(f"    (b) query chunk {c}: {r.num_matches} matches, {r.num_inliers} inliers "
+            f"(host {res['host'][0].num_inliers}), inlier RMS {r.inlier_rms:.4f} m; against the "
+            f"truth: rotation {rot_err:.3e} rad (tol {REG_ROT_TOL:g}), translation {t_err:.3e} m "
+            f"(tol {REG_T_TOL:g}), scale {s_err:.3e} (tol {REG_S_TOL:g}); card vs host "
+            f"{host:.3e} (tol {REG_HOST_TOL:g}); {res['card'][1]:.3f}s on the card, "
+            f"{res['host'][1]:.3f}s on the host")
+        if rot_err > REG_ROT_TOL or t_err > REG_T_TOL or s_err > REG_S_TOL:
+            raise RuntimeError(f"registration of query chunk {c} off the truth")
+        if host > REG_HOST_TOL:
+            raise RuntimeError(f"registration of query chunk {c}: card vs host {host}")
+
+
+def pnp_on_card(scene, rng, n_images=100, n_corr=1000, n_new=2000) -> None:
+    """(c) 100 query images, each with 1000 keypoints on pooled map tracks
+    (their descriptors, 0.5 px noise, 30% displaced by 30-200 px),
+    localized by localize_by_descriptors on the card and on the host with
+    the same samples; then a planted cloud of the second camera's own points
+    triangulated from the localized poses."""
+    from pi3_slam_tpu_torch.sfm.localize import (_pool_map_tracks, localize_by_descriptors,
+                                                 triangulate_points)
+
+    K, landmarks, desc, recons, q_centers, q_rots = scene
+    pool_pts, pool_desc = _pool_map_tracks(recons)
+    # one pooled track per landmark: the first, which mutual matching picks
+    first = {}
+    for j, d in enumerate(pool_desc):
+        first.setdefault(d.tobytes(), j)
+    uniq = np.array(sorted(first.values()))
+    intr = np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], np.float32)
+    frames = np.linspace(20, 380, n_images).astype(int)
+    poses = {"card": [], "host": []}
+    secs = {"card": [], "host": []}
+    for k, i in enumerate(frames):
+        vis, uv = visible(K, q_centers[i], q_rots[i], pool_pts[uniq])
+        if vis.size < n_corr:
+            raise RuntimeError(f"query image {k}: {vis.size} visible pooled tracks")
+        pick = rng.choice(vis, n_corr, replace=False)
+        kp = uv[pick] + rng.normal(size=(n_corr, 2)) * 0.5
+        bad = rng.uniform(size=n_corr) < 0.3
+        ang = rng.uniform(0, 2 * np.pi, int(bad.sum()))
+        kp[bad] += np.stack([np.cos(ang), np.sin(ang)], 1) * rng.uniform(30, 200, (bad.sum(), 1))
+        d = pool_desc[uniq[pick]]
+        # the host repeats every fifth image: its matching (host numpy, as
+        # on the card's run) takes most of a localization's time
+        for where, device in (("card", "cuda"), ("host", "cpu"))[:1 if k % 5 else 2]:
+            t = {}
+            res = localize_by_descriptors(recons, kp.astype(np.float32), d, intr, seed=k,
+                                          map_pool=(pool_pts, pool_desc), device=device,
+                                          timings=t)
+            if not res.success or res.num_matches != n_corr:
+                raise RuntimeError(f"query image {k} on the {where}: {res}")
+            poses[where].append(res)
+            secs[where].append(t)
+    card, host = poses["card"], poses["host"]
+    R_est = np.stack([r.rotation for r in card])
+    c_est = np.stack([r.center for r in card])
+    rot_err = rotation_angle(R_est, np.transpose(q_rots[frames], (0, 2, 1)))
+    c_err = np.linalg.norm(c_est - q_centers[frames], axis=1)
+    host_rot = rotation_angle(R_est[::5], np.stack([r.rotation for r in host]))
+    host_c = np.linalg.norm(c_est[::5] - np.stack([r.center for r in host]), axis=1)
+    same = [a.num_inliers == b.num_inliers for a, b in zip(card[::5], host)]
+    inl = np.array([r.num_inliers for r in card])
+    log(f"    (c) {n_images} images, {n_corr} matches each: inliers {inl.min()}-{inl.max()}; "
+        f"against the truth rotation up to {rot_err.max():.3e} rad (tol {PNP_ROT_TOL:g}, median "
+        f"{np.median(rot_err):.3e}), center up to {c_err.max():.3e} m (tol {PNP_C_TOL:g}, median "
+        f"{np.median(c_err):.3e}); card vs host on every fifth image: "
+        f"rotation {host_rot.max():.3e} rad (tol {PNP_HOST_ROT_TOL:g}), center "
+        f"{host_c.max():.3e} m (tol {PNP_HOST_C_TOL:g}), the same inlier count in "
+        f"{sum(same)}/{len(host)}")
+    for where in ("card", "host"):
+        med = {key: float(np.median([t[key] for t in secs[where]])) * 1e3
+               for key in ("match_s", "ransac_s", "refine_s")}
+        log(f"    (c) per image on the {where}, median: match {med['match_s']:.2f} ms (host "
+            f"numpy), RANSAC {med['ransac_s']:.2f} ms, refine {med['refine_s']:.2f} ms")
+    if rot_err.max() > PNP_ROT_TOL or c_err.max() > PNP_C_TOL:
+        raise RuntimeError("PnP on the card: a pose off the truth")
+    if host_rot.max() > PNP_HOST_ROT_TOL or host_c.max() > PNP_HOST_C_TOL or not all(same):
+        raise RuntimeError("PnP: card and host disagree")
+
+    # the second camera's own points: n_new points beside the corridor, seen
+    # with 0.5 px noise by the localized views
+    new = np.stack([rng.uniform(-3, 34, n_new), rng.uniform(-2, 2, n_new),
+                    rng.uniform(5, 9, n_new)], axis=1)
+    obs = np.zeros((n_new, n_images, 2), np.float32)
+    val = np.zeros((n_new, n_images), np.float32)
+    for k, i in enumerate(frames):
+        vis, uv = visible(K, q_centers[i], q_rots[i], new)
+        obs[vis, k] = uv[vis] + rng.normal(size=(vis.size, 2)) * 0.5
+        val[vis, k] = 1.0
+    keep = val.sum(1) >= 2
+    obs, val, new = obs[keep], val[keep], new[keep]
+    out = {}
+    for where, device in (("card", "cuda"), ("host", "cpu")):
+        t0 = time.perf_counter()
+        pts, rms, n_front = triangulate_points(R_est, c_est, intr, obs, val, device=device)
+        out[where] = (pts.cpu().numpy(), rms.cpu().numpy(), n_front.cpu().numpy(),
+                      time.perf_counter() - t0)
+    pts, rms, n_front, secs_card = out["card"]
+    err = np.linalg.norm(pts - new, axis=1)
+    # a point seen from two adjacent views (0.29 m apart) at 9 m is only
+    # good to decimetres in depth; from ten or more views (2.9 m of baseline
+    # and more), to centimetres
+    wide = val.sum(1) >= 10
+    host = np.abs(pts - out["host"][0]).max()
+    log(f"    (c) triangulation of {len(new)} new points over {int(val.sum())} observations "
+        f"({int(val.sum(1).mean())} views a point on average): RMS up to {rms.max():.3f} px "
+        f"(gate {TRI_GATE_PX:g}); error median {np.median(err):.3e} m (tol {TRI_MEDIAN_TOL:g}), "
+        f"up to "
+        f"{err[wide].max():.3e} m over the {int(wide.sum())} points seen from ten views or more "
+        f"(tol {TRI_TOL:g}), up to {err.max():.3e} m over all; card vs host {host:.3e} m (tol "
+        f"{TRI_HOST_TOL:g}); {secs_card * 1e3:.1f} ms on the card, {out['host'][3] * 1e3:.1f} "
+        "ms on the host")
+    if (rms.max() > TRI_GATE_PX or np.median(err) > TRI_MEDIAN_TOL or err[wide].max() > TRI_TOL
+            or wide.sum() < len(new) // 2 or (n_front != val.sum(1)).any()):
+        raise RuntimeError("triangulation on the card: a point off the gate or the truth")
+    if host > TRI_HOST_TOL:
+        raise RuntimeError(f"triangulation: card vs host {host} m")
+
+
+def enu_to_lla(enu: np.ndarray, origin=(47.37, 8.54, 410.0)) -> np.ndarray:
+    """Geodetic fixes of local ENU points, inverting sfm/priors.geodetic_to_enu's
+    linearisation about ``origin``."""
+    lat0, lon0, alt0 = origin
+    s = np.sin(np.radians(lat0))
+    rn = WGS84_A / np.sqrt(1.0 - WGS84_E2 * s * s)
+    rm = WGS84_A * (1.0 - WGS84_E2) / (1.0 - WGS84_E2 * s * s) ** 1.5
+    return np.stack([lat0 + np.degrees(enu[:, 1] / rm),
+                     lon0 + np.degrees(enu[:, 0] / (rn * np.cos(np.radians(lat0)))),
+                     alt0 + enu[:, 2]], axis=1)
+
+
+def lla_to_enu(lla: np.ndarray, origin=(47.37, 8.54, 410.0)) -> np.ndarray:
+    """The ENU point (about ``origin``) of one geodetic fix, the inverse of
+    enu_to_lla."""
+    lat0, lon0, alt0 = origin
+    s = np.sin(np.radians(lat0))
+    rn = WGS84_A / np.sqrt(1.0 - WGS84_E2 * s * s)
+    rm = WGS84_A * (1.0 - WGS84_E2) / (1.0 - WGS84_E2 * s * s) ** 1.5
+    return np.array([np.radians(lla[1] - lon0) * rn * np.cos(np.radians(lat0)),
+                     np.radians(lla[0] - lat0) * rm, lla[2] - alt0])
+
+
+def parse_colmap(folder: str) -> tuple[int, int, int]:
+    """Counts of cameras, images and points of a COLMAP text model; every
+    number parses, every quaternion is a unit one and every POINTS2D line
+    holds (x, y, id) triples."""
+    rows = {}
+    for name in ("cameras", "images", "points3D"):
+        with open(os.path.join(folder, f"{name}.txt")) as f:
+            rows[name] = [line.split() for line in f if not line.startswith("#")]
+    heads, points2d = rows["images"][0::2], rows["images"][1::2]
+    numbers = ([r[2:] for r in rows["cameras"]] + [h[1:9] for h in heads]
+               + [r[1:8] for r in rows["points3D"]] + points2d)
+    if not all(np.isfinite(np.asarray(r, np.float64)).all() for r in numbers):
+        raise RuntimeError(f"{folder}: a number that does not parse as a finite one")
+    q = np.asarray([h[1:5] for h in heads], np.float64)
+    if (np.abs(np.linalg.norm(q, axis=1) - 1.0) > 1e-6).any() or any(len(p) % 3 for p in points2d):
+        raise RuntimeError(f"{folder}: a quaternion off the unit sphere or a short POINTS2D line")
+    return len(rows["cameras"]), len(heads), len(rows["points3D"])
+
+
+def telemetry_on_card(tmp: str, n_frames: int = 260) -> None:
+    """(d) phase 6's eval-scale synthetic chunks (260 frames: chunks of 100,
+    overlap 20), frames named by millisecond timestamps, with generic-JSON
+    telemetry at 50 Hz: GPS fixes about the true ENU track (sigma 0.5 m) and
+    the true camera-frame gravity plus N(0, 0.01). The reconstructor CLI with
+    --telemetry --gps-sigma 0.5 --save-colmap on the card, then the host."""
+    from scipy.spatial.transform import Rotation
+
+    from pi3_slam_tpu_torch.io.tum import read_tum_trajectory
+    from pi3_slam_tpu_torch.reconstruct_offline import reconstruct
+
+    rng = np.random.default_rng(3)
+    scene = os.path.join(tmp, "geo")
+    t_start = 1_600_000_000.0
+    truth = write_synthetic_chunks(scene, np.random.default_rng(1), n_frames=n_frames,
+                                   frame_name=lambda i: f"{1_600_000_000_000 + 100 * i:013d}.png",
+                                   sway=GEO_SWAY, sway_rate=GEO_SWAY_RATE)
+    rots = synthetic_sequence(np.random.default_rng(1), n_frames, 5000, 640, 480, 0.08, 0.0007,
+                              GEO_SWAY, GEO_SWAY_RATE)[2]
+    ts = np.arange(0.0, 0.1 * n_frames + 0.1, 0.02)
+    track = np.stack([np.interp(ts, 0.1 * np.arange(n_frames), truth[:, i]) for i in range(3)], 1)
+    nearest = np.clip((ts / 0.1).round().astype(int), 0, n_frames - 1)
+    g_cam = np.einsum("nji,j->ni", rots, [0.0, 0.0, -1.0])  # R_wc^T (-z)
+    fixes = enu_to_lla(track + rng.normal(size=track.shape) * 0.5)
+    measured = g_cam[nearest] + rng.normal(size=(len(ts), 3)) * 0.01
+    telemetry = {"gps": np.c_[t_start + ts, fixes], "gravity": np.c_[t_start + ts, measured]}
+    path = os.path.join(scene, "telemetry.json")
+    with open(path, "w") as f:
+        json.dump({k: v.tolist() for k, v in telemetry.items()}, f)
+    runs = {}
+    for where, device in (("card", "cuda"), ("host", "cpu")):
+        argv = ["--chunks", scene, "--output", os.path.join(scene, where),
+                "--max-observations-per-track", "10", "--telemetry", path, "--gps-sigma", "0.5",
+                "--save-colmap", "--device", device]
+        log("    python -m pi3_slam_tpu_torch.reconstruct_offline " + " ".join(argv))
+        t0 = time.perf_counter()
+        res = reconstruct(argv)
+        wall = time.perf_counter() - t0
+        stats = res["telemetry"]
+        traj = read_tum_trajectory(res["artifacts"]["trajectory"])
+        runs[where] = traj
+        R_wc = Rotation.from_quat(traj["quaternions_xyzw"]).as_matrix()
+        down = np.einsum("nji,j->ni", R_wc, [0.0, 0.0, -1.0])
+        grav = np.arccos(np.clip(np.sum(down * g_cam, axis=1), -1.0, 1.0))
+        # the true track in the run's ENU frame, whose origin is the first
+        # frame's (noisy) GPS fix
+        lla0 = np.asarray(stats["origin"])
+        enu_origin = lla_to_enu(lla0)
+        geo = np.linalg.norm(traj["positions"] - (truth - enu_origin), axis=1)
+        n_live = sum(int(r.track_valid.sum()) for r in res["reconstructions"])
+        counts = parse_colmap(os.path.join(scene, where, "colmap"))
+        log(f"    (d) {where}: {wall:.2f}s; telemetry gps={stats['gps']} "
+            f"gravity={stats['gravity']}, {stats['refined_chunks']} chunks refined in {stats['seconds']:.3f}s "
+            f"({stats['seconds'] / max(1, stats['refined_chunks']):.3f}s a chunk), GPS fit RMS "
+            f"{stats['gps_rms_m']:.3f} m, scale {stats['scale']:.4f}; against the true ENU track "
+            f"with no similarity largest {geo.max():.3f} m (tol {GEO_TOL:g}), RMS "
+            f"{np.sqrt(np.mean(geo ** 2)):.3f} m; gravity angle up to {grav.max():.3e} rad (tol "
+            f"{GRAVITY_TOL:g}); COLMAP {counts[0]} cameras, {counts[1]} images, {counts[2]} "
+            f"points ({n_live} live tracks)")
+        if not (stats["gps"] and stats["gravity"]) or stats["refined_chunks"] != len(
+                res["reconstructions"]):
+            raise RuntimeError(f"telemetry on the {where}: {stats}")
+        if geo.max() > GEO_TOL or grav.max() > GRAVITY_TOL:
+            raise RuntimeError(f"telemetry on the {where}: trajectory {geo.max()} m off the ENU "
+                               f"track, gravity {grav.max()} rad")
+        if counts != (n_frames, n_frames, n_live):
+            raise RuntimeError(f"COLMAP model on the {where}: {counts}, expected "
+                               f"{(n_frames, n_frames, n_live)}")
+    host = np.linalg.norm(runs["card"]["positions"] - runs["host"]["positions"], axis=1).max()
+    log(f"    (d) card vs host with no similarity: largest {host:.3e} m (tol {GEO_HOST_TOL:g}) "
+        f"{'ok' if host <= GEO_HOST_TOL else 'FAIL'}")
+    if host > GEO_HOST_TOL:
+        raise RuntimeError(f"telemetry: a card pose lies {host} m from the host's")
+
+
+def phase_localization(tmp: str) -> dict:
+    """(a) a second camera's chunks through the creator CLI and
+    localize_camera --query-chunks against phase 9's offline ALIKED map;
+    (b) planted registration, (c) planted PnP and triangulation, card and
+    host; (d) the telemetry priors and COLMAP export through the
+    reconstructor CLI. Returns (a)'s launch counts."""
+    import glob
+
+    from pi3_slam_tpu_torch.create_offline_chunks import create_chunks
+    from pi3_slam_tpu_torch.localize_camera import main as localize
+    from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    ckpt = os.path.join(tmp, "ckpt")
+    seq = os.path.join(tmp, "7scenes", "scene", "seq-01")
+    query = os.path.join(tmp, "second_camera")
+    argv = ["--images", os.path.join(seq, "*.color.png"), "--skip-start", "15", "--output", query,
+            "--model-path", os.path.join(ckpt, "pi3.npz"), "--moge-path",
+            os.path.join(ckpt, "moge.npz"), "--chunk-length", "100", "--overlap", "20",
+            "--max-kp", "400", "--keypoints", "aliked", "--aliked-path",
+            os.path.join(ckpt, "aliked.npz")]
+    log("  (a) the second camera: python -m pi3_slam_tpu_torch.create_offline_chunks "
+        + " ".join(argv))
+    reset_launch_counts()
+    records = create_chunks(argv)
+    counts = nonzero(launch_counts())
+    per_chunk = [nonzero(r["launches"]) for r in records]
+    if per_chunk != [PATH_LAUNCHES["metric_depth"]] * 2:
+        raise RuntimeError(f"second camera: launches per chunk {per_chunk}")
+    log(f"    {len(records)} chunks, seconds {[round(r['infer_s'], 3) for r in records]}; "
+        f"launch counts {counts}")
+    out = os.path.join(tmp, "localize_register")
+    argv = ["--map-chunks", os.path.join(tmp, "appearance_offline", "scene"), "--query-chunks",
+            query, "--output", out]
+    log("    python -m pi3_slam_tpu_torch.localize_camera " + " ".join(argv))
+    t0 = time.perf_counter()
+    rc = localize(argv)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "registration_stats.json")) as f:
+        stats = json.load(f)
+    if rc not in (0, 1) or len(stats) != len(glob.glob(os.path.join(query, "chunks", "*.npz"))):
+        raise RuntimeError(f"localize_camera: exit code {rc}, {len(stats)} stats entries")
+    log(f"    exit code {rc} in {wall:.2f}s; per chunk (matches, inliers) "
+        f"{[(s['num_matches'], s['num_inliers']) for s in stats]} (random weights: printed, not "
+        "held)")
+    rng = np.random.default_rng(4)
+    t0 = time.perf_counter()
+    scene = planted_scene(rng)
+    log(f"  (b) planted registration: a map of 4 chunks x 100 frames x 400 tracks, 128-d "
+        f"descriptors (built in {time.perf_counter() - t0:.1f}s)")
+    registration_on_card(scene, rng)
+    log("  (c) planted PnP: 100 query images x 1000 matches, 0.5 px noise, 30% outliers")
+    pnp_on_card(scene, rng)
+    log("  (d) telemetry: GPS + gravity priors and the COLMAP export, eval-scale chunks")
+    telemetry_on_card(tmp)
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "pi3_slam_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -2746,6 +3232,8 @@ def main() -> int:
         by_path["eval"] = phase_eval(tmp)
         log("[9] appearance: ALIKED and its converter, ZNCC refinement, loop closure")
         by_path["appearance"] = phase_appearance(tmp)
+        log("[10] localization and telemetry: the second camera, georeferencing, COLMAP export")
+        by_path["localization"] = phase_localization(tmp)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]

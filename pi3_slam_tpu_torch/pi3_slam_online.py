@@ -97,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
                       type=float, default=0.005,
                       help="ALIKED detection threshold (reference --kp-threshold)")
     parser.add_argument("--telemetry", default=None,
-                        help="Telemetry with gravity / GPS streams (not yet ported)")
+                        help="Telemetry with gravity / GPS streams (generic JSON or GoPro "
+                             "MP4): GPS georeference, gravity and GPS priors in the BA")
     parser.add_argument("--gps-sigma", type=float, default=2.0)
     parser.add_argument("--gravity-sigma", type=float, default=0.05)
 
@@ -205,8 +206,9 @@ def run_online(argv=None) -> dict:
     ``Pi3SLAMOnline.process_image_paths``'s result with ``queue_status``,
     ``chunk_launches`` (kernel launches of each chunk's step and MoGe-2),
     ``loop_closure`` (``apply_loop_closure``'s statistics, None without
-    ``--loop-closure``) and ``artifacts`` (output paths). Exits with code 2 on an unported flag or
-    when no frame is found."""
+    ``--loop-closure``), ``telemetry`` (``apply_telemetry``'s statistics, None
+    without ``--telemetry``) and ``artifacts`` (output paths). Exits with code
+    2 on an unported flag or when no frame is found."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.no_visualization:
@@ -274,6 +276,7 @@ def run_online(argv=None) -> dict:
     slam = Pi3SLAMOnline(config)
     result = slam.process_image_paths(paths)
     loop_stats = slam.apply_loop_closure()
+    telemetry_stats = slam.apply_telemetry()
     os.makedirs(args.output, exist_ok=True)
     ply_path = os.path.join(args.output, "final_points.ply")
     slam.save_final_result(ply_path, max_points=args.max_points)
@@ -295,7 +298,7 @@ def run_online(argv=None) -> dict:
         shutil.copyfile(tum_path, artifacts["trajectory_tum"])
     return {**result, "queue_status": slam.queue_status(),
             "chunk_launches": slam.chunk_launches, "loop_closure": loop_stats,
-            "artifacts": artifacts}
+            "telemetry": telemetry_stats, "artifacts": artifacts}
 
 
 def main(argv=None) -> int:

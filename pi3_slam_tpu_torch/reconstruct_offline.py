@@ -1,5 +1,6 @@
 """CLI: reconstruct from saved chunks with the PyTorch port (per-chunk BA,
-Sim3 chaining, optional loop closure, export), on the GPU by default.
+Sim3 chaining, optional loop closure and telemetry priors, export with an
+optional COLMAP model), on the GPU by default.
 
     python -m pi3_slam_tpu_torch.reconstruct_offline --chunks <out> [--device cpu]
 
@@ -33,11 +34,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Save per-chunk reconstruction .npz files")
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     parser.add_argument("--telemetry", default=None,
-                        help="Telemetry with gravity/GPS streams (not yet ported)")
+                        help="Telemetry with gravity/GPS streams (generic JSON or GoPro "
+                             "MP4) for gravity+GPS constrained refinement; timebase "
+                             "must match the frame timestamps (video: idx/fps)")
     parser.add_argument("--gps-sigma", type=float, default=2.0,
-                        help="GPS position prior sigma in meters, for --telemetry")
+                        help="GPS position prior sigma in meters (0 disables)")
     parser.add_argument("--gravity-sigma", type=float, default=0.05,
-                        help="Gravity direction residual sigma, for --telemetry")
+                        help="Gravity direction residual sigma (0 disables)")
     parser.add_argument("--loop-closure", action="store_true",
                         help="Loop closure over non-adjacent chunks: descriptor matching, "
                              "geometric verification and a Sim3 pose graph (needs "
@@ -45,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--loop-min-inliers", type=int, default=20,
                         help="Minimum verified 3D inliers of a loop edge, for --loop-closure")
     parser.add_argument("--save-colmap", action="store_true",
-                        help="COLMAP text model export (not yet ported)")
+                        help="Also export a COLMAP text model (cameras/images/points3D.txt) "
+                             "into <output>/colmap")
     parser.add_argument("--export-mesh", action="store_true",
                         help="TSDF mesh export (not yet ported)")
     parser.add_argument("--mesh-voxel-size", type=float, default=0.0,
@@ -62,8 +66,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported(args) -> str | None:
     """The message for the first requested feature this port lacks, or None."""
     entries = (
-        ("--telemetry", args.telemetry is not None, "sfm/priors.py: telemetry priors"),
-        ("--save-colmap", args.save_colmap, "io/colmap.py"),
         ("--export-mesh", args.export_mesh, "mapping/: TSDF, raycast, fuse, surface nets"),
         ("--save-volume", args.save_volume, "mapping/: TSDF, raycast, fuse, surface nets"),
         ("--render-previews", args.render_previews > 0,
@@ -101,6 +103,10 @@ def reconstruct(argv=None) -> dict:
         device=args.device,
         loop_closure=args.loop_closure,
         loop_min_inliers=args.loop_min_inliers,
+        telemetry_path=args.telemetry,
+        gps_sigma=args.gps_sigma,
+        gravity_sigma=args.gravity_sigma,
+        save_colmap=args.save_colmap,
     )
     return OfflineReconstructor(config).run()
 

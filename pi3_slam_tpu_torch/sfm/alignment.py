@@ -46,15 +46,30 @@ class AlignmentResult:
     method: str = "tracks"
 
 
+def _column_argmax(sim: np.ndarray) -> np.ndarray:
+    """``sim.argmax(axis=0)`` (the first maximum of each column) by one pass
+    over the rows: numpy's strided argmax along axis 0 of a (1000, 16384)
+    similarity takes ten times as long."""
+    best = sim[0].copy()
+    idx = np.zeros(sim.shape[1], np.int64)
+    for i in range(1, sim.shape[0]):
+        upd = sim[i] > best
+        if upd.any():
+            np.copyto(best, sim[i], where=upd)
+            idx[upd] = i
+    return idx
+
+
 def mutual_nn_match(query_desc: np.ndarray, ref_desc: np.ndarray,
                     min_cosine: float) -> Tuple[np.ndarray, np.ndarray]:
-    """Mutual-nearest-neighbour cosine matching of L2-normalised descriptor
-    sets -> (query index, reference index)."""
+    """Mutual-nearest-neighbour cosine matching of L2-normalised (finite)
+    descriptor sets -> (query index, reference index); ties go to the first
+    index, as ``argmax`` gives them."""
     if query_desc.shape[0] == 0 or ref_desc.shape[0] == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     sim = query_desc @ ref_desc.T
     best_r = sim.argmax(axis=1)
-    best_q = sim.argmax(axis=0)
+    best_q = _column_argmax(sim)
     rows = np.arange(query_desc.shape[0])
     ok = (best_q[best_r] == rows) & (sim[rows, best_r] >= min_cosine)
     return rows[ok], best_r[ok]

@@ -63,8 +63,8 @@ class OfflineCreatorConfig:
 @dataclass
 class ReconstructorConfig:
     """Port of the JAX package's ``ReconstructorConfig`` with the fields of
-    the ported offline path; telemetry priors, COLMAP export and mesh fusion
-    are not ported (the CLI refuses their flags)."""
+    the ported offline path; mesh fusion is not ported (the CLI refuses its
+    flags)."""
 
     chunk_dir: str = "output_chunks"
     output_dir: Optional[str] = None
@@ -88,13 +88,24 @@ class ReconstructorConfig:
     loop_closure: bool = False
     loop_min_inliers: int = 20
     loop_min_cosine: float = 0.85
+    # telemetry-constrained refinement after loop closure (sfm/priors.py): a
+    # file with gravity / GPS streams (generic JSON, or a GoPro MP4 parsed in
+    # process) on the frame-timestamp timebase. GPS georeferences the
+    # reconstruction into a local ENU frame; gravity constrains absolute
+    # roll / pitch against the fixed world -z
+    telemetry_path: Optional[str] = None
+    gps_sigma: float = 2.0  # meters (0 disables GPS priors)
+    gravity_sigma: float = 0.05  # unit-vector residual sigma (0 disables)
+    telemetry_refine_iterations: int = 20
+    # also export a COLMAP text model into <output>/colmap (io/colmap.py)
+    save_colmap: bool = False
 
 
 @dataclass
 class OnlineConfig:
     """Port of the JAX package's ``OnlineConfig``: the same fields and
-    defaults, plus ``device``. The fields of parts not ported yet (telemetry,
-    the viewer, debug projections, mesh fusion, multi-device) are kept so a
+    defaults, plus ``device``. The fields of parts not ported yet (the
+    viewer, debug projections, mesh fusion, multi-device) are kept so a
     config reads the same; ``Pi3SLAMOnline`` refuses them
     (``slam.online.unported``)."""
 

@@ -5,9 +5,12 @@ trajectory.
 Port of ``pi3_slam_tpu/slam/offline_reconstructor.py`` (``load_chunk_npz``,
 ``OfflineReconstructor.run`` and ``export``): the same artifacts
 (``final_points.ply``, ``final_camera_poses.ply``, ``trajectory_tum.txt``
-with integer timestamps, views deduplicated by name), with loop closure over
-non-adjacent chunks after the chain when ``config.loop_closure`` is set
-(``sfm/loops.py``). The solves run on ``config.device``.
+with integer timestamps, views deduplicated by name, and with
+``config.save_colmap`` a COLMAP text model in ``<output>/colmap``), with loop
+closure over non-adjacent chunks after the chain when ``config.loop_closure``
+is set (``sfm/loops.py``), then the telemetry refine when
+``config.telemetry_path`` is set (``sfm/priors.py``: GPS georeference,
+gravity and GPS priors in the BA). The solves run on ``config.device``.
 """
 
 from __future__ import annotations
@@ -86,7 +89,9 @@ class OfflineReconstructor:
     def run(self) -> Dict:
         """Returns {"reconstructions", "alignment" (one AlignmentResult per
         chunk after the first), "loop_closure" (``close_loops``'s statistics
-        plus its "seconds"; None without ``loop_closure``), "artifacts"
+        plus its "seconds"; None without ``loop_closure``), "telemetry"
+        (``constrain_with_telemetry``'s statistics plus its "seconds"; None
+        without ``telemetry_path``), "artifacts"
         (output paths), "timings" (per
         chunk: "recon_s", the whole chunk reconstruction (observation fan on
         the host, copies, BA, pruning); "ba_s" and "ba_iterations", the BA
@@ -132,8 +137,10 @@ class OfflineReconstructor:
             timings.append(timing)
             recons.append(recon)
         loop_stats = self._close_loops(recons) if cfg.loop_closure else None
+        telemetry_stats = self._apply_telemetry(recons) if cfg.telemetry_path else None
         return {"reconstructions": recons, "alignment": align_stats, "loop_closure": loop_stats,
-                "artifacts": self.export(recons), "timings": timings}
+                "telemetry": telemetry_stats, "artifacts": self.export(recons),
+                "timings": timings}
 
     def _close_loops(self, recons: List[ChunkReconstruction]) -> Dict:
         """Loop closure over the chain (``sfm/loops.close_loops``), printing
@@ -154,6 +161,30 @@ class OfflineReconstructor:
                       f"({e.num_inliers}/{e.num_matches} inliers, rms {e.inlier_rms:.3f})")
             print(f"loop closure: pose graph over {len(recons)} chunks, cost "
                   f"{stats['initial_cost']:.4f} -> {stats['final_cost']:.4f}")
+        return stats
+
+    def _apply_telemetry(self, recons: List[ChunkReconstruction]) -> Dict:
+        """Gravity + GPS constrained refinement (``sfm/priors.py``): a Sim3
+        fit of the stitched camera track onto the GPS ENU track georeferences
+        the reconstruction, then each chunk is refined with GPS position
+        priors and gravity-direction residuals in the BA, on the
+        reconstructor's device."""
+        from ..sfm.priors import constrain_with_telemetry
+        from ..utils.telemetry import load_telemetry
+
+        cfg = self.config
+        t0 = time.perf_counter()
+        stats = constrain_with_telemetry(recons, load_telemetry(cfg.telemetry_path),
+                                         gps_sigma=cfg.gps_sigma,
+                                         gravity_sigma=cfg.gravity_sigma,
+                                         refine_iterations=cfg.telemetry_refine_iterations,
+                                         device=self.device)
+        stats["seconds"] = time.perf_counter() - t0
+        if stats["gps"]:
+            print(f"telemetry: georeferenced to ENU (scale {stats['scale']:.4f}, "
+                  f"GPS RMS {stats['gps_rms_m']:.2f} m, origin {stats['origin']})")
+        print(f"telemetry: refined {stats['refined_chunks']}/{len(recons)} chunks "
+              f"(gps={stats['gps']}, gravity={stats['gravity']})")
         return stats
 
     def export(self, recons: List[ChunkReconstruction]) -> Dict[str, str]:
@@ -178,4 +209,11 @@ class OfflineReconstructor:
         write_tum_trajectory(tum_path, np.asarray(centers), np.asarray(rotations),
                              integer_timestamps=True)
         print(f"Exported {cloud.shape[0]} points, {len(centers)} poses -> {self.output_dir}")
-        return {"points": ply_path, "cameras": cam_ply_path, "trajectory": tum_path}
+        artifacts = {"points": ply_path, "cameras": cam_ply_path, "trajectory": tum_path}
+        if self.config.save_colmap:
+            from ..io.colmap import write_colmap_text
+
+            colmap_dir = os.path.join(self.output_dir, "colmap")
+            artifacts["colmap"] = write_colmap_text(recons, colmap_dir)["images"]
+            print(f"Exported COLMAP text model -> {colmap_dir}")
+        return artifacts

@@ -27,11 +27,12 @@ the step, and the chunk carries ``keypoint_valid`` and descriptors; with
 ``refine_observations`` the step returns the ZNCC-refined observation fan
 (``slam/chunk_creator.py``), which the chunk reconstruction uses; and
 ``apply_loop_closure`` closes loops over the chain after processing
-(``sfm/loops.py``, on the SfM device).
+(``sfm/loops.py``, on the SfM device), and ``apply_telemetry`` then
+georeferences and refines it with gravity and GPS priors (``sfm/priors.py``).
 
 An error in the consumer stops it and reaches the caller from the drive
 thread; no chunk is consumed twice. The JAX class's backend-reset recovery
-and its multi-device, telemetry, viewer, debug-projection and mesh parts are
+and its multi-device, viewer, debug-projection and mesh parts are
 not ported: ``unported`` names each one's ROADMAP.md entry and the class
 refuses a config that asks for it.
 """
@@ -85,7 +86,6 @@ def unported(config: OnlineConfig) -> str | None:
     """The message for the first part ``config`` asks for that the port
     lacks, or None; each names its ROADMAP.md entry."""
     entries = (
-        ("--telemetry", config.telemetry_path is not None, "sfm/priors.py: telemetry priors"),
         ("--visualize", config.visualize, "viz/visualizer.py, the online viewer"),
         ("--save-debug-projections", config.save_debug_projections,
          "sfm/serialization.render_debug_projections"),
@@ -348,6 +348,26 @@ class Pi3SLAMOnline:
             has_desc = any(r.track_desc is not None for r in self.reconstructions)
             why = "" if has_desc else " (grid chunks carry no descriptors — use --keypoints aliked)"
             print(f"loop closure: no verified loop edges{why}")
+        return stats
+
+    def apply_telemetry(self):
+        """Gravity + GPS constrained finalization over the accumulated chunk
+        reconstructions (``sfm/priors.constrain_with_telemetry`` on the SfM
+        device). Call after processing and loop closure, before the exports;
+        georeferences everything into the GPS ENU frame. None without
+        ``telemetry_path`` or chunks."""
+        if not self.config.telemetry_path or not self.reconstructions:
+            return None
+        from ..sfm.priors import constrain_with_telemetry
+        from ..utils.telemetry import load_telemetry
+
+        stats = constrain_with_telemetry(
+            self.reconstructions, load_telemetry(self.config.telemetry_path),
+            gps_sigma=self.config.gps_sigma, gravity_sigma=self.config.gravity_sigma,
+            refine_iterations=self.config.telemetry_refine_iterations, device=self.sfm_device)
+        print(f"telemetry: gps={stats['gps']} gravity={stats['gravity']} "
+              f"refined {stats['refined_chunks']} chunks"
+              + (f", GPS RMS {stats['gps_rms_m']:.2f} m" if stats["gps"] else ""))
         return stats
 
     # ----- drive loops -----

@@ -320,8 +320,8 @@ def test_sfm_backend_and_unported_parts_are_refused(ckpt):
     with pytest.raises(ValueError, match="sfm_backend"):
         online.Pi3SLAMOnline(OnlineConfig(device="cpu", sfm_backend="tpu"))
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1: off the main path, sfm/priors.py"):
-        online.Pi3SLAMOnline(OnlineConfig(device="cpu", telemetry_path="t.json"))
+                       match="ROADMAP.md Queue 1: off the main path, mapping/"):
+        online.Pi3SLAMOnline(OnlineConfig(device="cpu", export_mesh=True))
 
 
 # ----- the CLI -----
@@ -341,7 +341,6 @@ def test_cli_has_every_jax_option_with_its_default():
 
 
 @pytest.mark.parametrize("flags,entry", [
-    (["--telemetry", "t.json"], "telemetry priors"),
     (["--visualize"], "online viewer"),
     (["--keep-viz-open"], "online viewer"),
     (["--save-debug-projections"], "render_debug_projections"),

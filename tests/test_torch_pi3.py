@@ -108,9 +108,10 @@ def test_checkpoint_round_trip(tmp_path):
 
 def test_port_imports_and_runs_without_jax():
     """The port never imports JAX nor the JAX package: a fresh interpreter
-    imports every module (the SfM, reconstructor and probe modules included),
-    runs a tiny forward, a tiny bundle adjustment, a Sim3 fit and the APE
-    scorer, and finds neither 'jax' nor 'pi3_slam_tpu' in sys.modules."""
+    imports every module (the SfM, reconstructor, localization, telemetry and
+    probe modules included), runs a tiny forward, a tiny bundle adjustment, a
+    Sim3 fit, the APE scorer, the appearance and localization solvers, and
+    finds neither 'jax' nor 'pi3_slam_tpu' in sys.modules."""
     code = textwrap.dedent(
         """
         import sys, pkgutil, importlib, torch
@@ -156,6 +157,16 @@ def test_port_imports_and_runs_without_jax():
         i, j, meas = sequential_edges(3)
         res = optimize_sim3_pose_graph(stack_sim3(meas + meas[:1]), i, j, stack_sim3(meas), device="cpu")
         assert res.final_cost <= res.initial_cost + 1e-9
+        # the second camera and georeferencing: PnP, the telemetry priors, COLMAP's quaternions
+        from pi3_slam_tpu_torch.geometry.transforms import rotation_matrix_to_quaternion
+        from pi3_slam_tpu_torch.sfm.localize import ransac_pnp
+        from pi3_slam_tpu_torch.sfm.priors import geodetic_to_enu
+        X = torch.rand(40, 3) + torch.tensor([0.0, 0.0, 4.0])
+        pnp = ransac_pnp(X, 500 * X[:, :2] / X[:, 2:] + 320, torch.tensor([500.0, 500, 320, 320]),
+                         num_samples=16, device="cpu")
+        assert int(pnp.num_inliers) == 40
+        assert geodetic_to_enu(np.array([[48.0, 11.0, 500.0]]))[0].shape == (1, 3)
+        assert float(rotation_matrix_to_quaternion(torch.eye(3))[0]) == 1.0
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert "pi3_slam_tpu" not in sys.modules, sorted(
             m for m in sys.modules if m.split(".")[0] == "pi3_slam_tpu")

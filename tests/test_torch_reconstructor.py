@@ -286,8 +286,7 @@ def test_cli_flags_match_the_jax_cli():
     assert got["device"][1] == "cuda"
 
 
-@pytest.mark.parametrize("flag", [["--telemetry", "t.json"], ["--save-colmap"],
-                                  ["--export-mesh"], ["--save-volume"], ["--render-previews", "2"]])
+@pytest.mark.parametrize("flag", [["--export-mesh"], ["--save-volume"], ["--render-previews", "2"]])
 def test_cli_refuses_unported_flags(tmp_path, flag, capsys):
     with pytest.raises(SystemExit) as e:
         cli.reconstruct(["--chunks", str(tmp_path), "--device", "cpu", *flag])
