@@ -167,6 +167,31 @@ Phases, each of which raises (exit code 1) on failure:
    georeferenced trajectory against the true ENU track and card against host
    with no similarity, the gravity residual, the COLMAP model's counts, and
    the telemetry refine's seconds a chunk.
+11. mapping: (a) the creator CLI with --save-dense on phase 4's 130 frames
+   (MoGe-2; two chunks, each launching the metric-depth path's kernels: the
+   kernels line's "mapping" path), then the reconstructor CLI with
+   --export-mesh --save-volume --render-previews 2: fused_mesh.ply reads back
+   with finite vertices and faces in range, fused_volume.npz loads, four
+   preview PNGs; the fusion, meshing and raycast seconds (random weights
+   decide the geometry: printed, not held); (b) a planted scene at eval
+   scale: 100 analytic depth views at 154x203 of the unit sphere of
+   tests/test_mapping.py (copied), coloured, fused on the card into 189^3
+   voxels: the surface-nets mesh within 1.5 voxels of the sphere at the
+   median and 3 at the 95th percentile, the median colour within 0.05; a
+   second card fusion bit-identical (the voxel -> pixel gather has no
+   atomics); the first 20 frames on the card and on the host CPU: at most
+   1e-4 of the voxels differ by more than 1e-5 (the pixel index rounds; where
+   u lands within rounding of .5 another summation order picks the next
+   pixel); 4 raycasts on the card within one voxel of the analytic depth on
+   99% of the interior rays that hit (the analytic silhouette less its
+   1-pixel rim), card and host hit masks compared; the fusion's seconds per
+   chunk beside the bytes bound of a frame-at-a-time pass (40 B a voxel and
+   frame over 3.35 TB/s) and the raycast's ms per view; (c) the online CLI in
+   process with --export-mesh --save-volume --live-mesh-every 1 over phase
+   4's 130 frames: fused_mesh.ply, fused_volume.npz, at least one "live
+   mesh:" line and no "live mesh refresh failed" line (the live refresh runs
+   on the host CPU), the wall time beside phase 7 (a)'s; (d) the tsdf probe
+   (python -m pi3_slam_tpu_torch.tools.perf_lab tsdf).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1750,10 +1775,11 @@ def ba_beside_loads(slam, chunk_path: str) -> None:
             f"{load_alone:.3f}s alone, {load_beside:.3f}s)")
 
 
-def phase_online(tmp: str) -> dict:
+def phase_online(tmp: str) -> tuple[dict, float]:
     """(a) the online CLI in process over phase 4's 130 frames at the
     evaluation settings; (b) the drive modes over 340 frames, sync then
-    async; (c) async with sfm_backend 'cpu'. Returns (a)'s launch counts."""
+    async; (c) async with sfm_backend 'cpu'. Returns (a)'s launch counts and
+    its wall seconds."""
     from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
     from pi3_slam_tpu_torch.pi3_slam_online import run_online
     from pi3_slam_tpu_torch.slam.config import OnlineConfig
@@ -1768,7 +1794,7 @@ def phase_online(tmp: str) -> dict:
     reset_launch_counts()
     t0 = time.perf_counter()
     result = run_online(argv)
-    wall = time.perf_counter() - t0
+    cli_wall = wall = time.perf_counter() - t0
     counts = nonzero(launch_counts())
     per_chunk = [nonzero(c) for c in result["chunk_launches"]]
     want = PATH_LAUNCHES["metric_depth"]
@@ -1841,7 +1867,7 @@ def phase_online(tmp: str) -> dict:
         f"before BA and {extent(sync_traj[:100]):.3e} m after; not held on random weights, see (e)")
     ba_beside_loads(slam, os.path.join(tmp, "eval", "chunks", "chunk_000000.npz"))
     online_sfm_against_host(slam, tmp)
-    return counts
+    return counts, cli_wall
 
 
 # (e)'s bound on the largest per-pose distance between the card's and the
@@ -3188,6 +3214,296 @@ def phase_localization(tmp: str) -> dict:
     return counts
 
 
+# --- phase 11: dense mapping (mapping/: TSDF fusion, raycast, surface nets,
+# the mesh export of both CLIs)
+# (b): the planted sphere's surface-nets mesh against the sphere, in voxels
+# (tests/test_mapping.py's test_tsdf_sphere_fusion bounds), and its colour
+PLANT_MEDIAN_VOXELS, PLANT_P95_VOXELS, PLANT_COLOR_TOL = 1.5, 3.0, 0.05
+# (b): the first 20 frames on the card and the host CPU: at most
+# FUSE_HOST_SHARE of the voxels may differ by more than FUSE_HOST_DIFF in tsdf.
+# The pixel index is round(fx x / z + cx); where u lands within rounding of
+# .5 the card's product (another summation order) picks the next pixel. A
+# straight transcription on the host measured 6.9e-7 of 1.44M voxels off at
+# 24 views of 154x203
+FUSE_HOST_DIFF, FUSE_HOST_SHARE = 1e-5, 1e-4
+# (b): raycast depth within RAY_VOXELS voxels of the analytic depth on
+# RAY_SHARE of the interior rays that hit (the silhouette less its 1-pixel
+# rim, where a ray grazes the sphere), as tests/test_mapping.py's raycast
+# test restricts them
+RAY_VOXELS, RAY_SHARE = 1.0, 0.99
+PLANT_FRAMES, PLANT_H, PLANT_W, PLANT_N, PLANT_HOST_FRAMES = 100, 154, 203, 189, 20
+PLANT_INTR = np.array([178.0, 178.0, PLANT_W / 2, PLANT_H / 2])
+SPHERE_COLOR = np.array([0.3, 0.6, 0.9])
+# a frame-at-a-time pass reads and writes the voxel state (tsdf, weight,
+# rgb: 20 bytes) once a frame
+FUSE_BYTES_PER_VOXEL_FRAME = 40.0
+
+
+def look_at_origin(center: np.ndarray) -> np.ndarray:
+    """World -> camera rotation of a camera at ``center`` looking at the origin
+    (tests/test_mapping.py's _look_at_origin)."""
+    z = -center / np.linalg.norm(center)
+    up = np.array([0.0, 0.0, 1.0]) if abs(z[2]) <= 0.99 else np.array([0.0, 1.0, 0.0])
+    x = np.cross(up, z)
+    x /= np.linalg.norm(x)
+    return np.stack([x, np.cross(z, x), z])
+
+
+def sphere_depth(center, R, intr, h, w, radius=1.0) -> np.ndarray:
+    """Exact z-depth of the sphere |p| = radius from a pinhole camera, 0 where
+    the ray misses (tests/test_mapping.py's _render_sphere_depth)."""
+    fx, fy, cx, cy = intr
+    v, u = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    xn, yn = (u - cx) / fx, (v - cy) / fy
+    rc = R @ center
+    a = xn**2 + yn**2 + 1.0
+    b = 2.0 * (xn * rc[0] + yn * rc[1] + rc[2])
+    disc = b**2 - 4 * a * (float(center @ center) - radius**2)
+    s = np.where(disc > 0, (-b - np.sqrt(np.maximum(disc, 0.0))) / (2 * a), 0.0)
+    return np.where((disc > 0) & (s > 0), s, 0.0)
+
+
+class Tee:
+    """Standard output to the terminal and to a buffer (the online run's
+    lines, its live-mesh thread's included)."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def lines(self) -> list:
+        return "".join(self.parts).splitlines()
+
+
+def check_mesh(path: str) -> dict:
+    """A mesh PLY that reads back with finite vertices and faces in range."""
+    from pi3_slam_tpu_torch.io.mesh import read_mesh_ply
+
+    mesh = read_mesh_ply(path)
+    v, f = mesh["vertices"], mesh["faces"]
+    if not np.isfinite(v).all() or (f.size and (f.min() < 0 or f.max() >= len(v))):
+        raise RuntimeError(f"{path}: vertices not finite or faces out of range")
+    return mesh
+
+
+def mapping_offline(tmp: str) -> dict:
+    """(a) the creator CLI with --save-dense, then the reconstructor CLI with
+    --export-mesh --save-volume --render-previews 2. Returns the creator
+    run's launch counts."""
+    from pi3_slam_tpu_torch.create_offline_chunks import create_chunks
+    from pi3_slam_tpu_torch.mapping import TSDFVolume
+    from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pi3_slam_tpu_torch.reconstruct_offline import reconstruct
+
+    chunks = os.path.join(tmp, "mapping_chunks")
+    argv = ["--images", os.path.join(tmp, "frames"), "--output", chunks, "--chunk-length", "100",
+            "--overlap", "20", "--max-kp", "400", "--moge-path",
+            os.path.join(tmp, "moge_random.npz"), "--save-dense"]
+    log("  (a) python -m pi3_slam_tpu_torch.create_offline_chunks " + " ".join(argv))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    records = create_chunks(argv)
+    wall = time.perf_counter() - t0
+    counts = nonzero(launch_counts())
+    per_chunk = [nonzero(r["launches"]) for r in records]
+    if per_chunk != [PATH_LAUNCHES["metric_depth"]] * 2:
+        raise RuntimeError(f"--save-dense: launches per chunk {per_chunk}")
+    with np.load(os.path.join(chunks, "chunks", "chunk_000000.npz")) as z:
+        dense = z["local_points_dense"].shape
+    log(f"    2 chunks in {wall:.1f}s, seconds per chunk {[round(r['infer_s'], 3) for r in records]}, "
+        f"dense maps {dense}; launch counts {counts}")
+    out = os.path.join(tmp, "mapping_recon")
+    argv = ["--chunks", chunks, "--output", out, "--export-mesh", "--save-volume",
+            "--render-previews", "2"]
+    log("    python -m pi3_slam_tpu_torch.reconstruct_offline " + " ".join(argv))
+    t0 = time.perf_counter()
+    res = reconstruct(argv)
+    wall = time.perf_counter() - t0
+    check_artifacts(res, 130)
+    if "mesh" not in res["artifacts"]:
+        raise RuntimeError("the reconstructor wrote no mesh")
+    mesh = check_mesh(res["artifacts"]["mesh"])
+    vol = TSDFVolume.load(os.path.join(out, "fused_volume.npz"))
+    previews = sorted(os.listdir(os.path.join(out, "mesh_previews")))
+    if previews != ["depth_000.png", "depth_001.png", "normal_000.png", "normal_001.png"]:
+        raise RuntimeError(f"mesh previews {previews}")
+    t = res["mesh_timings"]
+    log(f"    {wall:.1f}s: volume {vol.shape} at voxel {vol.voxel_size:.4f} ({(vol.weight > 0).mean():.3f} "
+        f"observed), mesh {len(mesh['vertices'])} vertices / {len(mesh['faces'])} faces (random "
+        f"weights decide the geometry: printed, not held); fusion {t['fuse_s']:.3f}s (chunks "
+        f"loaded, fused on the card, pulled), meshing {t['mesh_s']:.3f}s (host: volume saved, "
+        f"surface nets, normals, PLY), raycast per 240x320 preview "
+        f"{[round(x, 3) for x in t['raycast_s']]}s")
+    return counts
+
+
+def planted_mapping() -> None:
+    """(b) 100 analytic views of the unit sphere at 154x203 fused on the card
+    into 189^3 voxels: the mesh against the sphere, a second fusion bit for
+    bit, 20 frames card against host, 4 raycasts against the analytic depth."""
+    import torch
+
+    from pi3_slam_tpu_torch.mapping import TSDFConfig, fuse_tsdf, raycast_depth
+
+    depths, rots, cens = [], [], []
+    for i in range(PLANT_FRAMES):
+        ang = 2 * np.pi * i / PLANT_FRAMES
+        elev = 0.5 * np.sin(3 * ang)
+        c = 3.0 * np.array([np.cos(ang) * np.cos(elev), np.sin(ang) * np.cos(elev), np.sin(elev)])
+        R = look_at_origin(c)
+        depths.append(sphere_depth(c, R, PLANT_INTR, PLANT_H, PLANT_W))
+        rots.append(R)
+        cens.append(c)
+    depths, rots, cens = np.stack(depths), np.stack(rots), np.stack(cens)
+    intr = np.tile(PLANT_INTR, (PLANT_FRAMES, 1))
+    colors = np.broadcast_to(SPHERE_COLOR, depths.shape + (3,))
+    vs = 2.2 / (PLANT_N - 1.5)  # ceil(2.2 / vs) + 1 = PLANT_N voxels an axis
+    cfg = TSDFConfig(voxel_size=vs)
+    bounds = (np.full(3, -1.1), np.full(3, 1.1))
+
+    def fuse(n, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vol = fuse_tsdf(depths[:n], intr[:n], rots[:n], cens[:n], colors=colors[:n], config=cfg,
+                        bounds=bounds, device=device)
+        torch.cuda.synchronize()
+        return vol, time.perf_counter() - t0
+
+    fuse(10, "cuda")  # warm-up: the first launches of each op
+    card, secs = fuse(PLANT_FRAMES, "cuda")
+    again, secs2 = fuse(PLANT_FRAMES, "cuda")
+    V = int(np.prod(card.shape))
+    bound_ms = FUSE_BYTES_PER_VOXEL_FRAME * V * PLANT_FRAMES / PEAK_BYTES * 1e3
+    same = all(np.array_equal(getattr(card, k), getattr(again, k)) for k in ("tsdf", "weight",
+                                                                            "color"))
+    log(f"    (b) {PLANT_FRAMES} views of {PLANT_H}x{PLANT_W} into {card.shape} = {V} voxels "
+        f"(voxel {vs:.5f}): fusion {secs:.3f}s and {secs2:.3f}s a chunk on the card "
+        f"({PLANT_FRAMES / secs2:.1f} frames/s, {V * PLANT_FRAMES / secs2 / 1e9:.2f} Gvoxel-updates/s) "
+        f"beside the bytes bound of a frame-at-a-time pass {bound_ms:.2f} ms "
+        f"({FUSE_BYTES_PER_VOXEL_FRAME:.0f} B a voxel and frame over 3.35 TB/s); second run "
+        f"bit-identical: {same}")
+    if not same:
+        raise RuntimeError("two card fusions of the planted sphere differ")
+    t0 = time.perf_counter()
+    verts, faces, vcols = card.extract_mesh()
+    mesh_s = time.perf_counter() - t0
+    err = np.abs(np.linalg.norm(verts, axis=1) - 1.0) / vs
+    color = np.abs(np.median(vcols, axis=0) - SPHERE_COLOR).max()
+    log(f"    (b) surface nets {mesh_s:.2f}s on the host: {len(verts)} vertices, {len(faces)} "
+        f"faces; |r - R| median {np.median(err):.3f} voxels (tol {PLANT_MEDIAN_VOXELS:g}), 95th "
+        f"percentile {np.percentile(err, 95):.3f} (tol {PLANT_P95_VOXELS:g}); median colour off "
+        f"by {color:.2e} (tol {PLANT_COLOR_TOL:g})")
+    if (len(faces) < 1000 or np.median(err) >= PLANT_MEDIAN_VOXELS
+            or np.percentile(err, 95) >= PLANT_P95_VOXELS or color >= PLANT_COLOR_TOL):
+        raise RuntimeError("the planted sphere's mesh is off the sphere")
+
+    n = PLANT_HOST_FRAMES
+    card20, card20_s = fuse(n, "cuda")
+    t0 = time.perf_counter()
+    host20 = fuse_tsdf(depths[:n], intr[:n], rots[:n], cens[:n], colors=colors[:n], config=cfg,
+                       bounds=bounds, device="cpu")
+    host_s = time.perf_counter() - t0
+    diff = np.abs(card20.tsdf - host20.tsdf)
+    share = float((diff > FUSE_HOST_DIFF).mean())
+    wdiff = float((card20.weight != host20.weight).mean())
+    log(f"    (b) the first {n} frames, card vs host CPU: {share:.3e} of the voxels differ by more "
+        f"than {FUSE_HOST_DIFF:g} in tsdf (tol {FUSE_HOST_SHARE:g}; {int((diff > FUSE_HOST_DIFF).sum())} "
+        f"voxels, largest {diff.max():.3e}), weights differ in {wdiff:.3e}; card {card20_s:.3f}s, "
+        f"host {host_s:.2f}s")
+    if share > FUSE_HOST_SHARE:
+        raise RuntimeError(f"card vs host fusion: {share} of the voxels differ")
+
+    ray_ms, within, agree = [], [], []
+    for k in range(4):
+        ang = 0.37 + k * np.pi / 2
+        c = 3.0 * np.array([np.cos(ang), np.sin(ang), 0.21 * (-1) ** k])
+        R = look_at_origin(c)
+        raycast_depth(card, PLANT_INTR, R, c, PLANT_H, PLANT_W, device="cuda")  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = raycast_depth(card, PLANT_INTR, R, c, PLANT_H, PLANT_W, device="cuda")
+        ray_ms.append((time.perf_counter() - t0) * 1e3)
+        host = raycast_depth(card, PLANT_INTR, R, c, PLANT_H, PLANT_W, device="cpu")
+        gt = sphere_depth(c, R, PLANT_INTR, PLANT_H, PLANT_W)
+        hit = gt > 0
+        interior = np.zeros_like(hit)
+        interior[1:-1, 1:-1] = (hit[1:-1, 1:-1] & hit[:-2, 1:-1] & hit[2:, 1:-1]
+                                & hit[1:-1, :-2] & hit[1:-1, 2:])
+        rays = interior & out["mask"]
+        within.append(float((np.abs(out["depth"] - gt)[rays] < RAY_VOXELS * vs).mean()))
+        agree.append(float((out["mask"] == host["mask"]).mean()))
+        if rays.sum() < 0.9 * interior.sum():
+            raise RuntimeError(f"raycast view {k}: {rays.sum()} of {interior.sum()} interior rays hit")
+    log(f"    (b) 4 raycasts of {PLANT_H}x{PLANT_W} on the card: {[round(x, 2) for x in ray_ms]} ms "
+        f"a view (normals and the host copy included); depth within {RAY_VOXELS:g} voxel of the "
+        f"analytic depth on {[round(x, 5) for x in within]} of the interior rays that hit (tol "
+        f"{RAY_SHARE:g}); card and host hit masks agree on {[round(x, 5) for x in agree]}")
+    if min(within) < RAY_SHARE:
+        raise RuntimeError(f"raycast depth off the sphere: {within}")
+
+
+def mapping_online(tmp: str, online_wall: float) -> None:
+    """(c) the online CLI in process with --export-mesh --save-volume
+    --live-mesh-every 1 over phase 4's 130 frames."""
+    import threading
+
+    from pi3_slam_tpu_torch.mapping import TSDFVolume
+    from pi3_slam_tpu_torch.pi3_slam_online import run_online
+
+    out = os.path.join(tmp, "online_mesh")
+    argv = ["--images", os.path.join(tmp, "frames"), "--output", out, "--chunk-length", "100",
+            "--overlap", "20", "--max-kp", "400", "--tum-integer-timestamps", "--moge-path",
+            os.path.join(tmp, "moge_random.npz"), "--save-tum", "--export-mesh", "--save-volume",
+            "--live-mesh-every", "1"]
+    log("  (c) python -m pi3_slam_tpu_torch.pi3_slam_online " + " ".join(argv))
+    tee, stdout = Tee(sys.stdout), sys.stdout
+    sys.stdout = tee
+    try:
+        t0 = time.perf_counter()
+        result = run_online(argv)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for t in threading.enumerate():
+            if t.name == "live-mesh":
+                t.join(timeout=300)
+        join_s = time.perf_counter() - t0
+    finally:
+        sys.stdout = stdout
+    live = [line for line in tee.lines() if line.startswith("live mesh")]
+    check_online_outputs(out, 130)
+    if "mesh" not in result["artifacts"]:
+        raise RuntimeError("the online CLI wrote no mesh")
+    mesh = check_mesh(os.path.join(out, "fused_mesh.ply"))
+    vol = TSDFVolume.load(os.path.join(out, "fused_volume.npz"))
+    log(f"    CLI wall {wall:.1f}s with the mesh flags vs {online_wall:.1f}s without (phase 7 "
+        f"(a)); the live-mesh thread ended {join_s:.1f}s after the CLI returned; volume "
+        f"{vol.shape}, mesh {len(mesh['vertices'])} vertices; live refreshes: {live}")
+    if not any(line.startswith("live mesh: ") for line in live) or any(
+            "refresh failed" in line for line in live):
+        raise RuntimeError(f"online live mesh: {live}")
+
+
+def phase_mapping(tmp: str, online_wall: float) -> dict:
+    """(a) offline mesh export, (b) the planted sphere at eval scale, (c)
+    online mesh export with the live refresh, (d) the tsdf probe. Returns
+    (a)'s creator run's launch counts."""
+    from pi3_slam_tpu_torch.tools import perf_lab
+
+    counts = mapping_offline(tmp)
+    log("  (b) a planted sphere at eval scale")
+    planted_mapping()
+    mapping_online(tmp, online_wall)
+    log("  (d) python -m pi3_slam_tpu_torch.tools.perf_lab tsdf")
+    perf_lab.probe(["tsdf"])
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "pi3_slam_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -3227,13 +3543,15 @@ def main() -> int:
         log("[6] reconstruct: the port's reconstructor CLI on the card")
         phase_reconstruct(tmp)
         log("[7] online: the port's online CLI, its drive modes, SfM on the card and the host")
-        by_path["online"] = phase_online(tmp)
+        by_path["online"], online_wall = phase_online(tmp)
         log("[8] eval: the checkpoint converters and the 7-Scenes / EuRoC eval tool")
         by_path["eval"] = phase_eval(tmp)
         log("[9] appearance: ALIKED and its converter, ZNCC refinement, loop closure")
         by_path["appearance"] = phase_appearance(tmp)
         log("[10] localization and telemetry: the second camera, georeferencing, COLMAP export")
         by_path["localization"] = phase_localization(tmp)
+        log("[11] mapping: TSDF fusion, raycast, surface nets and mesh export")
+        by_path["mapping"] = phase_mapping(tmp, online_wall)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]

@@ -1,17 +1,20 @@
 """CLI: online streaming SLAM with the PyTorch port (chunked Pi3 inference,
 grid or ALIKED keypoints, MoGe-2 metric scale, optional ZNCC observation
-refinement, per-chunk BA, incremental Sim3 alignment and optional loop
-closure after processing), on the GPU by default.
+refinement, per-chunk BA, incremental Sim3 alignment, optional loop
+closure and telemetry after processing, and the TSDF mesh), on the GPU by
+default.
 
     python -m pi3_slam_tpu_torch.pi3_slam_online --images <dir> --output <out> \\
         --chunk-length 100 --overlap 20 --max-kp 400 --moge-path moge.npz --save-tum
+    ... --export-mesh --save-volume --live-mesh-every 1   # fused_mesh.ply, fused_volume.npz
 
 Same flags as the JAX package's ``pi3_slam_online.py`` (image folder, glob or
 list, or ``--video``; the reference's underscore spellings as aliases).
 Flags that name parts not ported yet exit 2 with a message naming their
 ROADMAP.md entry. ``--device cuda`` (the default) needs a CUDA device;
 ``--device cpu`` is the explicit CPU mode. Writes ``final_points.ply`` and
-``trajectory_tum.txt`` (and ``trajectory.tum`` with ``--save-tum``).
+``trajectory_tum.txt`` (and ``trajectory.tum`` with ``--save-tum``, and
+``fused_mesh.ply`` with ``--export-mesh``).
 """
 
 from __future__ import annotations
@@ -156,15 +159,19 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Stash strided dense per-pixel maps per chunk under "
                             "<output>/dense/")
     g_out.add_argument("--export-mesh", action="store_true",
-                       help="TSDF mesh export (not yet ported)")
+                       help="TSDF-fuse the dense maps under the final poses "
+                            "(after loop closure / telemetry) and export "
+                            "fused_mesh.ply (implies --save-dense)")
     g_out.add_argument("--dense-stride", type=int, default=2,
                        help="Spatial subsampling of the stashed dense maps "
                             "(applied on-device; stride^2 smaller stashes)")
     g_out.add_argument("--save-volume", action="store_true",
-                       help="Persist the fused TSDF volume (not yet ported)")
+                       help="With --export-mesh: also persist the fused TSDF "
+                            "volume (fused_volume.npz)")
     g_out.add_argument("--live-mesh-every", type=int, default=0,
-                       help="Live fused-surface refresh every K chunks (not yet ported; "
-                            "0 = off)")
+                       help="Re-fuse the stashed dense maps every K chunks on a "
+                            "background host-CPU thread under the current poses "
+                            "and print the live surface's size (0 = off)")
     g_out.add_argument("--mesh-voxel-size", type=float, default=0.0,
                        help="TSDF voxel size in scene units; 0 = auto "
                             "(~192 voxels across the scene)")
@@ -277,6 +284,8 @@ def run_online(argv=None) -> dict:
     result = slam.process_image_paths(paths)
     loop_stats = slam.apply_loop_closure()
     telemetry_stats = slam.apply_telemetry()
+    # after loop closure and telemetry: the mesh bakes in the final poses
+    mesh_path = slam.export_mesh() if args.export_mesh else None
     os.makedirs(args.output, exist_ok=True)
     ply_path = os.path.join(args.output, "final_points.ply")
     slam.save_final_result(ply_path, max_points=args.max_points)
@@ -296,6 +305,8 @@ def run_online(argv=None) -> dict:
         # the reference names the online trajectory <output>/trajectory.tum
         artifacts["trajectory_tum"] = os.path.join(args.output, "trajectory.tum")
         shutil.copyfile(tum_path, artifacts["trajectory_tum"])
+    if mesh_path:
+        artifacts["mesh"] = mesh_path
     return {**result, "queue_status": slam.queue_status(),
             "chunk_launches": slam.chunk_launches, "loop_closure": loop_stats,
             "telemetry": telemetry_stats, "artifacts": artifacts}

@@ -1,13 +1,13 @@
 """CLI: reconstruct from saved chunks with the PyTorch port (per-chunk BA,
 Sim3 chaining, optional loop closure and telemetry priors, export with an
-optional COLMAP model), on the GPU by default.
+optional COLMAP model and TSDF mesh), on the GPU by default.
 
     python -m pi3_slam_tpu_torch.reconstruct_offline --chunks <out> [--device cpu]
+    python -m pi3_slam_tpu_torch.reconstruct_offline --chunks <out> --export-mesh \
+        --save-volume --render-previews 2      # chunks made with --save-dense
 
-Same flags as the JAX package's ``reconstruct_offline.py``. Flags that name
-parts not ported yet exit non-zero with a message naming their ROADMAP.md
-entry. ``--device cuda`` (the default) needs a CUDA device; ``--device cpu``
-is the explicit CPU mode.
+Same flags as the JAX package's ``reconstruct_offline.py``. ``--device cuda``
+(the default) needs a CUDA device; ``--device cpu`` is the explicit CPU mode.
 """
 
 from __future__ import annotations
@@ -51,41 +51,31 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Also export a COLMAP text model (cameras/images/points3D.txt) "
                              "into <output>/colmap")
     parser.add_argument("--export-mesh", action="store_true",
-                        help="TSDF mesh export (not yet ported)")
+                        help="TSDF-fuse the chunks' dense depth maps under the final "
+                             "aligned poses and export a triangle mesh "
+                             "(fused_mesh.ply). Needs chunks created with "
+                             "--save-dense")
     parser.add_argument("--mesh-voxel-size", type=float, default=0.0,
-                        help="TSDF voxel size, for --export-mesh")
+                        help="TSDF voxel size in scene units; 0 = auto "
+                             "(~192 voxels across the scene)")
     parser.add_argument("--mesh-conf-threshold", type=float, default=0.25,
-                        help="Minimum confidence of a depth sample, for --export-mesh")
+                        help="Minimum sigmoid confidence for a depth sample to "
+                             "be integrated")
     parser.add_argument("--save-volume", action="store_true",
-                        help="Persist the fused TSDF volume (not yet ported)")
+                        help="With --export-mesh: also persist the fused TSDF "
+                             "volume (fused_volume.npz) for later re-meshing "
+                             "or raycasting")
     parser.add_argument("--render-previews", type=int, default=0,
-                        help="Raycast preview PNG pairs of the fused volume (not yet ported)")
+                        help="With --export-mesh: raycast this many depth/"
+                             "normal preview PNG pairs of the fused volume "
+                             "(mesh_previews/)")
     return parser
-
-
-def unported(args) -> str | None:
-    """The message for the first requested feature this port lacks, or None."""
-    entries = (
-        ("--export-mesh", args.export_mesh, "mapping/: TSDF, raycast, fuse, surface nets"),
-        ("--save-volume", args.save_volume, "mapping/: TSDF, raycast, fuse, surface nets"),
-        ("--render-previews", args.render_previews > 0,
-         "mapping/: TSDF, raycast, fuse, surface nets"),
-    )
-    for flag, asked, entry in entries:
-        if asked:
-            return f"{flag} is not yet ported (ROADMAP.md Queue 1: off the main path, {entry})"
-    return None
 
 
 def reconstruct(argv=None) -> dict:
     """Parse ``argv`` and run the reconstruction; returns
-    ``OfflineReconstructor.run``'s result. Exits with code 2 on an unported
-    flag."""
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    msg = unported(args)
-    if msg:
-        parser.error(msg)
+    ``OfflineReconstructor.run``'s result."""
+    args = build_parser().parse_args(argv)
 
     from .slam.config import ReconstructorConfig
     from .slam.offline_reconstructor import OfflineReconstructor
@@ -107,6 +97,11 @@ def reconstruct(argv=None) -> dict:
         gps_sigma=args.gps_sigma,
         gravity_sigma=args.gravity_sigma,
         save_colmap=args.save_colmap,
+        export_mesh=args.export_mesh,
+        mesh_voxel_size=args.mesh_voxel_size,
+        mesh_conf_threshold=args.mesh_conf_threshold,
+        mesh_preview_views=args.render_previews,
+        save_volume=args.save_volume,
     )
     return OfflineReconstructor(config).run()
 

@@ -62,9 +62,8 @@ class OfflineCreatorConfig:
 
 @dataclass
 class ReconstructorConfig:
-    """Port of the JAX package's ``ReconstructorConfig`` with the fields of
-    the ported offline path; mesh fusion is not ported (the CLI refuses its
-    flags)."""
+    """Port of the JAX package's ``ReconstructorConfig``, the same fields and
+    defaults, plus ``device``."""
 
     chunk_dir: str = "output_chunks"
     output_dir: Optional[str] = None
@@ -99,14 +98,29 @@ class ReconstructorConfig:
     telemetry_refine_iterations: int = 20
     # also export a COLMAP text model into <output>/colmap (io/colmap.py)
     save_colmap: bool = False
+    # TSDF-fuse the chunks' dense maps (chunks created with --save-dense) on
+    # ``device`` under the final aligned poses and export a surface-nets
+    # triangle mesh to <output>/fused_mesh.ply (mapping/). mesh_voxel_size
+    # <= 0 auto-sizes to ~192 voxels across the scene
+    export_mesh: bool = False
+    mesh_voxel_size: float = 0.0
+    mesh_max_voxels: int = 192**3
+    mesh_conf_threshold: float = 0.25
+    mesh_min_weight: float = 1.0
+    # raycast this many depth/normal preview PNG pairs of the fused volume
+    # from evenly spaced final camera poses (mapping/raycast.py)
+    mesh_preview_views: int = 0
+    # also persist the fused TSDF volume (fused_volume.npz): re-mesh or
+    # raycast later without re-fusing (TSDFVolume.load)
+    save_volume: bool = False
 
 
 @dataclass
 class OnlineConfig:
     """Port of the JAX package's ``OnlineConfig``: the same fields and
     defaults, plus ``device``. The fields of parts not ported yet (the
-    viewer, debug projections, mesh fusion, multi-device) are kept so a
-    config reads the same; ``Pi3SLAMOnline`` refuses them
+    viewer, debug projections, multi-device) are kept so a config reads the
+    same; ``Pi3SLAMOnline`` refuses them
     (``slam.online.unported``)."""
 
     chunk_length: int = 30

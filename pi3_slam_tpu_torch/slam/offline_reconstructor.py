@@ -6,11 +6,14 @@ Port of ``pi3_slam_tpu/slam/offline_reconstructor.py`` (``load_chunk_npz``,
 ``OfflineReconstructor.run`` and ``export``): the same artifacts
 (``final_points.ply``, ``final_camera_poses.ply``, ``trajectory_tum.txt``
 with integer timestamps, views deduplicated by name, and with
-``config.save_colmap`` a COLMAP text model in ``<output>/colmap``), with loop
+``config.save_colmap`` a COLMAP text model in ``<output>/colmap``, and with
+``config.export_mesh`` the TSDF mesh ``fused_mesh.ply``, optionally the volume
+``fused_volume.npz`` and raycast previews under ``mesh_previews/``), with loop
 closure over non-adjacent chunks after the chain when ``config.loop_closure``
 is set (``sfm/loops.py``), then the telemetry refine when
 ``config.telemetry_path`` is set (``sfm/priors.py``: GPS georeference,
-gravity and GPS priors in the BA). The solves run on ``config.device``.
+gravity and GPS priors in the BA). The solves, the TSDF fusion and the
+raycasts run on ``config.device``.
 """
 
 from __future__ import annotations
@@ -66,6 +69,21 @@ def load_chunk_npz(path: str) -> Dict:
     return chunk
 
 
+def save_preview(out: Dict, folder: str, j: int) -> None:
+    """depth_<j>.png (z-depth over its 98th percentile, black where the ray
+    missed) and normal_<j>.png (normals mapped to [0, 255]) of one
+    ``raycast_depth`` result."""
+    from PIL import Image
+
+    d = out["depth"]
+    hi = np.percentile(d[out["mask"]], 98) if out["mask"].any() else 1.0
+    depth_img = np.where(out["mask"], np.clip(d / max(hi, 1e-9), 0, 1) * 255, 0).astype(np.uint8)
+    normal_img = ((out["normals"] * 0.5 + 0.5) * 255).astype(np.uint8)
+    normal_img[~out["mask"]] = 0
+    Image.fromarray(depth_img).save(os.path.join(folder, f"depth_{j:03d}.png"))
+    Image.fromarray(normal_img).save(os.path.join(folder, f"normal_{j:03d}.png"))
+
+
 class OfflineReconstructor:
     def __init__(self, config: ReconstructorConfig):
         self.config = config
@@ -92,7 +110,8 @@ class OfflineReconstructor:
         plus its "seconds"; None without ``loop_closure``), "telemetry"
         (``constrain_with_telemetry``'s statistics plus its "seconds"; None
         without ``telemetry_path``), "artifacts"
-        (output paths), "timings" (per
+        (output paths; "mesh" with ``export_mesh`` unless skipped),
+        "mesh_timings" (``_export_mesh``'s timings, else None), "timings" (per
         chunk: "recon_s", the whole chunk reconstruction (observation fan on
         the host, copies, BA, pruning); "ba_s" and "ba_iterations", the BA
         alone; "align_s", the whole alignment, and "refine_iterations")}."""
@@ -138,9 +157,74 @@ class OfflineReconstructor:
             recons.append(recon)
         loop_stats = self._close_loops(recons) if cfg.loop_closure else None
         telemetry_stats = self._apply_telemetry(recons) if cfg.telemetry_path else None
+        artifacts = self.export(recons)
+        mesh_timings = None
+        if cfg.export_mesh:
+            mesh = self._export_mesh(recons, files)
+            if mesh:
+                artifacts["mesh"], mesh_timings = mesh["path"], mesh["timings"]
         return {"reconstructions": recons, "alignment": align_stats, "loop_closure": loop_stats,
-                "telemetry": telemetry_stats, "artifacts": self.export(recons),
-                "timings": timings}
+                "telemetry": telemetry_stats, "artifacts": artifacts, "timings": timings,
+                "mesh_timings": mesh_timings}
+
+    def _export_mesh(self, recons: List[ChunkReconstruction], files: List[str]) -> Dict | None:
+        """TSDF-fuse the chunks' dense maps under the final aligned poses on
+        the device and write a surface-nets mesh (``mapping/``). Returns
+        {"path", "timings": export_fused_mesh's plus "raycast_s", the seconds
+        of each preview's raycast}, or None when skipped."""
+        from ..mapping.fuse import export_fused_mesh
+        from ..mapping.tsdf import TSDFConfig
+
+        def has_dense(p):
+            with np.load(p) as z:  # header check only, close the handle
+                return "local_points_dense" in z.files
+
+        if not all(has_dense(p) for p in files):
+            print("mesh export skipped: chunks carry no dense maps — recreate "
+                  "them with create_offline_chunks --save-dense")
+            return None
+        cfg = self.config
+        # lazy loaders: fuse_chunks materializes one chunk's dense maps at a
+        # time (a long run's dense frames would not fit in RAM)
+        result = export_fused_mesh(
+            [lambda p=p: load_chunk_npz(p) for p in files], recons,
+            os.path.join(self.output_dir, "fused_mesh.ply"),
+            config=TSDFConfig(voxel_size=cfg.mesh_voxel_size, max_voxels=cfg.mesh_max_voxels,
+                              conf_threshold=cfg.mesh_conf_threshold),
+            overlap=cfg.overlap or 0, min_weight=cfg.mesh_min_weight,
+            volume_path=(os.path.join(self.output_dir, "fused_volume.npz")
+                         if cfg.save_volume else None),
+            device=self.device)
+        if result is None:
+            return None
+        timings = dict(result["timings"], raycast_s=[])
+        if cfg.mesh_preview_views > 0:
+            timings["raycast_s"] = self._render_mesh_previews(result["volume"], recons)
+        return {"path": result["path"], "timings": timings}
+
+    def _render_mesh_previews(self, volume, recons: List[ChunkReconstruction]) -> List[float]:
+        """Raycast depth / normal previews of the fused volume on the device
+        from evenly spaced final camera poses (``mapping/raycast.py``);
+        returns each raycast's seconds (normals and the host copy
+        included)."""
+        from ..mapping.raycast import raycast_depth
+
+        rot = np.concatenate([np.asarray(r.rotations) for r in recons])
+        cen = np.concatenate([np.asarray(r.centers) for r in recons])
+        n = min(self.config.mesh_preview_views, len(cen))
+        pick = np.linspace(0, len(cen) - 1, n).astype(int)
+        h, w = 240, 320
+        intr = np.array([0.8 * w, 0.8 * w, w / 2, h / 2])
+        pdir = os.path.join(self.output_dir, "mesh_previews")
+        os.makedirs(pdir, exist_ok=True)
+        seconds = []
+        for j, i in enumerate(pick):
+            t0 = time.perf_counter()
+            out = raycast_depth(volume, intr, rot[i], cen[i], h, w, device=self.device)
+            seconds.append(time.perf_counter() - t0)
+            save_preview(out, pdir, j)
+        print(f"Rendered {n} depth/normal preview pairs -> {pdir}")
+        return seconds
 
     def _close_loops(self, recons: List[ChunkReconstruction]) -> Dict:
         """Loop closure over the chain (``sfm/loops.close_loops``), printing

@@ -30,11 +30,19 @@ the step, and the chunk carries ``keypoint_valid`` and descriptors; with
 (``sfm/loops.py``, on the SfM device), and ``apply_telemetry`` then
 georeferences and refines it with gravity and GPS priors (``sfm/priors.py``).
 
+Dense mapping (``mapping/``): with ``save_dense``, ``export_mesh`` or
+``live_mesh_every`` each chunk stashes its strided dense maps under
+``<output>/dense/``; ``export_mesh`` fuses them on the device under the final
+poses (after loop closure and telemetry) into ``fused_mesh.ply``; every
+``live_mesh_every``-th chunk a daemon thread re-fuses the stashes on the host
+CPU under the current poses (128^3 voxels at most, printing ``live mesh: N
+verts``), so that the preview never contends with the forward on the card.
+
 An error in the consumer stops it and reaches the caller from the drive
 thread; no chunk is consumed twice. The JAX class's backend-reset recovery
-and its multi-device, viewer, debug-projection and mesh parts are
-not ported: ``unported`` names each one's ROADMAP.md entry and the class
-refuses a config that asks for it.
+and its multi-device, viewer and debug-projection parts are not ported:
+``unported`` names each one's ROADMAP.md entry and the class refuses a config
+that asks for it.
 """
 
 from __future__ import annotations
@@ -79,7 +87,6 @@ from .chunk_creator import (
 from .config import OnlineConfig
 
 _OFF_PATH = "ROADMAP.md Queue 1: off the main path"
-_MESH = "mapping/: TSDF, raycast, fuse, surface nets"
 
 
 def unported(config: OnlineConfig) -> str | None:
@@ -89,9 +96,6 @@ def unported(config: OnlineConfig) -> str | None:
         ("--visualize", config.visualize, "viz/visualizer.py, the online viewer"),
         ("--save-debug-projections", config.save_debug_projections,
          "sfm/serialization.render_debug_projections"),
-        ("--export-mesh", config.export_mesh, _MESH),
-        ("--live-mesh-every > 0", config.live_mesh_every > 0, _MESH),
-        ("--save-volume", config.save_volume, _MESH),
     )
     for flag, asked, entry in entries:
         if asked:
@@ -109,6 +113,11 @@ def _host(x):
     if x is None or isinstance(x, np.ndarray):
         return x
     return x.cpu().numpy()  # blocking: the device tensor can be dropped after it
+
+
+def _load_npz(path: str) -> Dict:
+    with np.load(path) as z:
+        return dict(z)
 
 
 _DONE = object()
@@ -130,7 +139,7 @@ class Pi3SLAMOnline:
         self.keypoint_extractor = make_keypoint_extractor(config, self.device)
         self.step = make_chunk_step(
             self.model, config.conf_threshold, config.depth_edge_rtol,
-            config.estimate_camera_params, return_dense=config.save_dense,
+            config.estimate_camera_params, return_dense=self._dense_on(),
             dense_stride=config.dense_stride, refine_obs=refine_settings(config),
         )
         self.reconstructions: List[ChunkReconstruction] = []
@@ -140,6 +149,12 @@ class Pi3SLAMOnline:
         self.chunk_launches: List[Dict[str, int]] = []
         self._produced = 0
         self._consumed = 0
+        self._live_mesh_thread: Optional[threading.Thread] = None
+
+    def _dense_on(self) -> bool:
+        """Whether chunks stash their dense maps (mesh export needs them)."""
+        cfg = self.config
+        return cfg.save_dense or cfg.export_mesh or cfg.live_mesh_every > 0
 
     # ----- per-chunk stages -----
 
@@ -276,6 +291,11 @@ class Pi3SLAMOnline:
                     self.config.output_dir, "debug_recons", f"recon_{self._consumed - 1:06d}.npz"))
             except Exception as e:
                 print(f"debug recon save failed: {e}")
+        if self.config.live_mesh_every > 0 and self._consumed % self.config.live_mesh_every == 0:
+            try:
+                self._live_mesh_tick()
+            except Exception as e:
+                print(f"live mesh tick failed: {e}")
         return recon
 
     def _dump_overlap_debug(self, prev, recon, res, host) -> None:
@@ -370,6 +390,84 @@ class Pi3SLAMOnline:
               + (f", GPS RMS {stats['gps_rms_m']:.2f} m" if stats["gps"] else ""))
         return stats
 
+    # ----- dense mapping (mapping/) -----
+
+    def _dense_files(self) -> List[str]:
+        return sorted(glob.glob(os.path.join(self.config.output_dir, "dense", "dense_*.npz")))
+
+    def _mesh_config(self, max_voxels: int):
+        from ..mapping.tsdf import TSDFConfig
+
+        return TSDFConfig(voxel_size=self.config.mesh_voxel_size, max_voxels=max_voxels,
+                          conf_threshold=self.config.mesh_conf_threshold)
+
+    def _live_mesh_tick(self) -> None:
+        """Kick a background live-mesh refresh (non-blocking; drops the tick
+        when the previous refresh is still running)."""
+        if self._live_mesh_thread is not None and self._live_mesh_thread.is_alive():
+            return
+        files = self._dense_files()
+        n = min(len(files), len(self.reconstructions))
+        if n == 0:
+            return
+        self._live_mesh_thread = threading.Thread(
+            target=self._live_mesh_fuse, args=(files[:n], list(self.reconstructions[:n])),
+            name="live-mesh", daemon=True)
+        self._live_mesh_thread.start()
+
+    def _live_mesh_fuse(self, files: List[str], recons: List[ChunkReconstruction]) -> None:
+        """Re-fuse the stashes under the CURRENT aligned poses on the host
+        CPU (never contends with the forward in flight on the device) and
+        print the surface's size. Re-fusing from scratch keeps the preview
+        consistent with alignment and drift corrections; a coarser voxel cap
+        keeps each refresh cheap. Pose changes racing a refresh can only skew
+        the preview: the authoritative mesh comes from ``export_mesh``.
+        Degenerate geometry (no confident depth to bound or fuse; the
+        ValueErrors of ``fuse_chunks``) prints ``live mesh skipped``, as
+        ``export_fused_mesh`` prints ``mesh export skipped``, where the JAX
+        class prints it as a failed refresh."""
+        from ..mapping.fuse import fuse_chunks
+
+        try:
+            volume = fuse_chunks([lambda p=p: _load_npz(p) for p in files], recons,
+                                 config=self._mesh_config(min(self.config.mesh_max_voxels,
+                                                              128**3)),
+                                 overlap=self.config.overlap, device="cpu")
+            verts, _, _ = volume.extract_mesh(min_weight=self.config.mesh_min_weight)
+            print(f"live mesh: {len(verts)} verts from {len(files)} chunks")
+        except ValueError as e:
+            print(f"live mesh skipped: {e}")
+        except Exception as e:  # a preview failure must never end the run
+            print(f"live mesh refresh failed: {e}")
+
+    def export_mesh(self, path: Optional[str] = None) -> Optional[str]:
+        """TSDF-fuse the stashed dense maps under the FINAL chunk poses on the
+        device and write a surface-nets mesh. Call after apply_loop_closure /
+        apply_telemetry: the reconstructions' poses at call time define the
+        mesh frame. Returns the mesh path (None when skipped)."""
+        from ..mapping.fuse import export_fused_mesh
+
+        files = self._dense_files()
+        if not files:
+            print("mesh export skipped: no stashed dense maps — run with "
+                  "export_mesh/save_dense enabled (--export-mesh)")
+            return None
+        if len(files) != len(self.reconstructions):
+            print(f"mesh export skipped: {len(files)} dense chunks vs "
+                  f"{len(self.reconstructions)} reconstructions (stale dense/ "
+                  "directory from a previous run?)")
+            return None
+        cfg = self.config
+        result = export_fused_mesh(
+            [lambda p=p: _load_npz(p) for p in files], self.reconstructions,
+            path or os.path.join(cfg.output_dir, "fused_mesh.ply"),
+            config=self._mesh_config(cfg.mesh_max_voxels), overlap=cfg.overlap,
+            min_weight=cfg.mesh_min_weight,
+            volume_path=(os.path.join(cfg.output_dir, "fused_volume.npz")
+                         if cfg.save_volume else None),
+            device=self.device)
+        return None if result is None else result["path"]
+
     # ----- drive loops -----
 
     def process_image_paths_sync(self, image_paths: List) -> Dict:
@@ -398,7 +496,7 @@ class Pi3SLAMOnline:
         chunk at a time. Returns num_chunks, num_frames (overlap frames
         counted in each chunk) and fps."""
         cfg = self.config
-        if cfg.save_dense and self._consumed == 0:
+        if self._dense_on() and self._consumed == 0:
             # stale stashes of an earlier run; a later call on the same
             # instance continues the chain and keeps its own
             for p in glob.glob(os.path.join(cfg.output_dir, "dense", "dense_*.npz")):

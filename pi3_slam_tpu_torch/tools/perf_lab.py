@@ -5,6 +5,7 @@ and ``bench_mlp`` from the JAX package's ``tools/perf_lab.py``.
     python -m pi3_slam_tpu_torch.tools.perf_lab mlp
     python -m pi3_slam_tpu_torch.tools.perf_lab tf32
     python -m pi3_slam_tpu_torch.tools.perf_lab tiles
+    python -m pi3_slam_tpu_torch.tools.perf_lab tsdf
 
 Times, with CUDA events (one warm-up call, then the mean of ``ITERS`` calls),
 and prints ms and TFLOP/s of:
@@ -53,8 +54,15 @@ prints each build's ptxas lines for the loop, holds each to
 ``blockwise_attention`` and times it beside the shipped build and SDPA at
 (1, 8192, 4, D) and (100, 643, 4, D).
 
+``tsdf`` is the JAX probe's TSDF fusion at eval scale (``mapping/tsdf.py``):
+100 stride-2 dense frames of 154x203 into a 189^3 grid, the state on the
+card, one warm-up chunk and three chained ones: seconds a chunk, fusion
+frames/s, Gvoxel-updates/s, and beside them the bytes bound of a
+frame-at-a-time pass (the 20-byte state read and written per voxel and
+frame, over 3.35 TB/s).
+
 The JAX package's other probes (global, frame, block, packed,
-stages, mlp-sweep, forward, refine, kv-accuracy, tsdf) are not ported
+stages, mlp-sweep, forward, refine, kv-accuracy) are not ported
 (ROADMAP.md Queue 2, item 9).
 """
 
@@ -508,7 +516,61 @@ def bench_tiles() -> dict:
     return results
 
 
-PROBES = {"sol": bench_sol, "mlp": bench_mlp, "tf32": bench_tf32, "tiles": bench_tiles}
+TSDF_FRAMES, TSDF_H, TSDF_W, TSDF_VOXELS = 100, 154, 203, 189
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+
+
+def bench_tsdf() -> dict:
+    """TSDF fusion at eval scale on the current CUDA device (the JAX
+    package's ``bench_tsdf``, the same inputs from numpy seed 0); returns
+    {"s_per_chunk", "fps", "gvoxel_updates_per_s", "bound_s", "voxels",
+    "frames"} and prints one line."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the tsdf probe needs an NVIDIA GPU")
+    import time
+
+    import numpy as np
+
+    from ..mapping.tsdf import _fuse_frames
+
+    rng = np.random.default_rng(0)
+    F, H, W, n = TSDF_FRAMES, TSDF_H, TSDF_W, TSDF_VOXELS
+    V = n**3
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    state = (torch.ones(V, device=dev), torch.zeros(V, device=dev), torch.zeros((V, 3), device=dev))
+    frames = (
+        up(rng.uniform(1, 4, (F, H, W))),
+        up(rng.uniform(0.2, 1, (F, H, W))),
+        up(rng.uniform(0, 1, (F, H, W, 3))),
+        up(np.tile(np.array([200.0, 200.0, W / 2, H / 2]), (F, 1))),
+        up(np.tile(np.eye(3), (F, 1, 1))),
+        up(rng.uniform(-0.2, 0.2, (F, 3))),
+    )
+    args = (up([-3, -3, -3]), torch.tensor(np.float32(0.032), device=dev),
+            float(np.float32(0.128)), float(np.float32(0.25)), float(np.float32(1e-3)),
+            float(np.float32(1e4)), (n, n, n), H, W)
+    state = _fuse_frames(state, frames, *args)
+    torch.cuda.synchronize()
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state = _fuse_frames(state, frames, *args)
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) / iters
+    bound = 40.0 * V * F / HBM_BYTES_PER_S
+    print(f"tsdf fuse {n}^3 x {F} frames: {per:.3f}s/chunk -> {F / per:.1f} fusion-FPS, "
+          f"{V * F / per / 1e9:.2f} Gvoxel-updates/s (bytes bound of a frame-at-a-time pass "
+          f"{bound * 1e3:.2f} ms/chunk: 40 B/voxel/frame over 3.35 TB/s)", flush=True)
+    return {"s_per_chunk": per, "fps": F / per, "gvoxel_updates_per_s": V * F / per / 1e9,
+            "bound_s": bound, "voxels": V, "frames": F}
+
+
+PROBES = {"sol": bench_sol, "mlp": bench_mlp, "tf32": bench_tf32, "tiles": bench_tiles,
+          "tsdf": bench_tsdf}
 
 
 def probe(argv=None) -> dict:

@@ -320,8 +320,8 @@ def test_sfm_backend_and_unported_parts_are_refused(ckpt):
     with pytest.raises(ValueError, match="sfm_backend"):
         online.Pi3SLAMOnline(OnlineConfig(device="cpu", sfm_backend="tpu"))
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1: off the main path, mapping/"):
-        online.Pi3SLAMOnline(OnlineConfig(device="cpu", export_mesh=True))
+                       match="ROADMAP.md Queue 1: off the main path, viz/visualizer.py"):
+        online.Pi3SLAMOnline(OnlineConfig(device="cpu", visualize=True))
 
 
 # ----- the CLI -----
@@ -344,9 +344,6 @@ def test_cli_has_every_jax_option_with_its_default():
     (["--visualize"], "online viewer"),
     (["--keep-viz-open"], "online viewer"),
     (["--save-debug-projections"], "render_debug_projections"),
-    (["--export-mesh"], "mapping/"),
-    (["--live-mesh-every", "2"], "mapping/"),
-    (["--save-volume"], "mapping/"),
     (["--data-parallel-chunks", "2"], "multi-device"),
     (["--tensor-parallel", "2"], "multi-device"),
     (["--sequence-parallel", "2"], "multi-device"),

@@ -110,8 +110,8 @@ def test_port_imports_and_runs_without_jax():
     """The port never imports JAX nor the JAX package: a fresh interpreter
     imports every module (the SfM, reconstructor, localization, telemetry and
     probe modules included), runs a tiny forward, a tiny bundle adjustment, a
-    Sim3 fit, the APE scorer, the appearance and localization solvers, and
-    finds neither 'jax' nor 'pi3_slam_tpu' in sys.modules."""
+    Sim3 fit, the APE scorer, the appearance and localization solvers, a
+    tiny TSDF fusion with its raycast, mesh file and metrics, and finds neither 'jax' nor 'pi3_slam_tpu' in sys.modules."""
     code = textwrap.dedent(
         """
         import sys, pkgutil, importlib, torch
@@ -167,6 +167,21 @@ def test_port_imports_and_runs_without_jax():
         assert int(pnp.num_inliers) == 40
         assert geodetic_to_enu(np.array([[48.0, 11.0, 500.0]]))[0].shape == (1, 3)
         assert float(rotation_matrix_to_quaternion(torch.eye(3))[0]) == 1.0
+        # dense mapping: fusion, raycast, surface nets, the mesh file and its metrics
+        from pi3_slam_tpu_torch.io.mesh import read_mesh_ply, write_mesh_ply
+        from pi3_slam_tpu_torch.mapping import TSDFConfig, fuse_tsdf, raycast_depth
+        from pi3_slam_tpu_torch.utils.mesh_eval import evaluate_mesh
+        vol = fuse_tsdf(np.full((2, 12, 16), 2.0), np.tile([10.0, 10, 8, 6], (2, 1)),
+                        np.tile(np.eye(3), (2, 1, 1)), np.zeros((2, 3)),
+                        config=TSDFConfig(voxel_size=0.1), device="cpu")
+        verts, faces, _ = vol.extract_mesh()
+        assert len(faces) and raycast_depth(vol, [10.0, 10, 8, 6], np.eye(3), np.zeros(3), 12, 16,
+                                            device="cpu")["mask"].any()
+        import os, tempfile
+        mesh_path = os.path.join(tempfile.mkdtemp(), "mesh.ply")
+        write_mesh_ply(verts, faces, mesh_path)
+        assert len(read_mesh_ply(mesh_path)["faces"]) == len(faces)
+        assert np.isfinite(evaluate_mesh(verts, faces, verts, n_samples=100).chamfer)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert "pi3_slam_tpu" not in sys.modules, sorted(
             m for m in sys.modules if m.split(".")[0] == "pi3_slam_tpu")

@@ -286,14 +286,6 @@ def test_cli_flags_match_the_jax_cli():
     assert got["device"][1] == "cuda"
 
 
-@pytest.mark.parametrize("flag", [["--export-mesh"], ["--save-volume"], ["--render-previews", "2"]])
-def test_cli_refuses_unported_flags(tmp_path, flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.reconstruct(["--chunks", str(tmp_path), "--device", "cpu", *flag])
-    assert e.value.code != 0
-    assert "ROADMAP.md" in capsys.readouterr().err
-
-
 def test_cli_default_device_refuses_to_run_without_a_gpu(tmp_path, rng):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device runs")
