@@ -192,6 +192,25 @@ Phases, each of which raises (exit code 1) on failure:
    mesh:" line and no "live mesh refresh failed" line (the live refresh runs
    on the host CPU), the wall time beside phase 7 (a)'s; (d) the tsdf probe
    (python -m pi3_slam_tpu_torch.tools.perf_lab tsdf).
+12. the last single-device modules: (c) a random full-width MoGe v1 state
+   dict (ViT-L, the 'exp' remap, the dataclass defaults otherwise, seed 0,
+   the reference naming)
+   written as a model.pt with torch.save, through the converter tool ("detected
+   MoGe v1 checkpoint layout"); (a) moge_v1_infer from the converted file on
+   a 308x406 frame at 2500 tokens (2,452 tokens a block, 24 fp32 blocks: the
+   kernels line's "moge_v1" path) on the card against the host's fp32 path:
+   points and depth inside both masks, the mask score and the four backbone
+   layers the head reads within relative L2 1e-3, the masks agreeing on 99.9%
+   of the pixels, and the bf16 trunk outside that bound; rows 2 and 4 fp32 at those shapes against their
+   plain versions, NaN rows past T bit-identical, beside their bounds and
+   library calls (the kernels line's "moge_v1" sub-rows); (b) the online CLI
+   with --visualize --save-debug-projections over 45 frames: one [viz] line a
+   chunk and a GIF a chunk, or without matplotlib its failure line a chunk;
+   the debug projections' numbers on phase 6's first chunk, card against
+   host; (d) perf_lab all, mlp-sweep, refine and kv-accuracy in one process
+   (the "probes" path; each kernel shape a probe times is first held against
+   its plain version, uncounted), then trace_summary on a --profile-dir
+   creator run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -211,6 +230,13 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+try:  # the card's peaks, the bounds and the checks: perf_lab's too
+    from pi3_slam_tpu_torch.ops.roofline import (
+        PEAK_3XTF32, PEAK_BF16, PEAK_BYTES, PEAK_FP32, attention_flops, bound, exp2_ms, mlp_work)
+    # a kernel's output against its plain version's, or raise
+    from pi3_slam_tpu_torch.ops.compare import hold as check
+except ImportError:  # not a checkout, or no PyTorch: main() says which
+    pass
 
 # per-kernel: route, source, the TPU kernel it replaces
 KERNELS = {
@@ -258,16 +284,6 @@ F32_SOURCES = {
 KERNELS.update({
     f"{name}_fp32": ("cuda", F32_SOURCES[name], replaces)
     for name, (_, _, replaces) in list(KERNELS.items()) if name != "dots_attention"})
-# the card's peaks (H100 SXM data sheet): bf16 tensor cores, fp32 outside
-# them, device memory; the fp32 entries' products run on the tensor cores in
-# TF32 (495 TFLOP/s) three times over (3xTF32)
-PEAK_BF16 = 989e12
-PEAK_FP32 = 67e12
-PEAK_3XTF32 = 495e12 / 3
-PEAK_BYTES = 3.35e12
-# exp2 on the special-function units (FlashAttention-3, Shah et al. 2024, §3):
-# at head dim 64 one exp2 per logit weighs as much as the two products
-PEAK_EXP2 = 3.9e12
 # launches of one Pi3 forward over a chunk: 36 decoder + 15 head producer
 # passes; 24 encoder + 18 frame + 15 head single-pass; 18 global; 75 block MLPs
 # (the nonzero counts of a run; an fp32 model runs the same counts on the
@@ -349,20 +365,6 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
-    """(ms, "bytes" | "operations"): the least time the card could take to
-    move nbytes (each input read once, each output written once) and do
-    flops at peak."""
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def attention_flops(b: int, h: int, tq: int, tk: int, d: int) -> float:
-    """The two matrix products of attention (q.k^T and P.v), 2 flops per
-    multiply-add."""
-    return 4.0 * b * h * tq * tk * d
-
-
 def sdpa_ms(q, k, v, scale: float, iters: int) -> float:
     """The time of one torch.nn.functional.scaled_dot_product_attention call
     on (B, T, H, D) q / k / v passed as (B, H, T, D) views (any copy it makes
@@ -372,24 +374,6 @@ def sdpa_ms(q, k, v, scale: float, iters: int) -> float:
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return time_ms(lambda: sdpa(qt, kt, vt, scale=scale), iters)
-
-
-def check(name: str, shape: str, got, ref, why: str, **bounds):
-    """Kernel output against the plain one; bounds scale with the reference
-    (pi3_slam_tpu_torch/ops/compare.py) and must reject an all-zero and a
-    10%-off output."""
-    import torch
-
-    from pi3_slam_tpu_torch.ops.compare import compare
-
-    torch.cuda.synchronize()
-    c = compare(got, ref, **bounds)
-    log(f"  {name:32s} {shape:28s} {c} ({why}) {'ok' if c.ok else 'FAIL'}")
-    if not c.rejects_wrong:
-        raise RuntimeError(f"{name} {shape}: the bounds would pass a zero or 10%-off output")
-    if not c.ok:
-        raise RuntimeError(f"{name} {shape}: kernel disagrees with its plain version ({c})")
-    return c
 
 
 def nan_rows(x, t: int) -> None:
@@ -523,7 +507,7 @@ def phase_kernels() -> dict:
             r["max_abs_err"] = max(r["max_abs_err"], c.max_abs_err)
             r["rel_l2"] = max(r["rel_l2"], c.rel_l2)
         bound_ms, bound_by = bound(*work)
-        exp2_ms = None if exp2 is None else exp2 / PEAK_EXP2 * 1e3
+        exp2_bound = None if exp2 is None else exp2_ms(exp2)
         if "ms" not in r:  # the first shape listed is the one reported
             r.update(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=library_ms)
@@ -532,7 +516,7 @@ def phase_kernels() -> dict:
                 max_abs_err=max(c.max_abs_err for c in checks), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         lib = "" if library_ms is None else f"   library {library_ms:9.3f} ms"
-        ex = "" if exp2_ms is None else f"   exp2 bound {exp2_ms:8.3f} ms"
+        ex = "" if exp2_bound is None else f"   exp2 bound {exp2_bound:8.3f} ms"
         log(f"  {name:30s} {shape:28s} kernel {ms:9.3f} ms   plain {plain_ms:9.3f} ms   "
             f"bound {bound_ms:8.3f} ms ({bound_by}){ex}{lib}")
 
@@ -1047,16 +1031,6 @@ def phase_kernels() -> dict:
     return results
 
 
-def mlp_work(x, w1) -> tuple[float, float]:
-    """(flops, bytes) of fc2(GELU(fc1 x)) (the block MLP's LayerNorm and
-    residual add only bytes): x read and the output written in x's dtype,
-    both weights once, the fp32 vectors."""
-    hidden, c = w1.shape
-    m = x.numel() // c
-    e = x.element_size()
-    return 4.0 * m * c * hidden, 2 * m * c * e + 2 * w1.numel() * e + (hidden + 4 * c) * 4
-
-
 def compare_outputs(what: str, got: dict, want: dict, keys, tol: float,
                     label: str = "bf16 kernels vs fp32 plain") -> None:
     """Relative L2 of card outputs against host ones, each within tol."""
@@ -1404,7 +1378,7 @@ def phase_sol() -> dict:
     flops = attention_flops(1, h, t, t, 64)
     log(f"  sol: scaled_dot_product_attention at (1, {t}, {h}, 64) {lib:.3f} ms (library "
         f"yardstick); bounds of that shape: products {flops / PEAK_BF16 * 1e3:.3f} ms, exp2 "
-        f"{h * t * t / PEAK_EXP2 * 1e3:.3f} ms")
+        f"{exp2_ms(h * t * t):.3f} ms")
     return counts
 
 
@@ -3504,6 +3478,346 @@ def phase_mapping(tmp: str, online_wall: float) -> dict:
     return counts
 
 
+# --- phase 12: the last single-device modules: MoGe v1 with its converter,
+# the online viewer and the debug projections, the model-shape probes and
+# trace_summary
+
+MOGE_V1_T = 2452  # 43 x 57 patches of a 308x406 frame at 2500 tokens + cls
+MOGE_V1_LAUNCHES = {"attention_single_pass_packed_fp32": 24, "block_mlp_fp32": 24}
+# (a)'s bound, chosen before the first run: the card's fp32 MoGe v1 against
+# the host's, relative L2 of the points and the depth inside both masks and
+# of the mask score over the frame, each within MOGE_V1_TOL (phase 3's MoGe-2
+# bound: 24 fp32 blocks on 3xTF32 products read ~1e-6 there), and the masks
+# agreeing on MOGE_V1_MASK_SHARE of the pixels; the same forward with a bf16
+# trunk must fail it. The random head's points are mostly its planted
+# view-plane pass-through (models/convert.random_moge_v1_state_dict), so the
+# trunk is held on its own too: the patch tokens of each backbone layer the
+# head reads, within the same MOGE_V1_TOL
+MOGE_V1_TOL = 1e-3
+MOGE_V1_MASK_SHARE = 0.999
+# (b): the debug projections' per-observation errors (px), card against host,
+# both fp32 (the reprojection of phase 6's well-posed chunk, ~1e2 px at most)
+DEBUG_PX_TOL = 1e-3
+PROBE_RUNS = ("all", "mlp-sweep", "refine", "kv-accuracy")  # all: global frame block packed stages mlp forward
+
+
+def moge_v1_convert(tmp: str) -> str:
+    """(c) a random full-width v1 state dict (ViT-L with the 'exp' remap of
+    the released v1 checkpoints, the dataclass defaults otherwise, seed 0)
+    in the reference naming, written as a model.pt with torch.save in the
+    {"model", "model_config"} layout, through the converter tool. Returns
+    the .npz path."""
+    import torch
+
+    from pi3_slam_tpu_torch.models.convert import random_moge_v1_state_dict
+    from pi3_slam_tpu_torch.models.moge_v1 import MoGeV1Config
+    from pi3_slam_tpu_torch.tools import convert_checkpoint
+
+    model_config = {"encoder": "dinov2_vitl14", "remap_output": "exp"}
+    t0 = time.perf_counter()
+    sd = random_moge_v1_state_dict(MoGeV1Config.from_model_config(model_config), 0)
+    pt, out = os.path.join(tmp, "moge_v1.pt"), os.path.join(tmp, "moge_v1.npz")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()},
+                "model_config": model_config}, pt)
+    n = sum(v.size for v in sd.values())
+    del sd
+    log(f"  (c) a random ViT-L v1 state dict ({n / 1e6:.1f}M parameters) written to model.pt in "
+        f"{time.perf_counter() - t0:.1f}s; python -m pi3_slam_tpu_torch.tools.convert_checkpoint "
+        "--model moge --input moge_v1.pt --output moge_v1.npz")
+    tee, stdout = Tee(sys.stdout), sys.stdout
+    sys.stdout = tee
+    try:
+        t0 = time.perf_counter()
+        code = convert_checkpoint.main(["--model", "moge", "--input", pt, "--output", out])
+    finally:
+        sys.stdout = stdout
+    log(f"    converted in {time.perf_counter() - t0:.1f}s")
+    if code != 0 or "detected MoGe v1 checkpoint layout" not in tee.lines():
+        raise RuntimeError(f"the converter tool on a v1 checkpoint: exit {code}, {tee.lines()}")
+    os.remove(pt)
+    return out
+
+
+def moge_v1_against_host(npz: str) -> dict:
+    """(a) moge_v1_infer at full width on one 308x406 frame on the card (fp32
+    trunk), against the host's fp32 path of the same weights, and the bf16
+    trunk as the control that the bound must reject. Returns the card run's
+    launch counts (set to 0 just before it)."""
+    import torch
+
+    from pi3_slam_tpu_torch.models.convert import (
+        build_moge_v1, load_moge_v1_checkpoint, moge_v1_state_from_jax)
+    from pi3_slam_tpu_torch.models.moge_v1 import (
+        moge_v1_forward, moge_v1_infer, moge_v1_postprocess)
+    from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    tree, cfg = load_moge_v1_checkpoint(npz)
+    state = moge_v1_state_from_jax(tree)
+    del tree
+    tokens = cfg.num_tokens_range[1]
+    image = torch.from_numpy(np.random.default_rng(2).random((1, 3, 308, 406), dtype=np.float32))
+    outs, counts = {}, None
+    for name, device, trunk in (("card fp32", "cuda", torch.float32),
+                                ("card bf16 trunk", "cuda", torch.bfloat16),
+                                ("host fp32", "cpu", torch.float32)):
+        model = build_moge_v1(cfg, state, torch.device(device), trunk)
+        img = image.to(device)
+        if name == "card fp32":
+            reset_launch_counts()
+        layers = []  # the head's input: (patch tokens, class token) of each layer it reads
+        hook = model.head.register_forward_pre_hook(
+            lambda mod, args: layers.append([t.float().cpu() for t, _ in args[0]]))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fwd = moge_v1_forward(model, img, tokens)
+            res = moge_v1_postprocess(cfg, fwd)
+        outs[name] = {**{k: v.cpu() for k, v in res.items()}, "score": fwd["mask"].cpu(),
+                      "layers": layers[0]}
+        seconds = time.perf_counter() - t0
+        hook.remove()
+        if name == "card fp32":
+            counts = nonzero(launch_counts())
+            with torch.no_grad():
+                ms = time_ms(lambda: moge_v1_infer(model, img, tokens), 5)
+            log(f"    MoGe v1 ViT-L at {tokens} tokens ({MOGE_V1_T} tokens a block): launches "
+                f"{counts}; moge_v1_infer on the card {ms:.3f} ms (fp32 trunk)")
+            if counts != MOGE_V1_LAUNCHES:
+                raise RuntimeError(f"MoGe v1 launch counts {counts} != {MOGE_V1_LAUNCHES}")
+        else:
+            log(f"    {name}: forward and infer in {seconds:.1f}s")
+        del model
+        torch.cuda.empty_cache()
+    host = outs["host fp32"]
+    mask_share = float(host["mask"].float().mean())
+    if not (0.05 < mask_share < 0.95 and torch.isfinite(host["depth"][host["mask"]]).all()):
+        raise RuntimeError(f"MoGe v1 on the host: mask share {mask_share}, depth not finite")
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return ((a - b).norm() / b.norm()).item()
+
+    for name in ("card fp32", "card bf16 trunk"):
+        o = outs[name]
+        both = o["mask"] & host["mask"]
+        got = {"points": rel(o["points"][both], host["points"][both]),
+               "depth": rel(o["depth"][both], host["depth"][both]),
+               "mask score": rel(o["score"], host["score"]),
+               **{f"trunk layer {i}": rel(a, b) for i, a, b in zip(
+                   cfg.layer_indices, o["layers"], host["layers"])}}
+        agree = float((o["mask"] == host["mask"]).float().mean())
+        ok = max(got.values()) <= MOGE_V1_TOL and agree >= MOGE_V1_MASK_SHARE
+        log(f"    {name} vs host fp32: rel L2 " + ", ".join(f"{k} {v:.3e}" for k, v in got.items())
+            + f" (tol {MOGE_V1_TOL:g}); masks agree on {agree:.6f} (tol {MOGE_V1_MASK_SHARE}); "
+            f"intrinsics {o['intrinsics'][0].diagonal().tolist()} vs "
+            f"{host['intrinsics'][0].diagonal().tolist()}: "
+            + ("within the bound" if ok else "outside the bound on " + ", ".join(
+                [k for k, v in got.items() if v > MOGE_V1_TOL]
+                + ([] if agree >= MOGE_V1_MASK_SHARE else ["the masks"]))))
+        if name == "card fp32" and not ok:
+            raise RuntimeError(f"MoGe v1 on the card against the host: {got}, masks {agree}")
+        if name != "card fp32" and ok:
+            raise RuntimeError("MoGe v1: the bound passes the bf16 trunk's output")
+    return counts
+
+
+def moge_v1_kernels() -> dict:
+    """Rows 2 and 4 fp32 at MoGe v1's encoder shapes, (1, 2452, 3072) with
+    the encoder's q scale and (1, 2452, 1024) with hidden 4096, against
+    their plain versions (ops/compare.FP32; the bf16 entry rejected), NaN
+    rows past T = 2452 in the operand maps bit-identical, each beside its
+    bound and its library call. Returns {kernel: sub-row}."""
+    import torch
+
+    from pi3_slam_tpu_torch.ops.block_mlp import block_mlp, block_mlp_plain
+    from pi3_slam_tpu_torch.ops.compare import FP32, block_mlp_bounds
+    from pi3_slam_tpu_torch.ops.packed_attention import (
+        attention_single_pass_packed, packed_attention_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    bf16, t, h, c = torch.bfloat16, MOGE_V1_T, 16, 1024
+    why = "3xTF32 products, fp32 sums in another order"
+    rows = {}
+
+    def row(name, shape, checks, ms, plain_ms, work, library_ms):
+        bound_ms, bound_by = bound(*work)
+        rows[name] = dict(shape=shape, max_abs_err=max(x.max_abs_err for x in checks), ms=ms,
+                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms)
+        log(f"  {name:30s} {shape:28s} kernel {ms:9.3f} ms   plain {plain_ms:9.3f} ms   bound "
+            f"{bound_ms:8.3f} ms ({bound_by})   library {library_ms:9.3f} ms")
+
+    qkv = torch.randn(1, t, 3 * c, generator=g, device="cuda")
+    q_scale = 64**-0.5 * 1.4426950408889634  # the encoder's: D^-1/2 log2(e)
+    shape = f"(1, {t}, {3 * c}) fp32 q_scale"
+    run = lambda: attention_single_pass_packed(qkv, h, q_scale=q_scale)  # noqa: E731
+    plain = lambda: packed_attention_plain(qkv, h, q_scale=q_scale)  # noqa: E731
+    got = run()
+    chk = check_fp32("attention_single_pass_packed_fp32", shape, got, plain(),
+                     attention_single_pass_packed(qkv.to(bf16), h, q_scale=q_scale), why, **FP32)
+    padded = torch.nn.functional.pad(qkv, (0, 0, 0, 60))
+    nan_rows(padded, t)
+    same_bits("attention_single_pass_packed_fp32", f"(1, {t + 60}, {3 * c}) true_t={t}, NaN rows",
+              attention_single_pass_packed(padded, h, true_t=t, q_scale=q_scale), got)
+    same_bits("attention_single_pass_packed_fp32", shape, run(), got, "a second call")
+    del padded, got
+    q, k, v = qkv.view(1, t, 3, h, 64).unbind(2)
+    row("attention_single_pass_packed_fp32", shape, [chk], time_ms(run, 10), time_ms(plain, 3),
+        (attention_flops(1, h, t, t, 64), qkv.numel() * 4 + qkv.numel() // 3 * 4, PEAK_3XTF32),
+        sdpa_ms(q, k, v, q_scale * math.log(2.0), 10))
+    del qkv, q, k, v
+
+    x = torch.randn(1, t, c, generator=g, device="cuda")
+    w1, b1 = torch.randn(4 * c, c, generator=g, device="cuda") * 0.02, \
+        torch.randn(4 * c, generator=g, device="cuda") * 0.1
+    w2, b2 = torch.randn(c, 4 * c, generator=g, device="cuda") * 0.02, \
+        torch.randn(c, generator=g, device="cuda") * 0.1
+    nw, nb, ls = (1 + 0.1 * torch.randn(c, generator=g, device="cuda"),
+                  0.1 * torch.randn(c, generator=g, device="cuda"),
+                  1 + 0.1 * torch.randn(c, generator=g, device="cuda"))
+    fn = lambda a, *p: block_mlp(a, nw, nb, *p, ls=ls)  # noqa: E731
+    run = lambda: fn(x, w1, b1, w2, b2)  # noqa: E731
+    plain = lambda: block_mlp_plain(x, nw, nb, w1, b1, w2, b2, ls=ls)  # noqa: E731
+    shape = f"(1, {t}, {c})/{4 * c} fp32"
+    ref = plain()
+    chk = check_fp32("block_mlp_fp32 branch", shape, run(), ref,
+                     fn(x.to(bf16), *(p.to(bf16) for p in (w1, b1, w2, b2))), why,
+                     **block_mlp_bounds(x, ref))
+    gemm_bits("block_mlp_fp32", shape, x, lambda a: fn(a, w1, b1, w2, b2))
+    row("block_mlp_fp32", shape, [chk], time_ms(run, 10), time_ms(plain, 5),
+        (*mlp_work(x, w1), PEAK_3XTF32), products_ms(shape, x, w1, w2, 10))
+    return rows
+
+
+def viewer_and_debug_projections(tmp: str) -> None:
+    """(b) the online CLI with --visualize --save-debug-projections over
+    phase 4's first 45 frames (chunks of 20, overlap 5: three chunks, the
+    tail padded): one [viz] line a chunk (viser is not installed there: the
+    viewer's console lines), and a GIF a chunk or, without matplotlib, the
+    JAX package's "debug projections failed" line a chunk; then the
+    debug projections' numbers on phase 6's first eval-scale chunk (its
+    reconstruction as built, before BA: 100 frames, 200 picked tracks) with
+    the errors on the card against the host."""
+    import glob
+    import importlib.util
+    import shutil
+
+    from pi3_slam_tpu_torch.pi3_slam_online import run_online
+    from pi3_slam_tpu_torch.sfm.reconstruction import build_chunk_reconstruction
+    from pi3_slam_tpu_torch.sfm.serialization import debug_projection_data
+    from pi3_slam_tpu_torch.slam.offline_reconstructor import load_chunk_npz
+
+    frames = os.path.join(tmp, "frames45")
+    os.makedirs(frames, exist_ok=True)
+    for name in sorted(os.listdir(os.path.join(tmp, "frames")))[:45]:
+        shutil.copy(os.path.join(tmp, "frames", name), frames)
+    out = os.path.join(tmp, "online_viz")
+    argv = ["--images", frames, "--output", out, "--chunk-length", "20", "--overlap", "5",
+            "--max-kp", "100", "--no-metric-depth", "--tum-integer-timestamps", "--visualize",
+            "--save-debug-projections"]
+    log("  (b) python -m pi3_slam_tpu_torch.pi3_slam_online " + " ".join(argv))
+    tee, stdout = Tee(sys.stdout), sys.stdout
+    sys.stdout = tee
+    try:
+        t0 = time.perf_counter()
+        result = run_online(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        sys.stdout = stdout
+    n = result["num_chunks"]
+    viz = [line for line in tee.lines() if line.startswith("[viz] chunk")]
+    failed = [line for line in tee.lines() if line.startswith("debug projections failed")]
+    gifs = sorted(os.listdir(os.path.join(out, "debug_projections")))
+    log(f"    {n} chunks in {wall:.1f}s; viewer lines: {viz}")
+    if len(viz) != n:
+        raise RuntimeError(f"{len(viz)} [viz] chunk lines for {n} chunks")
+    if importlib.util.find_spec("matplotlib") is None:
+        log(f"    matplotlib is not installed here: {len(failed)} x {failed[:1]}, no GIF")
+        if len(failed) != n or "matplotlib" not in failed[0] or gifs:
+            raise RuntimeError(f"debug projections without matplotlib: {failed}, {gifs}")
+    else:
+        log(f"    matplotlib is installed: GIFs {gifs}")
+        if failed or gifs != [f"chunk_{i:06d}.gif" for i in range(n)]:
+            raise RuntimeError(f"debug projections: {failed}, {gifs}")
+
+    chunk = sorted(glob.glob(os.path.join(tmp, "eval", "**", "chunk_*.npz"), recursive=True))[0]
+    recon = build_chunk_reconstruction(load_chunk_npz(chunk), run_ba=False, device="cpu")
+    t0 = time.perf_counter()
+    card = debug_projection_data(recon, recon.num_frames, device="cuda")
+    card_s = time.perf_counter() - t0
+    host = debug_projection_data(recon, recon.num_frames, device="cpu")
+    worst, n_obs, n_finite = 0.0, 0, 0
+    for a, b in zip(card, host):
+        for key in ("rows", "cols", "observed", "reprojected"):
+            if not np.array_equal(a[key], b[key]):
+                raise RuntimeError(f"debug projections: {key} differ card vs host")
+        fin = np.isfinite(b["errors"])
+        if not np.array_equal(np.isfinite(a["errors"]), fin):
+            raise RuntimeError("debug projections: finite errors differ card vs host")
+        if fin.any():
+            worst = max(worst, float(np.abs(a["errors"][fin] - b["errors"][fin]).max()))
+        n_obs, n_finite = n_obs + len(fin), n_finite + int(fin.sum())
+    picked = len({int(r) for d in card for r in d["rows"]})
+    titles = sum(a["title"] == b["title"] for a, b in zip(card, host))
+    log(f"    debug projections' numbers on {os.path.basename(chunk)}: {picked} tracks picked, "
+        f"{n_obs} observations ({n_finite} finite errors), errors on the card within "
+        f"{worst:.3e} px of the host's (tol {DEBUG_PX_TOL:g}), {titles}/{len(card)} titles equal, "
+        f"card {card_s:.2f}s")
+    if worst > DEBUG_PX_TOL or n_finite == 0:
+        raise RuntimeError(f"debug projections card vs host: {worst} px, {n_finite} finite")
+
+
+def probes_and_trace(tmp: str) -> dict:
+    """(d) the model-shape probes through perf_lab's entry point (PROBE_RUNS:
+    one process, one built model), then trace_summary on a --profile-dir
+    creator run over (b)'s 45 frames. Returns the probes' launch counts (set
+    to 0 just before them)."""
+    from pi3_slam_tpu_torch.create_offline_chunks import create_chunks
+    from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pi3_slam_tpu_torch.tools import perf_lab, trace_summary
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for name in PROBE_RUNS:
+        log(f"  (d) python -m pi3_slam_tpu_torch.tools.perf_lab {name}")
+        perf_lab.probe([name])
+    counts = nonzero(launch_counts())
+    log(f"    the probes in {time.perf_counter() - t0:.1f}s; launches {counts}")
+    rows = ("flash_attention_packed", "attention_single_pass_packed", "qkv_rope_producer",
+            "block_mlp", "flash_attention_partial", "flash_attention", "attention_single_pass",
+            "mlp", "block_mlp_fp32", "mlp_fp32")
+    if any(not counts.get(r) for r in rows):
+        raise RuntimeError(f"the probes launched no {[r for r in rows if not counts.get(r)]}")
+    prof = os.path.join(tmp, "profile")
+    argv = ["--images", os.path.join(tmp, "frames45"), "--output", os.path.join(tmp, "profiled"),
+            "--chunk-length", "20", "--overlap", "5", "--max-kp", "100", "--no-metric-depth",
+            "--profile-dir", prof]
+    log("  (d) python -m pi3_slam_tpu_torch.create_offline_chunks " + " ".join(argv))
+    create_chunks(argv)
+    log(f"  (d) python -m pi3_slam_tpu_torch.tools.trace_summary {prof} 15")
+    tee, stdout = Tee(sys.stdout), sys.stdout
+    sys.stdout = tee
+    try:
+        trace_summary.main([prof, "15"])
+    finally:
+        sys.stdout = stdout
+    total = next(line for line in tee.lines() if line.startswith("device leaf total:"))
+    if float(total.split()[3]) <= 0 or "  kernel" not in "\n".join(tee.lines()):
+        raise RuntimeError(f"trace_summary read no device time: {total}")
+    return counts
+
+
+def phase_last_modules(tmp: str) -> tuple[dict, dict]:
+    """(c), (a), (b), (d); returns the launch counts of the moge_v1 and probes
+    paths and the kernel sub-rows at MoGe v1's shapes."""
+    npz = moge_v1_convert(tmp)
+    log("  (a) MoGe v1 at full width: the converted checkpoint through moge_v1_infer")
+    counts = {"moge_v1": moge_v1_against_host(npz)}
+    rows = moge_v1_kernels()
+    viewer_and_debug_projections(tmp)
+    counts["probes"] = probes_and_trace(tmp)
+    return counts, rows
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "pi3_slam_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -3552,6 +3866,10 @@ def main() -> int:
         by_path["localization"] = phase_localization(tmp)
         log("[11] mapping: TSDF fusion, raycast, surface nets and mesh export")
         by_path["mapping"] = phase_mapping(tmp, online_wall)
+        log("[12] the last single-device modules: MoGe v1 and its converter, the viewer and the "
+            "debug projections, the model-shape probes and trace_summary")
+        paths12, moge_v1_rows = phase_last_modules(tmp)
+        by_path.update(paths12)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]
@@ -3566,7 +3884,8 @@ def main() -> int:
                         "shape": r["shape"], **({"routes": r["routes"]} if r["routes"] else {}),
                         **({"products_ms": r["products_ms"]} if "products_ms" in r else {}),
                         **({"tb_per_s": r["tb_per_s"]} if "tb_per_s" in r else {}),
-                        **({"loop": LOOPS[name]} if name in LOOPS else {})})
+                        **({"loop": LOOPS[name]} if name in LOOPS else {}),
+                        **({"moge_v1": moge_v1_rows[name]} if name in moge_v1_rows else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,14 @@ trees and this port's ``Pi3`` and ``MoGe`` modules.
   the JAX layout and :func:`load_aliked_checkpoint` reads the ``.npz`` back
   with its variant's config (the module and its carrier are in
   ``models/aliked.py``).
+* :func:`convert_moge_v1_state_dict` turns a MoGe v1 ``model.pt`` state dict
+  (``moge/model/v1.py``) into the JAX package's v1 tree with its
+  '_v1_config_json' leaf, :func:`moge_v1_state_from_jax` that tree into the
+  port's ``MoGeV1`` state dict, :func:`build_moge_v1` the module from it and
+  :func:`load_moge_v1_checkpoint` reads the ``.npz`` back with its config.
+  No v1 checkpoint is in the repository and the JAX package has no v1 init:
+  :func:`random_moge_v1_state_dict` draws one from a numpy seed over the
+  port's module, in the reference naming, for tests and smoke runs.
 * :func:`cross_block_state_from_jax` and :func:`init_cross_block_params` do
   the same for the cross-attention block (``models/cross_attention.py``);
   no cross-block checkpoint is in the repository, so runs use the random
@@ -34,6 +42,7 @@ trees and this port's ``Pi3`` and ``MoGe`` modules.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -42,6 +51,7 @@ import torch
 from .cross_attention import CrossBlock
 from .dinov2 import DinoV2Config
 from .moge_model import ConvStackConfig, MoGe, MoGeConfig
+from .moge_v1 import MoGeV1, MoGeV1Config
 from .pi3 import Pi3, Pi3Config
 
 # JAX block leaf -> port parameter name (kernels are transposed)
@@ -508,6 +518,190 @@ def convert_moge_state_dict(sd, model_config: Dict[str, Any]) -> Dict[str, Any]:
             i += 2  # the Linear layers sit at the even indices, a ReLU between them
         params["scale_head"] = layers
     return params
+
+
+def convert_moge_v1_state_dict(sd, model_config: Dict[str, Any]) -> Dict[str, Any]:
+    """A MoGe v1 reference checkpoint ('model' state dict and 'model_config',
+    ``moge/model/v1.py``) -> the JAX package's v1 tree: ``ConvTranspose2d``
+    weights (in, out, 2, 2) as 1x1 kernels to out * 4 channels ordered (out,
+    dy, dx), the config as a '_v1_config_json' string leaf."""
+    import json
+
+    cfg = MoGeV1Config.from_model_config(model_config)
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+
+    def conv(prefix, leaf=""):
+        return {f"{leaf}kernel": _hwio(sd[f"{prefix}.weight"]), f"{leaf}bias": sd[f"{prefix}.bias"]}
+
+    def deconv2x2(prefix):
+        w = sd[f"{prefix}.weight"]
+        return {"kernel": np.ascontiguousarray(w.reshape(w.shape[0], w.shape[1] * 4))[None, None],
+                "bias": sd[f"{prefix}.bias"]}
+
+    def res_block(prefix):
+        out = {"norm1_scale": sd[f"{prefix}.layers.0.weight"],
+               "norm1_bias": sd[f"{prefix}.layers.0.bias"],
+               **conv(f"{prefix}.layers.2", "conv1_"),
+               "norm2_scale": sd[f"{prefix}.layers.3.weight"],
+               "norm2_bias": sd[f"{prefix}.layers.3.bias"],
+               **conv(f"{prefix}.layers.5", "conv2_")}
+        if f"{prefix}.skip_connection.weight" in sd:
+            out.update(conv(f"{prefix}.skip_connection", "skip_"))
+        return out
+
+    lrb = cfg.last_res_blocks
+    head = {
+        "projects": [conv(f"head.projects.{i}") for i in range(len(cfg.layer_indices))],
+        "upsample_blocks": [
+            {"deconv": deconv2x2(f"head.upsample_blocks.{i}.0.0"),
+             **conv(f"head.upsample_blocks.{i}.0.1", "conv_"),
+             "res_blocks": [res_block(f"head.upsample_blocks.{i}.{1 + j}")
+                            for j in range(cfg.num_res_blocks)]}
+            for i in range(len(cfg.dim_upsample))],
+        "output_blocks": [
+            {**conv(f"head.output_block.{k}.0", "conv_in_"),
+             "res_blocks": [res_block(f"head.output_block.{k}.{1 + j}") for j in range(lrb)],
+             **conv(f"head.output_block.{k}.{lrb + 2}", "conv_out_")}
+            for k in range(2)],  # points (3 channels), mask (1)
+    }
+    return {
+        "backbone": convert_dinov2(sd, "backbone.", cfg.encoder_cfg.depth),
+        "head": head,
+        "_v1_config_json": json.dumps({k: getattr(cfg, k) for k in MoGeV1Config.__dataclass_fields__}),
+    }
+
+
+def _v1_res_block(sd: dict, name: str, p: Dict[str, Any]) -> None:
+    _norm(sd, f"{name}.layers.0", p, "norm1")
+    _conv(sd, f"{name}.layers.2", p, "conv1_")
+    if "norm2_scale" in p:
+        _norm(sd, f"{name}.layers.3", p, "norm2")
+    _conv(sd, f"{name}.layers.5", p, "conv2_")
+
+
+def moge_v1_state_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX MoGe v1 tree (``convert_moge_v1_state_dict``'s layout) -> ``MoGeV1``
+    state_dict (fp32 CPU tensors): the backbone in the port's DINOv2 naming,
+    the head in the reference's. '_v1_config_json' is ignored."""
+    sd: Dict[str, torch.Tensor] = {}
+    _dinov2(sd, "backbone", tree["backbone"])
+    head = tree["head"]
+    for i, proj in enumerate(head["projects"]):
+        _conv(sd, f"head.projects.{i}", proj)
+    for i, blk in enumerate(head["upsample_blocks"]):
+        name = f"head.upsample_blocks.{i}"
+        k = np.asarray(blk["deconv"]["kernel"], dtype=np.float32)[0, 0]  # (in, out * 4)
+        sd[f"{name}.0.0.weight"] = _tensor(k.reshape(k.shape[0], -1, 2, 2))
+        sd[f"{name}.0.0.bias"] = _tensor(blk["deconv"]["bias"])
+        _conv(sd, f"{name}.0.1", blk, "conv_")
+        for j, rb in enumerate(blk.get("res_blocks") or []):
+            _v1_res_block(sd, f"{name}.{1 + j}", rb)
+    for k, ob in enumerate(head["output_blocks"]):
+        name = f"head.output_block.{k}"
+        _conv(sd, f"{name}.0", ob, "conv_in_")
+        res = ob.get("res_blocks") or []
+        for j, rb in enumerate(res):
+            _v1_res_block(sd, f"{name}.{1 + j}", rb)
+        _conv(sd, f"{name}.{len(res) + 2}", ob, "conv_out_")
+    return sd
+
+
+def build_moge_v1(cfg: MoGeV1Config, state: Dict[str, torch.Tensor], device: torch.device,
+                  trunk_dtype: torch.dtype = torch.float32) -> MoGeV1:
+    """A ``MoGeV1`` holding ``state`` on ``device``, in fp32 but for the
+    encoder blocks, which are held in ``trunk_dtype`` (fp32 computes as the
+    JAX package does; bf16 is a control)."""
+    model = MoGeV1(cfg, device="meta")
+    model.load_state_dict(state, strict=True, assign=True)
+    model = model.to(device=device, dtype=torch.float32).eval()
+    model.backbone.blocks.to(trunk_dtype)
+    return model
+
+
+def load_moge_v1_checkpoint(path: str):
+    """Load a MoGe v1 ``.npz`` (``tools/convert_checkpoint.py --model moge`` on
+    a v1 checkpoint) -> (JAX-layout tree, MoGeV1Config from its
+    '_v1_config_json')."""
+    import json
+
+    params = load_params_npz(path)
+    cfg = MoGeV1Config.from_model_config(json.loads(str(params.pop("_v1_config_json"))))
+    return params, cfg
+
+
+_DECONV = re.compile(r"head\.upsample_blocks\.\d+\.0\.0\.weight")
+# the port's DINOv2 names -> the reference's (``dinov2/layers``)
+_REFERENCE_BLOCK_NAMES = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1",
+                          "fc2": "mlp.fc2", "ls1": "ls1.gamma", "ls2": "ls2.gamma"}
+
+
+def random_moge_v1_state_dict(cfg: MoGeV1Config, seed: int = 0) -> Dict[str, np.ndarray]:
+    """A random MoGe v1 state dict in the reference naming (``backbone.*`` as
+    DINOv2's, ``head.*`` as ``moge/model/v1.py``'s), float32 numpy, drawn
+    from ``np.random.default_rng(seed)`` over the port's ``MoGeV1``
+    parameters in their order: weights N(0, 1/fan_in), norm scales 1 +
+    N(0, 0.1^2), LayerScales 0.1 + N(0, 0.02^2), biases, class token and
+    position embedding N(0, 0.02^2). What ``convert_moge_v1_state_dict`` (of
+    either package) reads; values only matter for tests and smoke runs.
+
+    The points output block then passes the view-plane UV through: four of
+    its first convolution's channels carry +u, -u, +v, -v, its last one sums
+    them into x and y (ReLU(u) - ReLU(-u) = u), the random rest scaled to 1%.
+    With the 'exp' remap (the released v1 checkpoints') z is 0.3 u before
+    it, so the points lie near (u, v, 1) e^(0.3 u): a tilted surface seen
+    at focal 1 and shift 0, on which the focal / shift solve of
+    ``moge_v1_infer`` is well posed, where fully random points leave it to
+    rounding; other remaps get z = 1, a fronto-parallel plane, on which
+    focal and shift trade against each other. The mask stays random."""
+    rng = np.random.default_rng(seed)
+    out: Dict[str, np.ndarray] = {}
+    for name, p in MoGeV1(cfg, device="meta").state_dict().items():
+        shape = tuple(p.shape)
+        n = rng.standard_normal(shape, dtype=np.float32)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("ls1", "ls2"):
+            a = 0.1 + 0.02 * n
+        elif len(shape) >= 2 and leaf == "weight":
+            # a ConvTranspose2d weight is (in, out, 2, 2): one tap per input channel
+            fan_in = shape[0] if _DECONV.fullmatch(name) else int(np.prod(shape[1:]))
+            a = n * np.float32(fan_in**-0.5)
+        elif leaf == "weight":  # LayerNorm / GroupNorm scales
+            a = 1 + 0.1 * n
+        else:
+            a = 0.02 * n
+        if not name.startswith("backbone."):
+            out[name] = a
+            continue
+        key = name[len("backbone."):]
+        if key == "register_tokens":
+            continue  # the plain DINOv2 backbones have none
+        if key.startswith("patch_embed."):
+            c = cfg.encoder_cfg.embed_dim
+            key = "patch_embed.proj." + key.split(".")[-1]
+            a = a.reshape(c, 3, 14, 14) if a.ndim == 2 else a
+        elif key in ("cls_token", "pos_embed"):
+            a = a[None]
+        elif key.startswith("blocks."):
+            _, i, mod, *rest = key.split(".")
+            key = ".".join(["blocks", i, _REFERENCE_BLOCK_NAMES.get(mod, mod), *rest])
+        out["backbone." + key] = a
+    w_in = out["head.output_block.0.0.weight"]  # (last_conv_channels, C + 2, 3, 3)
+    w_in[:4] = 0.0
+    out["head.output_block.0.0.bias"][:4] = 0.0
+    for ch, (uv, sign) in enumerate(((-2, 1.0), (-2, -1.0), (-1, 1.0), (-1, -1.0))):
+        w_in[ch, uv, 1, 1] = sign
+    last = f"head.output_block.0.{cfg.last_res_blocks + 2}"
+    w_out, mid = out[f"{last}.weight"], cfg.last_conv_size // 2  # (3, last_conv_channels, k, k)
+    w_out *= 0.01
+    for axis, ch, sign in ((0, 0, 1.0), (0, 1, -1.0), (1, 2, 1.0), (1, 3, -1.0)):
+        w_out[axis, ch, mid, mid] += sign
+    out[f"{last}.bias"][:] = 0.0
+    if cfg.remap_output == "exp":
+        w_out[2, 0, mid, mid] += 0.3
+        w_out[2, 1, mid, mid] -= 0.3
+    elif cfg.remap_output != "sinh_exp":
+        out[f"{last}.bias"][2] = 1.0
+    return out
 
 
 def convert_aliked_state_dict(sd, model_name: str = "aliked-n16") -> Dict[str, Any]:

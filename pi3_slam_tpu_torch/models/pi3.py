@@ -190,7 +190,16 @@ class Pi3(nn.Module):
         point_hidden = self._head_decoder_forward(self.point_decoder, hidden_cat, pos)
         conf_hidden = self._head_decoder_forward(self.conf_decoder, hidden_cat, pos)
         camera_hidden = self._head_decoder_forward(self.camera_decoder, hidden_cat, pos)
+        return self._dense_heads(point_hidden, conf_hidden, camera_hidden, B, N, H, W)
 
+    def _dense_heads(self, point_hidden: torch.Tensor, conf_hidden: torch.Tensor,
+                     camera_hidden: torch.Tensor, B: int, N: int, H: int, W: int
+                     ) -> dict[str, torch.Tensor]:
+        """The point, confidence and camera heads on the head decoders'
+        outputs (B*N, R + h*w, C), in fp32, and the world points."""
+        cfg = self.cfg
+        p = cfg.patch_size
+        ph, pw = H // p, W // p
         reg = cfg.num_register_tokens
         pt = point_hidden[:, reg:].float()
         ret = tokens_to_image(

@@ -7,6 +7,8 @@ wrapper with an fp32 entry counts that kernel's launches apart
 (``wrapper.launches_fp32``, reported as ``<name>_fp32``).
 """
 
+from contextlib import contextmanager
+
 from .block_mlp import block_mlp
 from .dots_attention import dots_attention
 from .flash_attention import attention_single_pass, flash_attention
@@ -43,3 +45,17 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for name in FP32_ENTRIES:
         KERNEL_WRAPPERS[name].launches_fp32 = 0
+
+
+@contextmanager
+def uncounted():
+    """Launches inside the block leave the counts as they were: a kernel
+    held against its plain version is no launch of the path that holds it."""
+    saved = launch_counts()
+    try:
+        yield
+    finally:
+        for name, fn in KERNEL_WRAPPERS.items():
+            fn.launches = saved[name]
+        for name in FP32_ENTRIES:
+            KERNEL_WRAPPERS[name].launches_fp32 = saved[f"{name}_fp32"]

@@ -69,6 +69,20 @@ def compare(
     return Comparison(err, max_tol, rel_l2, l2_rel, finite, rejects)
 
 
+def hold(name: str, shape: str, got: torch.Tensor, ref: torch.Tensor, why: str,
+         **bounds) -> Comparison:
+    """A kernel's output against its plain version's (:func:`compare` with
+    ``bounds``), printed on one line; raises if the bounds would pass an
+    all-zero or a 10%-off output, or if the kernel misses them."""
+    c = compare(got, ref, **bounds)
+    print(f"  {name:32s} {shape:28s} {c} ({why}) {'ok' if c.ok else 'FAIL'}", flush=True)
+    if not c.rejects_wrong:
+        raise RuntimeError(f"{name} {shape}: the bounds would pass a zero or 10%-off output")
+    if not c.ok:
+        raise RuntimeError(f"{name} {shape}: kernel disagrees with its plain version ({c})")
+    return c
+
+
 # Per-kernel bounds for the hand-written kernels against their plain versions
 # in bf16. The producer's outputs are the same fp32 arithmetic in another
 # order, rounded to bf16: at most 1 ulp apart per element, which is <= 2^-7

@@ -1,5 +1,6 @@
 """Resampling ops: DINOv2 position-embedding interpolation, MoGe's bilinear
-map resizing, and the grid_sample-style keypoint sampling of the chunk step.
+map resizing, MoGe v1's bicubic input resize, and the grid_sample-style
+keypoint sampling of the chunk step.
 
 Port of ``pi3_slam_tpu/ops/interpolate.py``. The JAX package rebuilt torch's
 bicubic and bilinear (antialiased) ``F.interpolate`` as interpolation-matrix
@@ -46,11 +47,26 @@ def bilinear_resize(x: torch.Tensor, out_hw: tuple[int, int], antialias: bool = 
     ``F.interpolate`` (align_corners=False), optionally antialiased; computed
     in fp32 and cast back. The JAX package's ``bilinear_resize_hw`` rebuilt
     the same semantics on (..., H, W, C) as interpolation matrices."""
+    return _resize(x, out_hw, "bilinear", antialias)
+
+
+def bicubic_resize(x: torch.Tensor, out_hw: tuple[int, int], antialias: bool = False) -> torch.Tensor:
+    """Resize (..., C, H, W) maps to (..., C, h, w) with torch's bicubic
+    ``F.interpolate`` (align_corners=False), optionally antialiased; computed
+    in fp32 and cast back. The JAX package's ``bicubic_resize_hw`` rebuilt the
+    same semantics as interpolation matrices: the plain path's A = -0.75
+    kernel with edge-clamped taps, and with ``antialias`` torch's A = -0.5
+    kernel, stretched when downsampling and taken as it is when upsampling.
+    MoGe v1 resizes its input this way."""
+    return _resize(x, out_hw, "bicubic", antialias)
+
+
+def _resize(x: torch.Tensor, out_hw: tuple[int, int], mode: str, antialias: bool) -> torch.Tensor:
     out_hw = tuple(out_hw)
     if tuple(x.shape[-2:]) == out_hw:
         return x
-    y = F.interpolate(x.reshape((-1,) + tuple(x.shape[-3:])).float(), size=out_hw,
-                      mode="bilinear", align_corners=False, antialias=antialias)
+    y = F.interpolate(x.reshape((-1,) + tuple(x.shape[-3:])).float(), size=out_hw, mode=mode,
+                      align_corners=False, antialias=antialias)
     return y.reshape(tuple(x.shape[:-2]) + out_hw).to(x.dtype)
 
 

@@ -1,12 +1,13 @@
 """CLI: online streaming SLAM with the PyTorch port (chunked Pi3 inference,
 grid or ALIKED keypoints, MoGe-2 metric scale, optional ZNCC observation
 refinement, per-chunk BA, incremental Sim3 alignment, optional loop
-closure and telemetry after processing, and the TSDF mesh), on the GPU by
-default.
+closure and telemetry after processing, the TSDF mesh, the online viewer and
+the reprojection-debug GIFs), on the GPU by default.
 
     python -m pi3_slam_tpu_torch.pi3_slam_online --images <dir> --output <out> \\
         --chunk-length 100 --overlap 20 --max-kp 400 --moge-path moge.npz --save-tum
     ... --export-mesh --save-volume --live-mesh-every 1   # fused_mesh.ply, fused_volume.npz
+    ... --visualize --save-debug-projections   # the viewer; debug_projections/chunk_*.gif
 
 Same flags as the JAX package's ``pi3_slam_online.py`` (image folder, glob or
 list, or ``--video``; the reference's underscore spellings as aliases).
@@ -23,6 +24,7 @@ import argparse
 import os
 import shutil
 import sys
+import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -123,14 +125,17 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Prior-BA iterations of the Sim3 alignment refine")
 
     g_viz = parser.add_argument_group("visualization")
-    g_viz.add_argument("--visualize", action="store_true", help="The online viewer (not yet ported)")
+    g_viz.add_argument("--visualize", action="store_true",
+                       help="The online viewer: a viser server on --viz-port, or one "
+                            "'[viz]' line a chunk when viser is not installed")
     g_viz.add_argument("--no-visualization", "--no_visualization", action="store_true",
                        help="Disable visualization (reference spelling; visualization "
                             "is already off unless --visualize is given, and this "
                             "flag wins over --visualize)")
     g_viz.add_argument("--viz-port", "--viz_port", type=int, default=8080)
     g_viz.add_argument("--keep-viz-open", "--keep_viz_open", action="store_true",
-                       help="Keep the viewer alive after processing (not yet ported)")
+                       help="Keep the visualization server alive after "
+                            "processing until Ctrl-C")
 
     g_out = parser.add_argument_group("output")
     g_out.add_argument("--output", "--output_path", default="online_output")
@@ -147,7 +152,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "--save_chunk/transformed/debug_reconstructions trio)")
     g_out.add_argument("--save-debug-projections", "--save_debug_projections",
                        action="store_true",
-                       help="Per-chunk reprojection-debug GIFs (not yet ported)")
+                       help="Per-chunk reprojection-debug GIFs (observed vs "
+                            "reprojected keypoints) under <output>/debug_projections")
     g_out.add_argument("--debug-overlap", action="store_true",
                        help="Print per-alignment overlap diagnostics (overlap frame "
                             "ids, common-track counts, conf stats) and append them "
@@ -272,9 +278,6 @@ def run_online(argv=None) -> dict:
         live_mesh_every=args.live_mesh_every,
     )
     msg = unported(config)
-    if msg is None and args.keep_viz_open:
-        msg = ("--keep-viz-open is not yet ported (ROADMAP.md Queue 1: off the main path, "
-               "viz/visualizer.py, the online viewer)")
     if msg:
         parser.error(msg)
     paths = _frames(args, parser)
@@ -307,6 +310,15 @@ def run_online(argv=None) -> dict:
         shutil.copyfile(tum_path, artifacts["trajectory_tum"])
     if mesh_path:
         artifacts["mesh"] = mesh_path
+    if slam.visualizer is not None:
+        slam.visualizer.flush()  # the queued chunks and meshes shown before the CLI returns
+        if args.keep_viz_open:
+            print(f"visualization server on port {args.viz_port}; Ctrl-C to exit")
+            try:
+                while True:
+                    time.sleep(1.0)
+            except KeyboardInterrupt:
+                pass
     return {**result, "queue_status": slam.queue_status(),
             "chunk_launches": slam.chunk_launches, "loop_closure": loop_stats,
             "telemetry": telemetry_stats, "artifacts": artifacts}

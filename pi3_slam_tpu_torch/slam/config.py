@@ -118,9 +118,8 @@ class ReconstructorConfig:
 @dataclass
 class OnlineConfig:
     """Port of the JAX package's ``OnlineConfig``: the same fields and
-    defaults, plus ``device``. The fields of parts not ported yet (the
-    viewer, debug projections, multi-device) are kept so a config reads the
-    same; ``Pi3SLAMOnline`` refuses them
+    defaults, plus ``device``. The multi-device fields, not ported yet, are
+    kept so a config reads the same; ``Pi3SLAMOnline`` refuses them above 1
     (``slam.online.unported``)."""
 
     chunk_length: int = 30

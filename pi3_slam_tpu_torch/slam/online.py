@@ -38,11 +38,20 @@ poses (after loop closure and telemetry) into ``fused_mesh.ply``; every
 CPU under the current poses (128^3 voxels at most, printing ``live mesh: N
 verts``), so that the preview never contends with the forward on the card.
 
+With ``visualize`` each chunk, once in the chain, goes to the online viewer
+(``viz/visualizer.py``: a viser scene, or one ``[viz]`` line a chunk without
+viser) with its last frame and that frame's keypoints, and the live and final
+meshes follow it; with ``save_debug_projections`` each chunk writes a GIF of
+its observations against their reprojections under
+``<output>/debug_projections/`` (``sfm/serialization.py``; the errors on the
+SfM device). The frame and keypoints the viewer gets are host arrays (the
+loader's batch and the detector's host copy), so the consumer thread reads
+no device tensor for it. A failure of either is printed and skipped.
+
 An error in the consumer stops it and reaches the caller from the drive
 thread; no chunk is consumed twice. The JAX class's backend-reset recovery
-and its multi-device, viewer and debug-projection parts are not ported:
-``unported`` names each one's ROADMAP.md entry and the class refuses a config
-that asks for it.
+and its multi-device parts are not ported: ``unported`` names their
+ROADMAP.md entry and the class refuses a config that asks for them.
 """
 
 from __future__ import annotations
@@ -69,7 +78,7 @@ from ..models.pi3 import Pi3Config
 from ..ops import launch_counts
 from ..sfm.alignment import align_chunks
 from ..sfm.reconstruction import ChunkReconstruction, build_chunk_reconstruction
-from ..sfm.serialization import save_reconstruction
+from ..sfm.serialization import render_debug_projections, save_reconstruction
 from ..utils.timing import TimingStats
 from .chunk_creator import (
     _fan_table,
@@ -86,20 +95,10 @@ from .chunk_creator import (
 )
 from .config import OnlineConfig
 
-_OFF_PATH = "ROADMAP.md Queue 1: off the main path"
-
 
 def unported(config: OnlineConfig) -> str | None:
     """The message for the first part ``config`` asks for that the port
     lacks, or None; each names its ROADMAP.md entry."""
-    entries = (
-        ("--visualize", config.visualize, "viz/visualizer.py, the online viewer"),
-        ("--save-debug-projections", config.save_debug_projections,
-         "sfm/serialization.render_debug_projections"),
-    )
-    for flag, asked, entry in entries:
-        if asked:
-            return f"{flag} is not yet ported ({_OFF_PATH}, {entry})"
     for flag, value in (("--data-parallel-chunks", config.data_parallel_chunks),
                         ("--tensor-parallel", config.tensor_parallel),
                         ("--sequence-parallel", config.sequence_parallel)):
@@ -150,6 +149,11 @@ class Pi3SLAMOnline:
         self._produced = 0
         self._consumed = 0
         self._live_mesh_thread: Optional[threading.Thread] = None
+        self.visualizer = None
+        if config.visualize:
+            from ..viz.visualizer import OnlineVisualizer
+
+            self.visualizer = OnlineVisualizer(port=config.viz_port)
 
     def _dense_on(self) -> bool:
         """Whether chunks stash their dense maps (mesh export needs them)."""
@@ -291,6 +295,26 @@ class Pi3SLAMOnline:
                     self.config.output_dir, "debug_recons", f"recon_{self._consumed - 1:06d}.npz"))
             except Exception as e:
                 print(f"debug recon save failed: {e}")
+        batch = ctx["pending"]["batch"]
+        if self.config.save_debug_projections:
+            imgs = batch["images"]
+            if imgs.dtype == np.uint8:
+                imgs = imgs.astype(np.float32) / 255.0
+            dbg_dir = os.path.join(self.config.output_dir, "debug_projections")
+            os.makedirs(dbg_dir, exist_ok=True)
+            try:
+                render_debug_projections(recon, imgs, os.path.join(
+                    dbg_dir, f"chunk_{self._consumed - 1:06d}.gif"), device=self.sfm_device)
+            except Exception as e:
+                print(f"debug projections failed: {e}")
+        if self.visualizer is not None:
+            try:
+                frame = batch["images"][-1].transpose(1, 2, 0)
+                if frame.dtype != np.uint8:
+                    frame = (frame * 255.0).clip(0, 255).astype(np.uint8)
+                self.visualizer.update(recon, frame=frame, keypoints=ctx["pending"]["kps"][-1])
+            except Exception as e:
+                print(f"viewer update failed: {e}")
         if self.config.live_mesh_every > 0 and self._consumed % self.config.live_mesh_every == 0:
             try:
                 self._live_mesh_tick()
@@ -433,7 +457,9 @@ class Pi3SLAMOnline:
                                  config=self._mesh_config(min(self.config.mesh_max_voxels,
                                                               128**3)),
                                  overlap=self.config.overlap, device="cpu")
-            verts, _, _ = volume.extract_mesh(min_weight=self.config.mesh_min_weight)
+            verts, faces, vcols = volume.extract_mesh(min_weight=self.config.mesh_min_weight)
+            if self.visualizer is not None and len(verts):
+                self.visualizer.show_mesh(verts, faces, vcols)
             print(f"live mesh: {len(verts)} verts from {len(files)} chunks")
         except ValueError as e:
             print(f"live mesh skipped: {e}")
@@ -466,7 +492,11 @@ class Pi3SLAMOnline:
             volume_path=(os.path.join(cfg.output_dir, "fused_volume.npz")
                          if cfg.save_volume else None),
             device=self.device)
-        return None if result is None else result["path"]
+        if result is None:
+            return None
+        if self.visualizer is not None and len(result["vertices"]):
+            self.visualizer.show_mesh(result["vertices"], result["faces"], result["colors"])
+        return result["path"]
 
     # ----- drive loops -----
 

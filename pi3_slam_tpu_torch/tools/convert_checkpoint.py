@@ -12,8 +12,10 @@ package's) load.
 The options of the JAX package's ``tools/convert_checkpoint.py``. Local files
 only: ``.safetensors`` through ``io/safetensors.py`` (no ``safetensors``
 package needed), ``.pt`` / ``.pth`` through ``torch.load(weights_only=True)``.
-Host numpy work: no GPU is touched. MoGe v1 checkpoints exit 2, naming their
-ROADMAP.md entry.
+Host numpy work: no GPU is touched. A MoGe ``model.pt`` whose 'model_config'
+names its encoder by a flat string is a v1 checkpoint (``moge/model/v1.py``):
+the tool says "detected MoGe v1 checkpoint layout" and writes the JAX
+package's v1 tree (``models/moge_v1.py`` runs it).
 """
 
 from __future__ import annotations
@@ -83,6 +85,7 @@ def main(argv=None) -> int:
         check_pi3_config,
         convert_aliked_state_dict,
         convert_moge_state_dict,
+        convert_moge_v1_state_dict,
         convert_pi3_state_dict,
         save_params_npz,
         save_pi3_checkpoint,
@@ -108,10 +111,12 @@ def main(argv=None) -> int:
     else:
         if model_config is None:
             raise SystemExit("MoGe checkpoint must carry model_config (expected model.pt format)")
-        if isinstance(model_config.get("encoder"), str):  # v1: a flat encoder name
-            parser.error("MoGe v1 checkpoints are not yet ported (ROADMAP.md Queue 1: off the "
-                         "main path, MoGe v1)")
-        params = convert_moge_state_dict(sd, model_config)
+        if isinstance(model_config.get("encoder"), str):
+            # v1 checkpoints carry a flat encoder name; v2 an encoder dict
+            params = convert_moge_v1_state_dict(sd, model_config)
+            print("detected MoGe v1 checkpoint layout")
+        else:
+            params = convert_moge_state_dict(sd, model_config)
         del sd
         save_params_npz(args.output, params)
     peak_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20

@@ -1,14 +1,43 @@
-"""Speed-of-light and MLP probes on one NVIDIA GPU: the ports of ``bench_sol``
-and ``bench_mlp`` from the JAX package's ``tools/perf_lab.py``.
+"""Kernel and model probes on one NVIDIA GPU: the ports of the JAX package's
+``tools/perf_lab.py`` probes, and the port's own (``tf32``, ``tiles``).
 
-    python -m pi3_slam_tpu_torch.tools.perf_lab sol
-    python -m pi3_slam_tpu_torch.tools.perf_lab mlp
-    python -m pi3_slam_tpu_torch.tools.perf_lab tf32
-    python -m pi3_slam_tpu_torch.tools.perf_lab tiles
-    python -m pi3_slam_tpu_torch.tools.perf_lab tsdf
+    python -m pi3_slam_tpu_torch.tools.perf_lab [all]    # global frame block packed stages mlp forward
+    python -m pi3_slam_tpu_torch.tools.perf_lab global | frame | packed | block
+    python -m pi3_slam_tpu_torch.tools.perf_lab stages | forward | refine | kv-accuracy
+    python -m pi3_slam_tpu_torch.tools.perf_lab sol | mlp | mlp-sweep | tf32 | tiles | tsdf
+    PI3_KV_MERGE=2 python -m pi3_slam_tpu_torch.tools.perf_lab forward
+    PI3_WEIGHTS=pi3.npz PI3_KV_FRAMES=20 python -m pi3_slam_tpu_torch.tools.perf_lab kv-accuracy
 
-Times, with CUDA events (one warm-up call, then the mean of ``ITERS`` calls),
-and prints ms and TFLOP/s of:
+The JAX probes' shapes and contracts; their TPU knobs (block sizes,
+interleave counts, ``ln_stats``) and the JAX library kernel they were held to
+do not come over: each row stands beside one SDPA or cuBLAS call that
+computes the same function, where one does, and its bound (the operations at
+the card's peak for their type, or the bytes over its memory rate, and for
+attention the ``exp2`` count on the special-function units):
+
+* ``global``: ``flash_attention`` (row 6) and ``flash_attention_packed`` (row
+  1) at (1, 66000, 16, 64); ``frame``: ``attention_single_pass`` (row 7) at
+  (100, 660) and (100, 643) x (16, 64), beside its plain version too;
+  ``packed``: row 2 at (100, 660, 3072) and row 1 at (1, 66000, 3072);
+* ``block``: one Pi3 decoder block at (1, 64300, 1024) and (100, 643, 1024)
+  against its packed kernel alone, the difference being the rest of the
+  block;
+* ``stages``: the full-width bf16 forward's encoder, decoder, one head
+  decoder and dense heads at 100 frames of 308x406, their sum as frames/s;
+  ``forward``: the whole forward (``PI3_KV_MERGE``); ``refine``: the chunk
+  step without and with ZNCC refinement at 400 keypoints; ``kv-accuracy``:
+  the kv-merge outputs against exact ones (``PI3_WEIGHTS``,
+  ``PI3_KV_FRAMES``, ``PI3_KV_MERGE``). These four share one full-width
+  model a process (random weights from seed 0 unless ``PI3_WEIGHTS``);
+* ``mlp-sweep``: each MLP entry at every shape and dtype the paths send it
+  (MLP_SWEEP), beside its plain version and cuBLAS.
+
+Every kernel these probes time is first held once against its plain version
+at the same shape (``ops/compare``'s bounds; a disagreement raises); those
+calls do not count as launches (``ops.uncounted``).
+
+Every probe times with CUDA events (one warm-up call, then the mean of
+``ITERS`` calls, more for short ones). ``sol`` prints ms and TFLOP/s of:
 
 * a square 8192^3 bf16 ``torch.matmul``: the card's practical bf16 peak, a
   yardstick;
@@ -28,7 +57,8 @@ tiles, warpgroups, issue order).
 
 ``mlp`` times, at the main paths' MLP shapes (Pi3's (1, 64300, 1024) and
 (100, 643, 1024) with hidden 4096, MoGe-2's (1, 3537, 384) with 1536), the
-two GEMM entries of ``csrc/block_mlp.cu`` (``block_mlp``, ``mlp``), their
+two GEMM entries of ``csrc/block_mlp.cu`` (``block_mlp``, ``mlp``; both held
+against their plain versions at each of these shapes first), their
 plain versions, and the two bare bf16 cuBLAS products (``F.linear`` without
 bias) of the same shapes: the products yardstick, which computes less than
 either entry.
@@ -60,10 +90,6 @@ card, one warm-up chunk and three chained ones: seconds a chunk, fusion
 frames/s, Gvoxel-updates/s, and beside them the bytes bound of a
 frame-at-a-time pass (the 20-byte state read and written per voxel and
 frame, over 3.35 TB/s).
-
-The JAX package's other probes (global, frame, block, packed,
-stages, mlp-sweep, forward, refine, kv-accuracy) are not ported
-(ROADMAP.md Queue 2, item 9).
 """
 
 from __future__ import annotations
@@ -100,10 +126,11 @@ def bench_sol() -> dict:
     Inputs are N(0, 0.05^2) in bf16, drawn on the card from seed 0."""
     if not torch.cuda.is_available():
         raise RuntimeError("the speed-of-light probe needs an NVIDIA GPU")
-    from ..ops.block_mlp import block_mlp
-    from ..ops.dots_attention import dots_attention
-    from ..ops.flash_attention import flash_attention
-    from ..ops.packed_attention import flash_attention_packed
+    from ..ops.block_mlp import block_mlp, block_mlp_plain
+    from ..ops.compare import ATTENTION, DOTS, block_mlp_bounds
+    from ..ops.dots_attention import dots_attention, dots_attention_plain
+    from ..ops.flash_attention import blockwise_attention, flash_attention
+    from ..ops.packed_attention import flash_attention_packed, packed_attention_plain
 
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -125,11 +152,17 @@ def bench_sol() -> dict:
     qkv = mk(1, SOL_T, 3 * SOL_H * SOL_D)
     aflops = 4.0 * SOL_H * SOL_T * SOL_T * SOL_D
     shape = f"(1, {SOL_T}, {3 * SOL_H * SOL_D})"
+    q, k, v = qkv.view(1, SOL_T, 3, SOL_H, SOL_D).unbind(2)
+    _held("dots_attention", shape, lambda: dots_attention(qkv, SOL_H),
+          lambda: dots_attention_plain(qkv, SOL_H), "bf16 logits, bf16 output", **DOTS)
+    _held("flash_attention_packed", shape, lambda: flash_attention_packed(qkv, SOL_H),
+          lambda: packed_attention_plain(qkv, SOL_H), ATTENTION_WHY, **ATTENTION)
+    _held("flash_attention", shape, lambda: flash_attention(q, k, v),
+          lambda: blockwise_attention(q, k, v), ATTENTION_WHY, **ATTENTION)
     run("dots_attention (the TMA + wgmma loop without softmax)", shape,
         lambda: dots_attention(qkv, SOL_H), aflops)
     run("flash_attention_packed (TMA + wgmma, online softmax)", shape,
         lambda: flash_attention_packed(qkv, SOL_H), aflops)
-    q, k, v = qkv.view(1, SOL_T, 3, SOL_H, SOL_D).unbind(2)
     run("flash_attention (the same loop as dots, softmax)", shape,
         lambda: flash_attention(q, k, v), aflops)
     del qkv, q, k, v
@@ -138,8 +171,11 @@ def bench_sol() -> dict:
     w1, w2 = mk(MLP_HIDDEN, MLP_C), mk(MLP_C, MLP_HIDDEN)
     zeros = lambda n: torch.zeros(n, device="cuda")
     ones = lambda n: torch.ones(n, device="cuda")
-    run("block_mlp (LN + fc1 + GELU + fc2 + residual)", f"(1, {SOL_T}, {MLP_C})/{MLP_HIDDEN}",
-        lambda: block_mlp(x, ones(MLP_C), zeros(MLP_C), w1, zeros(MLP_HIDDEN), w2, zeros(MLP_C)),
+    params = (ones(MLP_C), zeros(MLP_C), w1, zeros(MLP_HIDDEN), w2, zeros(MLP_C))
+    shape = f"(1, {SOL_T}, {MLP_C})/{MLP_HIDDEN}"
+    _held("block_mlp", shape, lambda: block_mlp(x, *params), lambda: block_mlp_plain(x, *params),
+          "bf16 fc outputs, bf16 out", **block_mlp_bounds(x, block_mlp_plain(x, *params)))
+    run("block_mlp (LN + fc1 + GELU + fc2 + residual)", shape, lambda: block_mlp(x, *params),
         4.0 * SOL_T * MLP_C * MLP_HIDDEN)
     return results
 
@@ -155,6 +191,7 @@ def bench_mlp() -> dict:
     import torch.nn.functional as F
 
     from ..ops.block_mlp import block_mlp, block_mlp_plain
+    from ..ops.compare import MLP, block_mlp_bounds
     from ..ops.mlp import mlp, mlp_plain
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -178,6 +215,9 @@ def bench_mlp() -> dict:
             "products (2 x F.linear, no bias)": lambda: (F.linear(x, w1), F.linear(h, w2)),
         }
         shape = f"({lead[0]}, {lead[1]}, {c})/{hidden}"
+        _held("block_mlp", shape, runs["block_mlp"], runs["block_mlp_plain"],
+              "bf16 fc outputs, bf16 out", **block_mlp_bounds(x, runs["block_mlp_plain"]()))
+        _held("mlp", shape, runs["mlp"], runs["mlp_plain"], "bf16 fc outputs, bf16 out", **MLP)
         flops = 4.0 * lead[0] * lead[1] * c * hidden
         results[shape] = {}
         for name, fn in runs.items():
@@ -517,7 +557,6 @@ def bench_tiles() -> dict:
 
 
 TSDF_FRAMES, TSDF_H, TSDF_W, TSDF_VOXELS = 100, 154, 203, 189
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
 def bench_tsdf() -> dict:
@@ -532,6 +571,7 @@ def bench_tsdf() -> dict:
     import numpy as np
 
     from ..mapping.tsdf import _fuse_frames
+    from ..ops.roofline import PEAK_BYTES
 
     rng = np.random.default_rng(0)
     F, H, W, n = TSDF_FRAMES, TSDF_H, TSDF_W, TSDF_VOXELS
@@ -561,7 +601,7 @@ def bench_tsdf() -> dict:
         state = _fuse_frames(state, frames, *args)
     torch.cuda.synchronize()
     per = (time.perf_counter() - t0) / iters
-    bound = 40.0 * V * F / HBM_BYTES_PER_S
+    bound = 40.0 * V * F / PEAK_BYTES
     print(f"tsdf fuse {n}^3 x {F} frames: {per:.3f}s/chunk -> {F / per:.1f} fusion-FPS, "
           f"{V * F / per / 1e9:.2f} Gvoxel-updates/s (bytes bound of a frame-at-a-time pass "
           f"{bound * 1e3:.2f} ms/chunk: 40 B/voxel/frame over 3.35 TB/s)", flush=True)
@@ -569,21 +609,457 @@ def bench_tsdf() -> dict:
             "bound_s": bound, "voxels": V, "frames": F}
 
 
-PROBES = {"sol": bench_sol, "mlp": bench_mlp, "tf32": bench_tf32, "tiles": bench_tiles,
-          "tsdf": bench_tsdf}
+# --- the JAX package's model-shape probes (global, frame, packed, block,
+# stages, mlp-sweep, forward, refine, kv-accuracy): the port's kernels at the
+# JAX probes' shapes, each beside one SDPA or cuBLAS call where one computes
+# the same function; the TPU knobs (block sizes, interleave, ln_stats) do not
+# apply.
+
+LOG2_E = 1.4426950408889634
+GLOBAL_T, FRAME_SHAPES, HEADS, HEAD_DIM = 66000, ((100, 660), (100, 643)), 16, 64
+CHUNK_FRAMES, CHUNK_H, CHUNK_W = 100, 308, 406
+# every MLP shape the paths send, (lead, C, hidden, entry, dtypes): Pi3's
+# global and frame blocks (the encoder, frame, head and global blocks all at C
+# 1024; bf16, and fp32 under --compute-dtype float32), MoGe-2's ViT-S encoder
+# at 3,537 tokens and MoGe v1's ViT-L encoder at 2,452 (fp32 trunks), the
+# cross-attention block's bare MLP at one and four frames' tokens
+MLP_SWEEP = (((1, 64300), 1024, 4096, "block_mlp", ("bfloat16", "float32")),
+             ((100, 643), 1024, 4096, "block_mlp", ("bfloat16", "float32")),
+             ((1, 3537), 384, 1536, "block_mlp", ("float32",)),
+             ((1, 2452), 1024, 4096, "block_mlp", ("float32",)),
+             ((4, 643), 1024, 4096, "mlp", ("bfloat16", "float32")),
+             ((1, 2572), 1024, 4096, "mlp", ("bfloat16", "float32")))
+
+
+def _line(name: str, shape: str, ms: float, flops: float, bound=None, exp2=None) -> None:
+    """One timed row; ``bound`` = (ms, by) from ``ops/roofline.bound``,
+    ``exp2`` = the call's exp2 count, its own bound beside."""
+    extra = "" if bound is None else f"   bound {bound[0]:8.3f} ms ({bound[1]})"
+    if exp2 is not None:
+        from ..ops.roofline import exp2_ms
+
+        extra += f"   exp2 bound {exp2_ms(exp2):8.3f} ms"
+    print(f"{name:48s} {shape:26s} {ms:9.3f} ms {flops / ms / 1e9:8.1f} TFLOP/s{extra}",
+          flush=True)
+
+
+def _randn(*shape, scale=0.1, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+def _sdpa(q, k, v, scale=None):
+    """One SDPA call on (B, T, H, D) q / k / v as (B, H, T, D) views."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+
+def _held(name: str, shape: str, run, plain, why: str, **bounds) -> None:
+    """The kernel's output at this shape against its plain version's before
+    it is timed (``ops/compare.hold``: raises if it disagrees); these
+    launches do not count."""
+    from ..ops import uncounted
+    from ..ops.compare import hold
+
+    with uncounted(), torch.no_grad():
+        hold(name, shape, run(), plain(), why, **bounds)
+
+
+def _attention_row(name, shape, run, b, t, h, d, iters=ITERS):
+    """Time a bf16 attention call at (b, t, h, d); its bound counts q, k, v
+    and the output once and the products at the bf16 peak, and beside it
+    the exp2s (ops/roofline)."""
+    from ..ops.roofline import attention_work, bound
+
+    flops, nbytes = attention_work(b, t, h, d, 2)
+    lim = bound(flops, nbytes)
+    ms = _time_ms(run, iters)
+    _line(name, shape, ms, flops, lim, exp2=b * h * t * t)
+    return {"ms": ms, "tflops": flops / ms / 1e9, "bound_ms": lim[0], "bound_by": lim[1]}
+
+
+ATTENTION_WHY = "bf16 P, bf16 output"
+
+
+def bench_global() -> dict:
+    """The global attention at (1, 66000, 16, 64) bf16: ``flash_attention``
+    (row 6, (B, T, H, D) operands) and ``flash_attention_packed`` (row 1, the
+    packed qkv with q pre-scaled), each held against its plain version
+    first, beside one SDPA call."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the global attention probe needs an NVIDIA GPU")
+    from ..ops.compare import ATTENTION
+    from ..ops.flash_attention import blockwise_attention, flash_attention
+    from ..ops.packed_attention import flash_attention_packed, packed_attention_plain
+
+    b, t, h, d = 1, GLOBAL_T, HEADS, HEAD_DIM
+    shape = f"({b}, {t}, {h}, {d})"
+    qkv = _randn(b, t, 3, h, d)
+    q, k, v = qkv.unbind(2)
+    packed = qkv.clone()
+    packed[:, :, 0] *= d**-0.5 * LOG2_E  # the producer's scale, as the main path hands it
+    packed = packed.reshape(b, t, 3 * h * d)
+    _held("flash_attention", shape, lambda: flash_attention(q, k, v),
+          lambda: blockwise_attention(q, k, v), ATTENTION_WHY, **ATTENTION)
+    _held("flash_attention_packed", shape, lambda: flash_attention_packed(packed, h),
+          lambda: packed_attention_plain(packed, h), ATTENTION_WHY, **ATTENTION)
+    res = {"flash_attention": _attention_row("flash_attention (row 6)", shape,
+                                             lambda: flash_attention(q, k, v), b, t, h, d),
+           "flash_attention_packed": _attention_row("flash_attention_packed (row 1)", shape,
+                                                    lambda: flash_attention_packed(packed, h),
+                                                    b, t, h, d),
+           "sdpa": _attention_row("SDPA", shape, _sdpa(q, k, v), b, t, h, d)}
+    return res
+
+
+def bench_frame() -> dict:
+    """The frame attention at (100, 660) and (100, 643) x (16, 64) bf16:
+    ``attention_single_pass`` (row 7), held against its plain version
+    (``blockwise_attention``, fp32) first, beside one SDPA call and that
+    plain version."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the frame attention probe needs an NVIDIA GPU")
+    from ..ops.compare import ATTENTION
+    from ..ops.flash_attention import attention_single_pass, blockwise_attention
+
+    res = {}
+    for b, t in FRAME_SHAPES:
+        h, d = HEADS, HEAD_DIM
+        shape = f"({b}, {t}, {h}, {d})"
+        q, k, v = _randn(b, t, 3, h, d).unbind(2)
+        _held("attention_single_pass", shape, lambda: attention_single_pass(q, k, v),
+              lambda: blockwise_attention(q, k, v), ATTENTION_WHY, **ATTENTION)
+        res[shape] = {
+            "attention_single_pass": _attention_row("attention_single_pass (row 7)", shape,
+                                                    lambda: attention_single_pass(q, k, v),
+                                                    b, t, h, d, iters=10),
+            "sdpa": _attention_row("SDPA", shape, _sdpa(q, k, v), b, t, h, d, iters=10),
+            "plain": _attention_row("plain (blockwise_attention)", shape,
+                                    lambda: blockwise_attention(q, k, v), b, t, h, d)}
+    return res
+
+
+def bench_packed() -> dict:
+    """The packed-qkv kernels at the JAX probe's shapes, bf16, q pre-scaled:
+    ``attention_single_pass_packed`` (row 2) at (100, 660, 3072) and
+    ``flash_attention_packed`` (row 1) at (1, 66000, 3072), each held against
+    its plain version first, beside one SDPA call on the same views."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the packed attention probe needs an NVIDIA GPU")
+    from ..ops.compare import ATTENTION
+    from ..ops.packed_attention import (
+        attention_single_pass_packed, flash_attention_packed, packed_attention_plain)
+
+    res = {}
+    h, d = HEADS, HEAD_DIM
+    for (b, t), name, fn, iters in (((100, 660), "attention_single_pass_packed",
+                                     attention_single_pass_packed, 10),
+                                    ((1, GLOBAL_T), "flash_attention_packed",
+                                     flash_attention_packed, ITERS)):
+        qkv = _randn(b, t, 3 * h * d)
+        shape = f"({b}, {t}, {3 * h * d})"
+        q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
+        _held(name, shape, lambda: fn(qkv, h), lambda: packed_attention_plain(qkv, h),
+              ATTENTION_WHY, **ATTENTION)
+        row = "row 2" if b > 1 else "row 1"
+        res[shape] = {
+            "kernel": _attention_row(f"{name} ({row})", shape, lambda: fn(qkv, h), b, t, h, d,
+                                     iters=iters),
+            # the kernel's q is pre-scaled to base 2: softmax_2(x) = softmax(x ln 2)
+            "sdpa": _attention_row("SDPA", shape, _sdpa(q, k, v, scale=0.6931471805599453), b, t,
+                                   h, d, iters=iters)}
+    return res
+
+
+def _decoder_block(c: int = 1024, heads: int = HEADS, dtype=torch.bfloat16):
+    """A Pi3 decoder block (qk-norm, LayerScale 0.01) with the port's random
+    block init of seed 0, on the card."""
+    from ..models.convert import _blocks, _init_block_stack
+    from ..models.layers import Block
+
+    sd = {}
+    _blocks(sd, "b", _init_block_stack(0, 1, c, 4, True, 0.01, heads), [0])
+    blk = Block(c, heads, 4, qk_norm=True, layerscale=True, device="meta")
+    blk.load_state_dict({k[len("b.0."):]: v for k, v in sd.items()}, strict=True, assign=True)
+    return blk.to(device="cuda", dtype=dtype).eval()
+
+
+def bench_block() -> dict:
+    """One Pi3 decoder block (LayerNorm, qkv, the producer's qk-norm and RoPE,
+    the packed kernel, the projection, the block MLP) at the global shape (1,
+    64300, 1024) and the frame shape (100, 643, 1024), bf16, against its packed
+    kernel alone on the same shape: the difference is the rest of the block
+    (the producer, the projections and the MLP kernel among it)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the block probe needs an NVIDIA GPU")
+    from ..ops.packed_attention import attention_single_pass_packed, flash_attention_packed
+    from ..ops.rope import make_patch_positions, rope_tables
+
+    n, hw, c, h, d = CHUNK_FRAMES, 643, 1024, HEADS, HEAD_DIM
+    blk = _decoder_block(c, h)
+    cos, sin = rope_tables(make_patch_positions(n, 22, 29, num_special=5, offset=1, device="cuda"),
+                           d)
+    res = {}
+    for name, (b, t), rope, kernel in (
+            ("global", (1, n * hw), (cos.reshape(1, n * hw, d), sin.reshape(1, n * hw, d)),
+             flash_attention_packed),
+            ("frame", (n, hw), (cos, sin), attention_single_pass_packed)):
+        x = _randn(b, t, c)
+        qkv = _randn(b, t, 3 * c)
+        shape = f"({b}, {t}, {c})"
+        with torch.no_grad():
+            ms = _time_ms(lambda: blk(x, rope=rope))
+        kms = _time_ms(lambda: kernel(qkv, h))
+        flops = 4.0 * b * h * t * t * d
+        print(f"{name} block() full {shape:22s} {ms:9.3f} ms; packed kernel alone {kms:9.3f} ms "
+              f"({flops / kms / 1e9:.1f} TFLOP/s); non-kernel overhead per {name} block "
+              f"{ms - kms:.3f} ms", flush=True)
+        res[name] = {"block_ms": ms, "kernel_ms": kms, "overhead_ms": ms - kms}
+    return res
+
+
+_PI3 = {}  # the random full-width Pi3 of a process, built once (bf16 on the card)
+
+
+def _pi3(merge: int = 1):
+    """The full-width Pi3 with random weights from seed 0 (or the
+    ``PI3_WEIGHTS`` checkpoint) in bf16 on the card, built once a process;
+    ``merge`` sets its global kv-merge for the calls that follow."""
+    import dataclasses
+    import os
+
+    from ..models.convert import build_pi3, init_pi3_params, load_pi3_checkpoint, pi3_state_from_jax
+    from ..models.pi3 import Pi3Config
+
+    if "model" not in _PI3:
+        path = os.environ.get("PI3_WEIGHTS")
+        if path:
+            tree, cfg = load_pi3_checkpoint(path)
+            cfg = cfg or Pi3Config()
+        else:
+            cfg = Pi3Config()
+            tree = init_pi3_params(0, cfg)
+        _PI3["model"] = build_pi3(cfg, pi3_state_from_jax(tree), torch.device("cuda"),
+                                  torch.bfloat16)
+        _PI3["weights"] = "real" if path else "RANDOM"
+    model = _PI3["model"]
+    model.cfg = dataclasses.replace(model.cfg, global_kv_merge=merge)
+    return model
+
+
+def _chunk_images(n=CHUNK_FRAMES, h=CHUNK_H, w=CHUNK_W):
+    import numpy as np
+
+    return torch.from_numpy(np.random.default_rng(0).uniform(size=(1, n, 3, h, w))
+                            .astype(np.float32)).cuda()
+
+
+def bench_stages() -> dict:
+    """The full-width bf16 forward at 100 frames of 308x406, stage by stage on
+    the card-resident inputs of each: the encoder (24 blocks), the decoder (36
+    blocks, frame and global), one head decoder (5 blocks) and the dense heads
+    (fp32 linears, the camera head's SVD, the world points); their sum as
+    frames/s."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the stages probe needs an NVIDIA GPU")
+    from ..ops.rope import make_patch_positions
+
+    model = _pi3()
+    cfg = model.cfg
+    n, h, w = CHUNK_FRAMES, CHUNK_H, CHUNK_W
+    ph, pw = h // 14, w // 14
+    reg = cfg.num_register_tokens
+    imgs = _chunk_images()[0]
+    hidden = _randn(n, ph * pw, cfg.dec_embed_dim)
+    hidden_cat = _randn(n, ph * pw + reg, 2 * cfg.dec_embed_dim)
+    pos = make_patch_positions(n, ph, pw, num_special=reg, offset=1, device="cuda")
+    cam = _randn(n, ph * pw + reg, cfg.camera_dim)
+    stages = {
+        "encoder (24 blocks, 100 x 643 tokens)": lambda: model.encoder(imgs)["patch_tokens"],
+        "decoder (36 blocks, frame / global)": lambda: model._decode(hidden, 1, n, (ph, pw)),
+        "one head decoder (5 blocks)": lambda: model._head_decoder_forward(
+            model.point_decoder, hidden_cat, pos),
+        "dense heads (fp32 linears, SVD, points)": lambda: model._dense_heads(
+            hidden_cat[..., :cfg.head_dim], hidden_cat[..., :cfg.head_dim], cam, 1, n, h, w),
+    }
+    res = {}
+    with torch.no_grad():
+        for name, run in stages.items():
+            res[name] = _time_ms(run)
+            print(f"{name:48s} {res[name]:9.3f} ms", flush=True)
+    heads = list(res)
+    total = res[heads[0]] + res[heads[1]] + 3 * res[heads[2]] + res[heads[3]]
+    print(f"sum of stages: {total:.1f} ms -> {n / total * 1e3:.2f} frames/s (encoder, decoder, "
+          f"3 x head decoder, dense heads)", flush=True)
+    res["sum_ms"] = total
+    return res
+
+
+def bench_mlp_sweep() -> dict:
+    """Each MLP entry (``block_mlp``, ``mlp``) at every shape and dtype the
+    paths send it (MLP_SWEEP; the GEMMs take no tile settings at run time, so
+    the sweep runs over M), held against its plain version first, then timed
+    beside that plain version and the two bare cuBLAS products of its dtype
+    (TF32 off), with its bound (ops/roofline)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the MLP sweep needs an NVIDIA GPU")
+    import torch.nn.functional as F
+
+    from ..ops.block_mlp import block_mlp, block_mlp_plain
+    from ..ops.compare import FP32, MLP, block_mlp_bounds
+    from ..ops.mlp import mlp, mlp_plain
+    from ..ops.roofline import PEAK_3XTF32, PEAK_BF16, bound, mlp_work
+
+    res = {}
+    for lead, c, hidden, entry, dtypes in MLP_SWEEP:
+        for dtype in (getattr(torch, name) for name in dtypes):
+            x = _randn(*lead, c, scale=1.0, dtype=dtype)
+            w1, b1 = _randn(hidden, c, scale=0.02, dtype=dtype, seed=1), _randn(hidden, dtype=dtype)
+            w2, b2 = _randn(c, hidden, scale=0.02, dtype=dtype, seed=2), _randn(c, dtype=dtype)
+            hmid = _randn(*lead, hidden, dtype=dtype)
+            norm = (torch.ones(c, device="cuda"), torch.zeros(c, device="cuda"))
+            ls = torch.full((c,), 0.9, device="cuda")
+            flops, nbytes = mlp_work(x, w1)
+            lim = bound(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_3XTF32)
+            shape = f"({lead[0]}, {lead[1]}, {c})/{hidden} {str(dtype)[6:]}"
+            if entry == "block_mlp":
+                run = lambda: block_mlp(x, *norm, w1, b1, w2, b2, ls=ls)  # noqa: E731
+                plain = lambda: block_mlp_plain(x, *norm, w1, b1, w2, b2, ls=ls)  # noqa: E731
+                with torch.no_grad():
+                    bounds = block_mlp_bounds(x, plain())
+            else:
+                run = lambda: mlp(x, w1, b1, w2, b2)  # noqa: E731
+                plain = lambda: mlp_plain(x, w1, b1, w2, b2)  # noqa: E731
+                bounds = FP32 if dtype == torch.float32 else MLP
+            why = "3xTF32 products" if dtype == torch.float32 else "bf16 fc outputs, bf16 out"
+            _held(entry, shape, run, plain, why, **bounds)
+            runs = {entry: run, f"{entry} plain": plain,
+                    "2 x F.linear (cuBLAS, no bias)": lambda: (F.linear(x, w1), F.linear(hmid, w2))}
+            res[shape] = {}
+            m = x.numel() // c
+            for name, fn in runs.items():
+                ms = _time_ms(fn, MLP_ITERS if m < 10000 else ITERS)
+                res[shape][name] = ms
+                _line(name, shape, ms, flops, lim if name == entry else None)
+            del x, hmid, w1, w2
+    return res
+
+
+def _forward_ms(model, imgs, iters: int = ITERS) -> float:
+    with torch.no_grad():
+        return _time_ms(lambda: model(imgs), iters)
+
+
+def bench_forward() -> dict:
+    """The full-width bf16 forward at (1, 100, 3, 308, 406); ``PI3_KV_MERGE=m``
+    times the kv-merge global attention at the same shape (speed only; the
+    ``kv-accuracy`` probe measures what it changes)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the forward probe needs an NVIDIA GPU")
+    import os
+
+    merge = int(os.environ.get("PI3_KV_MERGE", "1"))
+    ms = _forward_ms(_pi3(merge), _chunk_images())
+    _pi3(1)
+    tag = f" (kv_merge={merge})" if merge > 1 else ""
+    print(f"pi3 forward full{tag}: {ms:.1f} ms = {CHUNK_FRAMES / ms * 1e3:.2f} frames/s",
+          flush=True)
+    return {"ms": ms, "fps": CHUNK_FRAMES / ms * 1e3, "merge": merge}
+
+
+def bench_refine() -> dict:
+    """The chunk step (forward, masks, intrinsics, keypoint sampling) at 100
+    frames of 308x406 and 400 keypoints, without and with the ZNCC
+    observation refinement (fan 10, patch radius 3, search radius 4, min
+    ZNCC 0.5): ms a chunk and frames/s."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the refine probe needs an NVIDIA GPU")
+    import numpy as np
+
+    from ..slam.chunk_creator import _fan_table, make_chunk_step
+
+    model = _pi3()
+    rng = np.random.default_rng(0)
+    n = CHUNK_FRAMES
+    imgs = (_chunk_images()[0] * 255).to(torch.uint8)
+    kps = torch.from_numpy(np.stack([rng.uniform(8, 398, (n, 400)), rng.uniform(8, 300, (n, 400))],
+                                    axis=-1).astype(np.float32)).cuda()
+    res = {}
+    for refine, label in ((None, "chunk step (no refinement)"),
+                          ((10, 3, 4, 0.5), "chunk step + ZNCC observation refinement")):
+        step = make_chunk_step(model, 0.1, 0.03, True, refine_obs=refine)
+        cand = None if refine is None else torch.from_numpy(_fan_table(n, n, refine[0])).cuda()
+        with torch.no_grad():
+            ms = _time_ms(lambda: step(imgs, kps, cand))
+        res[label] = ms
+        print(f"{label:48s} {ms:9.1f} ms = {n / ms * 1e3:.2f} frames/s", flush=True)
+    return res
+
+
+def bench_kv_accuracy() -> dict:
+    """The kv-merge global attention against exact attention on the same
+    weights (``PI3_WEIGHTS=<converted npz>`` for a real checkpoint; random
+    weights check the plumbing only) over ``PI3_KV_FRAMES`` (20) frames of
+    154x210 at merge ``PI3_KV_MERGE`` (2): the largest pose angle difference,
+    the camera-centre RMSE (and its share of the trajectory span) and the
+    point RMSE."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the kv-accuracy probe needs an NVIDIA GPU")
+    import os
+
+    import numpy as np
+
+    n = int(os.environ.get("PI3_KV_FRAMES", "20"))
+    merge = int(os.environ.get("PI3_KV_MERGE", "2"))
+    imgs = _chunk_images(n, 154, 210)
+    outs = {}
+    for m in (1, merge):
+        with torch.no_grad():
+            outs[m] = {k: v.float().cpu().numpy() for k, v in _pi3(m)(imgs).items()}
+    _pi3(1)
+    a, b = outs[1], outs[merge]
+    ra, rb = a["camera_poses"][0, :, :3, :3], b["camera_poses"][0, :, :3, :3]
+    tr = np.clip((np.einsum("nij,nij->n", ra, rb) - 1) / 2, -1, 1)
+    ang = float(np.degrees(np.arccos(tr)).max())
+    ca, cb = a["camera_poses"][0, :, :3, 3], b["camera_poses"][0, :, :3, 3]
+    span = float(np.linalg.norm(ca.max(0) - ca.min(0)))
+    c_rmse = float(np.sqrt(((ca - cb) ** 2).mean()))
+    p_rmse = float(np.sqrt(((a["points"] - b["points"]) ** 2).mean()))
+    print(f"kv-merge accuracy vs exact ({_PI3['weights']} weights, {n} frames, merge {merge}): "
+          f"max pose angle diff {ang:.3f} deg, center RMSE {c_rmse:.4g} "
+          f"({c_rmse / max(span, 1e-9):.2%} of trajectory span), point RMSE {p_rmse:.4g}",
+          flush=True)
+    return {"max_angle_deg": ang, "center_rmse": c_rmse, "span": span, "point_rmse": p_rmse}
+
+
+# the JAX tool's default set, in its order
+ALL = ("global", "frame", "block", "packed", "stages", "mlp", "forward")
+
+
+def bench_all() -> dict:
+    return {name: PROBES[name]() for name in ALL}
+
+
+PROBES = {"all": bench_all, "global": bench_global, "frame": bench_frame, "block": bench_block,
+          "packed": bench_packed, "stages": bench_stages, "mlp": bench_mlp,
+          "mlp-sweep": bench_mlp_sweep, "sol": bench_sol, "forward": bench_forward,
+          "refine": bench_refine, "kv-accuracy": bench_kv_accuracy, "tf32": bench_tf32,
+          "tiles": bench_tiles, "tsdf": bench_tsdf}
 
 
 def probe(argv=None) -> dict:
-    """Parse ``argv`` and run the named probe on the GPU; returns its
-    results (:func:`bench_sol`'s or :func:`bench_mlp`'s). Exits with code 2
-    on a probe that is not ported."""
+    """Parse ``argv`` and run the named probe (``all`` by default: the JAX
+    tool's default set, ALL) on the GPU; returns its results. Exits with
+    code 2 on a name that is not a probe."""
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("probe", nargs="?", default="sol")
+    parser.add_argument("probe", nargs="?", default="all")
     args = parser.parse_args(argv)
     if args.probe not in PROBES:
-        parser.error(f"probe {args.probe!r} is not ported (ROADMAP.md Queue 2, item 9); "
-                     f"only {', '.join(map(repr, PROBES))} are")
+        parser.error(f"unknown probe {args.probe!r}; the probes are "
+                     f"{', '.join(map(repr, PROBES))}")
     from ..device import select_device
 
     select_device("cuda")

@@ -191,13 +191,11 @@ def test_cli_converts_a_torch_file(tmp_path, model):
 
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys):
     """Exit 2, naming why: a path that is not a file (the JAX tool would
-    resolve it as a hub id), a MoGe v1 checkpoint."""
-    v1 = tmp_path / "v1.pt"
-    torch.save({"model": {"w": torch.zeros(1)},
-                "model_config": {"encoder": "dinov2_vitl14", "intermediate_layers": 4}}, v1)
+    resolve it as a hub id). A MoGe v1 checkpoint converts
+    (tests/test_torch_moge_v1.py)."""
     cases = [(["--model", "pi3", "--input", "yyfz233/Pi3"], "local checkpoint files only"),
-             (["--model", "moge", "--input", str(v1)],
-              "ROADMAP.md Queue 1: off the main path, MoGe v1")]
+             (["--model", "moge", "--input", str(tmp_path / "missing.pt")],
+              "local checkpoint files only")]
     for argv, message in cases:
         with pytest.raises(SystemExit) as e:
             tool.main(argv + ["--output", str(tmp_path / "out.npz")])

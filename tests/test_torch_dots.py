@@ -174,14 +174,16 @@ def test_wrapper_checks_shapes():
 
 
 def test_probe_needs_a_gpu_and_names_its_unported_siblings():
+    """The sol probe needs the card (its siblings: tests/test_torch_perf_lab.py);
+    a name that is no probe exits 2 naming the probes, ``global`` among them."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the probe runs")
     with pytest.raises(RuntimeError, match="GPU"):
         perf_lab.bench_sol()
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-m", "pi3_slam_tpu_torch.tools.perf_lab", "global"],
+    proc = subprocess.run([sys.executable, "-m", "pi3_slam_tpu_torch.tools.perf_lab", "globl"],
                           capture_output=True, text=True, cwd=REPO, env=env, timeout=120)
-    assert proc.returncode == 2 and "ROADMAP.md Queue 2" in proc.stderr
+    assert proc.returncode == 2 and "'global'" in proc.stderr and "'sol'" in proc.stderr
     proc = subprocess.run([sys.executable, "-m", "pi3_slam_tpu_torch.tools.perf_lab", "sol"],
                           capture_output=True, text=True, cwd=REPO, env=env, timeout=120)
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr

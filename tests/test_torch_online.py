@@ -21,12 +21,18 @@ both packages; the port converts it with ``pi3_state_from_jax``), over the
 * Drive modes within 1e-5 of each other (the JAX test's bound), chunk
   counts, the post-append and consumer error paths, the CLI, video input
   and timestamps.
+* The CLI's viewer and debug flags on the same quick system: the JAX CLI's
+  ``[viz]`` lines, its debug-projection frames and titles (matplotlib's
+  figures recorded), ``--keep-viz-open`` until Ctrl-C.
 """
 
+import contextlib
 import glob
+import io
 import os
 import sys
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -38,6 +44,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import pi3_slam_online as jax_cli  # noqa: E402
 from test_pi3_model import TINY, make_tiny_params  # noqa: E402
 from test_system_ape import write_synthetic_chunks  # noqa: E402
+from test_torch_viz import _recording_figures  # noqa: E402
 
 from pi3_slam_tpu.data import image_io as jax_io  # noqa: E402
 from pi3_slam_tpu.data.datasets import ChunkDataset as JaxChunkDataset  # noqa: E402
@@ -47,6 +54,7 @@ from pi3_slam_tpu.slam import online as jax_online  # noqa: E402
 from pi3_slam_tpu.utils.timestamps import (  # noqa: E402
     extract_timestamps_from_paths as jax_timestamps,
 )
+from pi3_slam_tpu.viz import visualizer as jax_viz  # noqa: E402
 
 from pi3_slam_tpu_torch import pi3_slam_online as cli  # noqa: E402
 from pi3_slam_tpu_torch.data import image_io  # noqa: E402
@@ -56,6 +64,7 @@ from pi3_slam_tpu_torch.models.pi3 import Pi3Config  # noqa: E402
 from pi3_slam_tpu_torch.slam import online  # noqa: E402
 from pi3_slam_tpu_torch.slam.config import OnlineConfig  # noqa: E402
 from pi3_slam_tpu_torch.utils.timestamps import extract_timestamps_from_paths  # noqa: E402
+from pi3_slam_tpu_torch.viz import visualizer as viz  # noqa: E402
 
 PORT_TINY = Pi3Config.from_json(TINY.to_json())
 # fp32 forwards of the same weights in two frameworks
@@ -223,6 +232,102 @@ def test_consume_side_matches_jax_on_the_quick_system(tmp_path, rng, ckpt):
         assert a["positions"].shape == (len(gt), 3)
 
 
+def _served(cls, chunks_dir, H, W, with_ready):
+    """``cls.__init__`` followed by ``_stub_dispatch``: the synthetic chunks
+    in place of the forward."""
+    init = cls.__init__
+
+    def __init__(self, *a, **kw):
+        init(self, *a, **kw)
+        _stub_dispatch(self, chunks_dir, H, W, with_ready=with_ready)
+    return __init__
+
+
+@pytest.fixture(scope="module")
+def viewer_run(tmp_path_factory, ckpt):
+    """Both online CLIs with --visualize --save-debug-projections over the
+    quick synthetic system of the consume-side test (the same chunks and
+    settings, so the JAX CLI reuses its compilations), served in place of
+    the forward, so the reconstructions are well posed: their stdout lines
+    and debug figures (matplotlib's figures recorded)."""
+    tmp = tmp_path_factory.mktemp("viz_cli")
+    W, H = 644, 476  # multiples of 14: the loader's resize is the identity
+    n = len(write_synthetic_chunks(tmp, np.random.default_rng(0), width=W, height=H))
+    frames = tmp / "frames"
+    frames.mkdir()
+    im = Image.fromarray(np.full((H, W, 3), 127, np.uint8))
+    for i in range(n):
+        im.save(frames / f"frame_{i:04d}.png")
+    argv = ["--images", str(frames), "--model-path", ckpt, "--chunk-length", "6", "--overlap",
+            "2", "--max-kp", "120", "--pixel-limit", str(W * H), "--device", "cpu",
+            "--compute-dtype", "float32", "--no-metric-depth", "--tum-integer-timestamps",
+            "--max-observations-per-track", "8"]
+    runs = {}
+    made = []
+
+    class Recorded(jax_viz.OnlineVisualizer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    for name, main in (("jax", jax_cli.main), ("port", cli.main)):
+        out = io.StringIO()
+        with pytest.MonkeyPatch.context() as mp, _recording_figures() as figures, \
+                contextlib.redirect_stdout(out):
+            mp.setattr(jax_viz, "OnlineVisualizer", Recorded)
+            mp.setattr(jax_viz, "_HAS_VISER", False)
+            mp.setattr(viz, "_HAS_VISER", False)
+            mp.setattr(online.Pi3SLAMOnline, "__init__",
+                       _served(online.Pi3SLAMOnline, tmp / "chunks", H, W, True))
+            mp.setattr(jax_online.Pi3SLAMOnline, "__init__",
+                       _served(jax_online.Pi3SLAMOnline, tmp / "chunks", H, W, False))
+            assert main(argv + ["--visualize", "--save-debug-projections", "--output",
+                                str(tmp / name)]) == 0
+            for vis in made:  # the JAX CLI returns without flushing its viewer
+                vis.flush()
+                vis.close()
+        runs[name] = {"lines": out.getvalue().splitlines(), "figures": figures,
+                      "out": tmp / name}
+    runs["argv"], runs["served"] = argv, (tmp / "chunks", H, W)
+    return runs
+
+
+def _viz_lines(lines):
+    return [line for line in lines if line.startswith("[viz]")]
+
+
+@pytest.mark.parametrize("flag", ["--visualize", "--keep-viz-open", "--save-debug-projections"])
+def test_cli_runs_the_viewer_flags(viewer_run, flag, tmp_path, monkeypatch, capsys):
+    """--visualize: the JAX CLI's [viz] lines, one a chunk. --keep-viz-open:
+    the CLI waits until Ctrl-C, then writes its outputs. --save-debug-projections:
+    one GIF a chunk, as many frames as the chunk, the JAX CLI's titles."""
+    port, jax = viewer_run["port"], viewer_run["jax"]
+    if flag == "--visualize":
+        assert _viz_lines(port["lines"]) == _viz_lines(jax["lines"])
+        assert sum(line.startswith("[viz] chunk") for line in port["lines"]) == 4
+    elif flag == "--keep-viz-open":
+        def ctrl_c(seconds):
+            raise KeyboardInterrupt
+
+        monkeypatch.setattr(viz, "_HAS_VISER", False)
+        monkeypatch.setattr(cli, "time", types.SimpleNamespace(sleep=ctrl_c))
+        monkeypatch.setattr(online.Pi3SLAMOnline, "__init__",
+                            _served(online.Pi3SLAMOnline, *viewer_run["served"], True))
+        assert cli.main(viewer_run["argv"] + ["--visualize", "--keep-viz-open", "--output",
+                                            str(tmp_path / "k")]) == 0
+        out = capsys.readouterr().out
+        assert "visualization server on port 8080; Ctrl-C to exit" in out
+        assert os.path.exists(tmp_path / "k" / "trajectory_tum.txt")
+    else:
+        gifs = sorted(os.listdir(port["out"] / "debug_projections"))
+        assert gifs == sorted(os.listdir(jax["out"] / "debug_projections")) == [
+            f"chunk_{i:06d}.gif" for i in range(4)]
+        titles = [[c[1][0] for c in fig if c[0] == "set_title"] for fig in port["figures"]]
+        assert [len(t) for t in titles] == [1] * (6 + 6 + 6 + 2)  # a figure a frame
+        assert titles == [[c[1][0] for c in fig if c[0] == "set_title"]
+                          for fig in jax["figures"]]
+
+
 def _threads_named(prefix):
     return [t for t in threading.enumerate() if t.name.startswith(prefix) and t.is_alive()]
 
@@ -316,12 +421,18 @@ def test_consumer_error_reaches_the_caller(image_dir, ckpt, tmp_path):
     assert not _threads_named("sfm-")
 
 
-def test_sfm_backend_and_unported_parts_are_refused(ckpt):
+def test_sfm_backend_and_unported_parts_are_refused(ckpt, tmp_path, capsys):
+    """A bad sfm_backend and the multi-device parts are refused; the viewer
+    is made (console lines without viser, as the JAX class does)."""
     with pytest.raises(ValueError, match="sfm_backend"):
         online.Pi3SLAMOnline(OnlineConfig(device="cpu", sfm_backend="tpu"))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1: off the main path, viz/visualizer.py"):
-        online.Pi3SLAMOnline(OnlineConfig(device="cpu", visualize=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: multi-device"):
+        _port(tmp_path, ckpt, data_parallel_chunks=2)
+    slam = _port(tmp_path, ckpt, visualize=True, viz_port=8123)
+    assert slam.visualizer is not None
+    if not viz._HAS_VISER:
+        assert "console visualizer active (port 8123 unused)" in capsys.readouterr().out
+    slam.visualizer.close()
 
 
 # ----- the CLI -----
@@ -341,9 +452,6 @@ def test_cli_has_every_jax_option_with_its_default():
 
 
 @pytest.mark.parametrize("flags,entry", [
-    (["--visualize"], "online viewer"),
-    (["--keep-viz-open"], "online viewer"),
-    (["--save-debug-projections"], "render_debug_projections"),
     (["--data-parallel-chunks", "2"], "multi-device"),
     (["--tensor-parallel", "2"], "multi-device"),
     (["--sequence-parallel", "2"], "multi-device"),

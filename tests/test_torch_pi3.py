@@ -111,7 +111,10 @@ def test_port_imports_and_runs_without_jax():
     imports every module (the SfM, reconstructor, localization, telemetry and
     probe modules included), runs a tiny forward, a tiny bundle adjustment, a
     Sim3 fit, the APE scorer, the appearance and localization solvers, a
-    tiny TSDF fusion with its raycast, mesh file and metrics, and finds neither 'jax' nor 'pi3_slam_tpu' in sys.modules."""
+    tiny TSDF fusion with its raycast, mesh file and metrics, the viewer, the
+    debug projections' numbers, a tiny MoGe v1 through its converter, the
+    probe table and the trace reader, and finds neither 'jax' nor
+    'pi3_slam_tpu' in sys.modules."""
     code = textwrap.dedent(
         """
         import sys, pkgutil, importlib, torch
@@ -182,6 +185,44 @@ def test_port_imports_and_runs_without_jax():
         write_mesh_ply(verts, faces, mesh_path)
         assert len(read_mesh_ply(mesh_path)["faces"]) == len(faces)
         assert np.isfinite(evaluate_mesh(verts, faces, verts, n_samples=100).chamfer)
+        # the viewer (console lines), the debug projections, MoGe v1 and its
+        # converter, the probe table, the trace reader
+        import contextlib, io, json, os, tempfile, types
+        from pi3_slam_tpu_torch.viz.visualizer import OnlineVisualizer
+        vis = OnlineVisualizer(threaded=False)
+        vis.update(types.SimpleNamespace(points=np.zeros((3, 3)), colors=np.zeros((3, 3)),
+                                         track_valid=np.ones(3), centers=np.zeros((2, 3)),
+                                         rotations=np.tile(np.eye(3), (2, 1, 1))))
+        assert vis.state.chunk_count == 1
+        from pi3_slam_tpu_torch.sfm.reconstruction import ChunkReconstruction
+        from pi3_slam_tpu_torch.sfm.serialization import debug_projection_data
+        rec = ChunkReconstruction(frame_names=["a", "b"], rotations=eye, centers=np.zeros((2, 3)),
+            intrinsics=np.tile([50.0, 50, 16, 12], (2, 1)), points=np.array([[0.0, 0, 4]]),
+            colors=np.zeros((1, 3)), track_frame=np.zeros(1, int), track_kp=np.zeros(1, int),
+            track_uv=np.full((1, 2), 16.0), track_valid=np.ones(1), obs_frame=np.array([[0, 1]]),
+            obs_uv=np.array([[[16.0, 12], [17, 12]]]), obs_valid=np.ones((1, 2)), image_width=32,
+            image_height=24)
+        assert [float(d["errors"][0]) for d in debug_projection_data(rec, 2, device="cpu")] == [0.0, 1.0]
+        from pi3_slam_tpu_torch.models.convert import (build_moge_v1, convert_moge_v1_state_dict,
+            moge_v1_state_from_jax, random_moge_v1_state_dict)
+        from pi3_slam_tpu_torch.models.moge_v1 import MoGeV1Config, moge_v1_infer
+        mc = {"encoder": "dinov2_vits14", "dim_proj": 32, "dim_upsample": [32, 32, 32],
+              "intermediate_layers": [0, 1]}
+        cfg = MoGeV1Config.from_model_config(mc)
+        tree = convert_moge_v1_state_dict(random_moge_v1_state_dict(cfg, 0), mc)
+        assert MoGeV1Config.from_model_config(json.loads(tree["_v1_config_json"])) == cfg
+        v1 = build_moge_v1(cfg, moge_v1_state_from_jax(tree), torch.device("cpu"))
+        with torch.no_grad():
+            assert moge_v1_infer(v1, torch.rand(3, 28, 42), 6)["depth"].shape == (28, 42)
+        from pi3_slam_tpu_torch.tools import perf_lab, trace_summary
+        assert "kv-accuracy" in perf_lab.PROBES and perf_lab.ALL[0] == "global"
+        trace = os.path.join(tempfile.mkdtemp(), "chunk_trace.json")
+        with open(trace, "w") as f:
+            json.dump({"traceEvents": [{"ph": "X", "cat": "kernel", "name": "k", "ts": 0,
+                                        "dur": 5.0}]}, f)
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert trace_summary.main([os.path.dirname(trace)]) == 0
+        assert trace_summary.summarize(trace)["device_total_us"] == 5.0
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert "pi3_slam_tpu" not in sys.modules, sorted(
             m for m in sys.modules if m.split(".")[0] == "pi3_slam_tpu")
