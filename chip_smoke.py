@@ -76,19 +76,19 @@ Phases, each of which raises (exit code 1) on failure:
 6. reconstruct: (a) the port's reconstructor CLI on phase 4's metric-depth
    chunks, images to trajectory (130 finite poses, both PLY files); (b)
    eval-scale synthetic chunks (420 frames: five chunks of 100 and a 20-frame
-   tail, 400 keypoints, overlap 20, confidence outliers; the generator and
-   scene of tests/test_system_ape.py, copied) reconstructed on the card at
-   the evaluation settings (10 BA and at most 50 refine iterations): APE
-   RMSE < 0.07 m, 5 alignments with > 2000 common tracks each, 10 BA
-   iterations per chunk, per-chunk reconstruction, BA and alignment
-   seconds; then chunk 0's BA from one start on the card and on the host
-   CPU, where the damping still fixes the solution (one step: rotations
+   tail, 400 keypoints, overlap 20, confidence outliers; the scene of
+   tests/test_system_ape.py from pi3_slam_tpu_torch/tools/synthetic.py)
+   reconstructed on the card at the evaluation settings (10 BA and at most 50
+   refine iterations): APE RMSE < 0.07 m, 5 alignments with > 2000 common
+   tracks each, 10 BA iterations per chunk, per-chunk reconstruction, BA and
+   alignment seconds; then chunk 0's BA from one start on the card and on the
+   host CPU, where the damping still fixes the solution (one step: rotations
    within 1e-5; four steps: centers within 5e-5 after one similarity, costs
    within 1e-4 relative), each bound shown to reject the host's result with
-   1% of the tracks removed; and the first two chunks end
-   to end on both, every pose within 2e-2 m after one similarity, a second
-   card run bit-identical to the first (the BA sums in a fixed order), and a
-   run without BA printed beside them.
+   1% of the tracks removed; and the first two chunks end to end on both,
+   every pose within 2e-2 m after one similarity, a second card run
+   bit-identical to the first (the BA sums in a fixed order), and a run
+   without BA printed beside them.
 7. online: (a) the port's online CLI in process (python -m
    pi3_slam_tpu_torch.pi3_slam_online) over phase 4's 130 frames at the
    7-Scenes online settings (chunks of 100, overlap 20, 400 keypoints,
@@ -96,7 +96,7 @@ Phases, each of which raises (exit code 1) on failure:
    (the 50-frame tail padded to 100), both TUM files with 130 finite poses
    stamped 0-129, final_points.ply, the queue status (2 consumed, none in
    flight, 1 alignment) and each chunk's launch counts (counts set to 0 just
-   before the run); (b) the drive modes over 340 frames (4 chunks of 100 and
+   before the run); (b) the drive modes over 260 frames (3 chunks of 100 and
    a 20-frame tail): sync, then async (BA and the Sim3 fits on the card, on
    the consumer threads' own streams), each run's FPS line, stage times and
    queue status, the async merged trajectory within 1e-5 m of the sync one,
@@ -126,22 +126,23 @@ Phases, each of which raises (exit code 1) on failure:
 9. appearance: (a) the converter CLI with --model aliked on a lightglue-named
    aliked-n16 state dict from init_aliked_params(0), every leaf equal to the
    tree; (b) the eval tool's 7-Scenes offline and online runs on phase 8's
-   scene and checkpoints with --keypoints aliked --aliked-npz --refine --loop:
-   chunks with keypoint_valid, float16 descriptors and the refined fan, all
-   finite, per chunk the refined share and the seconds of ALIKED, of the
-   refinement (device) and of the chunk, the metric-depth path's launches a
-   chunk (the kernels line's "appearance" path), the APE printed (random
-   weights); then phase 7's 340 frames through the creator CLI with MoGe-2,
-   grid keypoints against --keypoints aliked --refine-observations: the
-   steady chunk's seconds of each; (c) ALIKED-n16's dense maps on the card against the host CPU,
-   then detection and SDDH on both from the card's maps, and its time for a
-   100-frame chunk; (d) ZNCC on the card: planted sub-pixel shifts
-   recovered, card against host on 100 frames at 308x406 with a keypoint at
-   the last frame's bottom-right corner, the time at 300 keypoints with fan 7
-   and 400 with fan 10; (e) the reconstructor CLI on tests/test_loop_system.py's
-   circle (copied): the first-last loop edge found on the card, the
-   loop-closed APE below the open one, the card's loop-closed trajectory
-   within LOOP_TOL of the host's after a similarity and the open one outside.
+   scene and checkpoints with --keypoints aliked --aliked-npz --refine
+   --loop: chunks with keypoint_valid, float16 descriptors and the refined
+   fan, all finite, per chunk the refined share and the seconds of ALIKED, of
+   the refinement (device) and of the chunk, the metric-depth path's launches
+   a chunk (the kernels line's "appearance" path), the APE printed (random
+   weights); then phase 4's 130 frames through the creator CLI with MoGe-2
+   and phase 8's converted Pi3, --keypoints aliked --refine-observations:
+   its second chunk's seconds beside phase 4's grid-keypoint run's; (c) ALIKED-n16's dense maps on the
+   card against the host CPU, then detection and SDDH on both from the card's
+   maps, and its time for a 100-frame chunk; (d) ZNCC on the card: planted
+   sub-pixel shifts recovered, card against host on 100 frames at 308x406
+   with a keypoint at the last frame's bottom-right corner, the time at 300
+   keypoints with fan 7 and 400 with fan 10; (e) the reconstructor CLI on
+   tests/test_loop_system.py's circle (copied): the first-last loop edge
+   found on the card, the loop-closed APE below the open one, the card's
+   loop-closed trajectory within LOOP_TOL of the host's after a similarity
+   and the open one outside.
 10. localization and telemetry: (a) a second camera: the creator CLI with
    --keypoints aliked on phase 8's scene frames from the 16th on (two chunks,
    each launching the metric-depth path's kernels: the kernels line's
@@ -168,12 +169,13 @@ Phases, each of which raises (exit code 1) on failure:
    with no similarity, the gravity residual, the COLMAP model's counts, and
    the telemetry refine's seconds a chunk.
 11. mapping: (a) the creator CLI with --save-dense on phase 4's 130 frames
-   (MoGe-2; two chunks, each launching the metric-depth path's kernels: the
-   kernels line's "mapping" path), then the reconstructor CLI with
-   --export-mesh --save-volume --render-previews 2: fused_mesh.ply reads back
-   with finite vertices and faces in range, fused_volume.npz loads, four
-   preview PNGs; the fusion, meshing and raycast seconds (random weights
-   decide the geometry: printed, not held); (b) a planted scene at eval
+   (MoGe-2, phase 8's converted random Pi3; two chunks, each launching the
+   metric-depth path's kernels: the kernels line's "mapping" path), then the
+   reconstructor CLI with --export-mesh --save-volume --render-previews 2:
+   fused_mesh.ply reads back with finite vertices and faces in range,
+   fused_volume.npz loads, four preview PNGs; the fusion, meshing and raycast
+   seconds (random weights decide the geometry: printed, not held); (b) a
+   planted scene at eval
    scale: 100 analytic depth views at 154x203 of the unit sphere of
    tests/test_mapping.py (copied), coloured, fused on the card into 189^3
    voxels: the surface-nets mesh within 1.5 voxels of the sphere at the
@@ -211,6 +213,27 @@ Phases, each of which raises (exit code 1) on failure:
    (the "probes" path; each kernel shape a probe times is first held against
    its plain version, uncounted), then trace_summary on a --profile-dir
    creator run.
+13. the repo-root tools (pi3_slam_tpu_torch/tools), in process, each printing
+   its JSON line: (a) perf_pipeline at its defaults (420 frames of 640x480
+   noise, chunks of 100 with overlap 20: five and a 20-frame tail padded to
+   100; 400 grid keypoints) with phase 4's MoGe-2 npz, (b) the same with
+   --online on its workdir: per run six chunks of the metric-depth path's
+   launches, five intervals, finite chunk files; (c) perf_online_floor on the
+   card and with --device cpu: the BA iteration counts of its six chunks
+   (five and a 20-frame tail), steady seconds beside each other; (d)
+   import_reference_chunks on a reference .pt directory
+   (tools/synthetic.py: tests/test_import_reference_chunks.py's fixture's
+   files), then the reconstructor
+   CLI on the card: 6 finite poses; (e) smoke_e2e at its defaults (ALIKED,
+   refinement, dense maps, loop closure, COLMAP, the mesh; its CLIs in
+   processes of their own, uncounted) on phase 8's Pi3 and phase 9's ALIKED
+   files; (f)
+   kv_merge_drift --full --seeds 0 (fp32): eight rows, each merged run apart
+   from the exact one (trans_rel > 1e-8), the fp32 exact and merged forwards'
+   launches, and the floor of an exact run against a second one; (g)
+   ablate_observation_fan at eval scale with seed 0 (six chunks): both fans
+   5/5 alignments and a finite APE. The phase's launches are the kernels
+   line's "tools" path.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -235,6 +258,9 @@ try:  # the card's peaks, the bounds and the checks: perf_lab's too
         PEAK_3XTF32, PEAK_BF16, PEAK_BYTES, PEAK_FP32, attention_flops, bound, exp2_ms, mlp_work)
     # a kernel's output against its plain version's, or raise
     from pi3_slam_tpu_torch.ops.compare import hold as check
+    # the eval-scale synthetic scene of the system APE gates
+    from pi3_slam_tpu_torch.tools.synthetic import (
+        EVAL_SCALE, make_synthetic_sequence, write_synthetic_chunks)
 except ImportError:  # not a checkout, or no PyTorch: main() says which
     pass
 
@@ -1258,6 +1284,11 @@ def write_frames(folder: str, n: int = 130, size: tuple = (480, 640), names=None
         Image.fromarray(img).save(os.path.join(folder, name), compress_level=1)
 
 
+# phase 4's metric-depth chunk seconds (grid keypoints), which phase 9 (b)
+# sets beside --keypoints aliked --refine-observations on the same frames
+METRIC_DEPTH_CHUNK_S: list = []
+
+
 def run_cli(name: str, frames: str, out: str, extra: list) -> tuple[dict, list]:
     """One CLI run of python -m pi3_slam_tpu_torch.create_offline_chunks over
     the 130 frames; checks its chunk files and its launch counts per chunk.
@@ -1334,6 +1365,7 @@ def phase_cli(tmp: str) -> dict:
         log(f"  metric_depth: metric_scale per chunk {scales}; None = the JAX message "
             "'metric scale skipped: too few valid MoGe/Pi3 depth pairs' (random weights)")
     by_path = {"metric_depth": counts}
+    METRIC_DEPTH_CHUNK_S[:] = [r["infer_s"] for r in records]
     by_path["kv_merge"], _ = run_cli("kv_merge", frames, os.path.join(tmp, "kv_merge"),
                                      ["--global-kv-merge", "2", "--no-metric-depth"])
     # the fp32 model (the JAX creator computes it on its device): every block
@@ -1380,89 +1412,6 @@ def phase_sol() -> dict:
         f"yardstick); bounds of that shape: products {flops / PEAK_BF16 * 1e3:.3f} ms, exp2 "
         f"{exp2_ms(h * t * t):.3f} ms")
     return counts
-
-
-# --- eval-scale synthetic chunks: the generator of tests/test_system_ape.py
-# (make_synthetic_sequence, project, write_synthetic_chunks), copied with
-# numpy and scipy so that this script imports nothing of the JAX package
-
-
-def synthetic_sequence(rng, n_frames, n_landmarks, width, height, step, yaw_rate, sway=0.05,
-                       sway_rate=0.4):
-    """Smooth forward trajectory with yaw (and a sideways sway of amplitude
-    ``sway``), landmarks ahead of the cameras."""
-    from scipy.spatial.transform import Rotation
-
-    f = 500.0
-    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]])
-    i = np.arange(n_frames)
-    centers = np.stack([step * i, sway * np.sin(i * sway_rate), 0.05 * step * i], axis=1)
-    rots = np.stack([Rotation.from_euler("y", yaw_rate * j).as_matrix() for j in i])
-    landmarks = np.stack([rng.uniform(-4, 4 + step * n_frames, n_landmarks),
-                          rng.uniform(-3, 3, n_landmarks), rng.uniform(4, 10, n_landmarks)], axis=1)
-    return K, centers, rots, landmarks
-
-
-def write_synthetic_chunks(out, rng, n_frames=420, n_landmarks=5000, chunk_length=100,
-                           overlap=20, n_kp=400, noise_px=0.4, step=0.08, yaw_rate=0.0007,
-                           width=640, height=480, frame_name=None, sway=0.05, sway_rate=0.4):
-    """Chunk files of a synthetic scene, each chunk in its own random Sim3
-    gauge, with confidence-correlated pixel / point noise and gross outliers
-    among low-confidence keypoints; frame i is named frame_i:04d.png or
-    ``frame_name(i)``. Returns the true camera centers."""
-    from scipy.spatial.transform import Rotation
-
-    from pi3_slam_tpu_torch.data.datasets import chunk_windows
-
-    K, centers, rots, landmarks = synthetic_sequence(rng, n_frames, n_landmarks, width, height,
-                                                     step, yaw_rate, sway, sway_rate)
-    os.makedirs(os.path.join(out, "chunks"), exist_ok=True)
-    for ci, (s, e) in enumerate(chunk_windows(n_frames, chunk_length, overlap)):
-        frames = list(range(s, e))
-        nf = len(frames)
-        g_s = rng.uniform(0.7, 1.4)
-        g_R = Rotation.from_rotvec(rng.normal(size=3) * 0.1).as_matrix()
-        g_t = rng.normal(size=3) * 0.5
-        kps = np.zeros((nf, n_kp, 2), np.float32)
-        pts = np.zeros((nf, n_kp, 3), np.float32)
-        confs = np.ones((nf, n_kp, 1), np.float32)
-        poses = np.tile(np.eye(4), (nf, 1, 1))
-        for j, fidx in enumerate(frames):
-            cam = (landmarks - centers[fidx]) @ rots[fidx]
-            z = cam[:, 2]
-            uv = np.stack([K[0, 0] * cam[:, 0] / z + K[0, 2], K[1, 1] * cam[:, 1] / z + K[1, 2]], 1)
-            vis = ((z > 0.5) & (uv[:, 0] > 5) & (uv[:, 0] < width - 5) & (uv[:, 1] > 5)
-                   & (uv[:, 1] < height - 5))
-            # the same keypoints for a frame in every chunk that holds it
-            sel_rng = np.random.default_rng(fidx)
-            vis_ids = np.nonzero(vis)[0]
-            sel = vis_ids[sel_rng.permutation(len(vis_ids))[:n_kp]]
-            sel = np.concatenate([sel, np.repeat(sel[-1:], n_kp - len(sel))])
-            conf = sel_rng.uniform(0.2, 1.0, n_kp)
-            confs[j, :, 0] = conf
-            gross = (conf < 0.4) & (sel_rng.uniform(size=n_kp) < 0.15)
-            kps[j] = uv[sel] + sel_rng.normal(size=(n_kp, 2)) * noise_px * (1.5 - conf)[:, None]
-            pw = g_s * landmarks[sel] @ g_R.T + g_t
-            pts[j] = pw + rng.normal(size=pw.shape) * 0.005 * (1.5 - conf)[:, None]
-            if gross.any():
-                kps[j, gross] += sel_rng.normal(size=(gross.sum(), 2)) * 40.0
-                pts[j, gross] += rng.normal(size=(gross.sum(), 3)) * (2.0 * g_s)
-            poses[j, :3, :3] = g_R @ rots[fidx]
-            poses[j, :3, 3] = g_s * g_R @ centers[fidx] + g_t
-        np.savez_compressed(
-            os.path.join(out, "chunks", f"chunk_{ci:06d}.npz"),
-            keypoints=kps.astype(np.float16), points=pts.astype(np.float16),
-            colors=np.full((nf, n_kp, 3), 128, np.uint8), camera_poses=poses.astype(np.float32),
-            camera_poses_cw=np.linalg.inv(poses).astype(np.float32),
-            intrinsics=np.tile(K, (nf, 1, 1)).astype(np.float32),
-            image_paths=np.asarray([frame_name(i) if frame_name else f"frame_{i:04d}.png"
-                                    for i in frames]),
-            original_width=width, original_height=height, masks=np.ones((nf, n_kp), bool),
-            conf=confs.astype(np.float16))
-    with open(os.path.join(out, "chunk_metadata.json"), "w") as f:
-        json.dump({"chunk_length": chunk_length, "overlap": overlap,
-                   "target_size": [height, width]}, f)
-    return centers
 
 
 def check_artifacts(result: dict, n_poses: int) -> np.ndarray:
@@ -1512,7 +1461,7 @@ def phase_reconstruct(tmp: str) -> None:
         "keypoints, overlap 20")
     scene = os.path.join(tmp, "eval")
     t0 = time.perf_counter()
-    gt = write_synthetic_chunks(scene, np.random.default_rng(0))
+    gt = write_synthetic_chunks(scene, np.random.default_rng(0), **EVAL_SCALE)
     log(f"    written in {time.perf_counter() - t0:.1f}s")
     argv = ["--chunks", scene, "--output", os.path.join(scene, "card"),
             "--max-observations-per-track", "10", "--ba-iterations", "10"]
@@ -1784,10 +1733,10 @@ def phase_online(tmp: str) -> tuple[dict, float]:
         raise RuntimeError(f"online: queue status {status}")
     check_online_outputs(out, 130)
 
-    log("  (b) 340 frames (4 chunks of 100 and a 20-frame tail padded to 100), sync then async")
-    frames = os.path.join(tmp, "frames340")
+    log("  (b) 260 frames (3 chunks of 100 and a 20-frame tail padded to 100), sync then async")
+    frames = os.path.join(tmp, "frames260")
     os.makedirs(frames)
-    write_frames(frames, 340)
+    write_frames(frames, 260)
     paths = sorted(os.path.join(frames, f) for f in os.listdir(frames))
     slam = Pi3SLAMOnline(OnlineConfig(chunk_length=100, overlap=20, max_keypoints=400,
                                       moge_checkpoint_path=moge, output_dir=out))
@@ -1807,7 +1756,7 @@ def phase_online(tmp: str) -> tuple[dict, float]:
             f"{stage_line(st)}; queue: {st['chunks_consumed']} consumed, {st['chunks_inflight']} "
             f"in flight, {st['alignments']} alignments ({st['alignment_failures']} failed)")
         per = [nonzero(c) for c in run.chunk_launches]
-        if r["num_chunks"] != 5 or per != [want] * 5 or st["chunks_inflight"]:
+        if r["num_chunks"] != 4 or per != [want] * 4 or st["chunks_inflight"]:
             raise RuntimeError(f"{name}: {r['num_chunks']} chunks, launches per chunk {per}")
     sync_wall, sync, sync_traj = runs["sync"]
     forward = sync["dispatch"] + sync["materialize"]
@@ -1875,7 +1824,7 @@ def online_sfm_against_host(slam, tmp: str) -> None:
     Image.fromarray(np.full((height, width, 3), 127, np.uint8)).save(paths[0])
     for path in paths[1:]:
         shutil.copyfile(paths[0], path)
-    truth = synthetic_sequence(np.random.default_rng(0), 420, 5000, 640, 480, 0.08, 0.0007)[1]
+    truth = make_synthetic_sequence(np.random.default_rng(0), 420, 5000, 640, 480, 0.08, 0.0007)[1]
 
     def serve(run):
         def dispatch(batch):
@@ -2697,31 +2646,28 @@ def phase_appearance(tmp: str) -> dict:
             f"(two chunks: detection pairs chunks three or more apart), APE RMSE {res['rmse']:.4f} m over "
             f"{res['pairs']} poses (random weights: printed, not held)")
     counts = nonzero(launch_counts())
-    log("  (b) steady chunks: phase 7's 340 frames through the creator CLI with MoGe-2, grid "
-        "keypoints, then --keypoints aliked --refine-observations")
+    log("  (b) phase 4's 130 frames through the creator CLI with MoGe-2 and phase 8's converted "
+        "Pi3, --keypoints aliked --refine-observations, beside phase 4's grid-keypoint run")
     from pi3_slam_tpu_torch.create_offline_chunks import create_chunks
 
-    steady = {}
-    for name, extra in (("grid", []), ("aliked + refine", [
-            "--keypoints", "aliked", "--aliked-path", aliked, "--refine-observations"])):
-        argv = ["--images", os.path.join(tmp, "frames340"), "--output",
-                os.path.join(tmp, "steady_" + name.split()[0]), "--chunk-length", "100",
-                "--overlap", "20", "--max-kp", "400", "--moge-path", moge, *extra]
-        log("    python -m pi3_slam_tpu_torch.create_offline_chunks " + " ".join(argv))
-        records = create_chunks(argv)
-        if [nonzero(r["launches"]) for r in records] != [PATH_LAUNCHES["metric_depth"]] * 5:
-            raise RuntimeError(f"steady {name}: launches {[r['launches'] for r in records]}")
-        steady[name] = [r["infer_s"] for r in records]
-        line = (f"    {name}: seconds per chunk {', '.join(f'{t:.3f}' for t in steady[name])} "
-                f"(chunks 1-3 steady)")
-        if records[0]["aliked_s"] is not None:
-            line += (f"; ALIKED {', '.join(f'{r['aliked_s']:.3f}' for r in records)} s; "
-                     f"refinement {', '.join(f'{r['refine_s'] * 1e3:.1f}' for r in records)} ms")
-        log(line)
-    delta = np.median(steady["aliked + refine"][1:4]) - np.median(steady["grid"][1:4])
-    log(f"    the steady chunk, median of chunks 1-3: {np.median(steady['grid'][1:4]):.3f} s with "
-        f"grid keypoints, {np.median(steady['aliked + refine'][1:4]):.3f} s with ALIKED and the "
-        f"refinement ({delta:+.3f} s)")
+    argv = ["--images", os.path.join(tmp, "frames"), "--output", os.path.join(tmp, "steady"),
+            "--chunk-length", "100", "--overlap", "20", "--max-kp", "400", "--model-path", pi3,
+            "--moge-path", moge, "--keypoints", "aliked", "--aliked-path", aliked,
+            "--refine-observations"]
+    log("    python -m pi3_slam_tpu_torch.create_offline_chunks " + " ".join(argv))
+    t0 = time.perf_counter()
+    records = create_chunks(argv)
+    wall = time.perf_counter() - t0
+    if [nonzero(r["launches"]) for r in records] != [PATH_LAUNCHES["metric_depth"]] * 2:
+        raise RuntimeError(f"aliked + refine: launches {[r['launches'] for r in records]}")
+    grid, appearance = METRIC_DEPTH_CHUNK_S[1], records[1]["infer_s"]
+    log(f"    aliked + refine: {wall:.1f}s; seconds per chunk "
+        f"{', '.join(f'{r['infer_s']:.3f}' for r in records)}; ALIKED "
+        f"{', '.join(f'{r['aliked_s']:.3f}' for r in records)} s; refinement "
+        f"{', '.join(f'{r['refine_s'] * 1e3:.1f}' for r in records)} ms")
+    log(f"    the second chunk (frames 80-129 padded to 100; each run's first chunk carries its "
+        f"set-up): {grid:.3f} s with grid keypoints (phase 4), {appearance:.3f} s with ALIKED and "
+        f"the refinement ({appearance - grid:+.3f} s)")
     log("  (c) ALIKED-n16, card vs host")
     aliked_card_vs_host(aliked, os.path.join(tmp, "frames"))
     log("  (d) ZNCC refinement on the card")
@@ -2839,8 +2785,8 @@ def planted_scene(rng, n_map=400, chunk=100, n_kp=400, n_landmarks=20000, dim=12
     beside the map's with another yaw."""
     from scipy.spatial.transform import Rotation
 
-    K, centers, rots, landmarks = synthetic_sequence(rng, n_map, n_landmarks, 640, 480, 0.08,
-                                                     0.0007)
+    K, centers, rots, landmarks = make_synthetic_sequence(rng, n_map, n_landmarks, 640, 480, 0.08,
+                                                          0.0007)
     desc = unit_rows(rng, n_landmarks, dim)
     sel = np.zeros((n_map, n_kp), np.int64)
     for i in range(n_map):
@@ -3070,11 +3016,12 @@ def telemetry_on_card(tmp: str, n_frames: int = 260) -> None:
     rng = np.random.default_rng(3)
     scene = os.path.join(tmp, "geo")
     t_start = 1_600_000_000.0
-    truth = write_synthetic_chunks(scene, np.random.default_rng(1), n_frames=n_frames,
-                                   frame_name=lambda i: f"{1_600_000_000_000 + 100 * i:013d}.png",
-                                   sway=GEO_SWAY, sway_rate=GEO_SWAY_RATE)
-    rots = synthetic_sequence(np.random.default_rng(1), n_frames, 5000, 640, 480, 0.08, 0.0007,
-                              GEO_SWAY, GEO_SWAY_RATE)[2]
+    truth = write_synthetic_chunks(
+        scene, np.random.default_rng(1), **dict(EVAL_SCALE, n_frames=n_frames),
+        frame_name_fn=lambda i: f"{1_600_000_000_000 + 100 * i:013d}.png", sway=GEO_SWAY,
+        sway_rate=GEO_SWAY_RATE)
+    rots = make_synthetic_sequence(np.random.default_rng(1), n_frames, 5000, 640, 480, 0.08, 0.0007,
+                                   GEO_SWAY, GEO_SWAY_RATE)[2]
     ts = np.arange(0.0, 0.1 * n_frames + 0.1, 0.02)
     track = np.stack([np.interp(ts, 0.1 * np.arange(n_frames), truth[:, i]) for i in range(3)], 1)
     nearest = np.clip((ts / 0.1).round().astype(int), 0, n_frames - 1)
@@ -3277,7 +3224,8 @@ def mapping_offline(tmp: str) -> dict:
 
     chunks = os.path.join(tmp, "mapping_chunks")
     argv = ["--images", os.path.join(tmp, "frames"), "--output", chunks, "--chunk-length", "100",
-            "--overlap", "20", "--max-kp", "400", "--moge-path",
+            "--overlap", "20", "--max-kp", "400", "--model-path",
+            os.path.join(tmp, "ckpt", "pi3.npz"), "--moge-path",
             os.path.join(tmp, "moge_random.npz"), "--save-dense"]
     log("  (a) python -m pi3_slam_tpu_torch.create_offline_chunks " + " ".join(argv))
     reset_launch_counts()
@@ -3818,6 +3766,178 @@ def phase_last_modules(tmp: str) -> tuple[dict, dict]:
     return counts, rows
 
 
+# --- phase 13: the repo-root tools (pi3_slam_tpu_torch/tools) on the card
+
+
+def launches_since(before: dict) -> dict:
+    from pi3_slam_tpu_torch.ops import launch_counts
+
+    return nonzero({k: v - before.get(k, 0) for k, v in launch_counts().items()})
+
+
+def scaled(counts: dict, n: int) -> dict:
+    return {k: n * v for k, v in counts.items()}
+
+
+def perf_pipeline_on_card(tmp: str) -> None:
+    """(a) offline, (b) --online on the same workdir: 420 frames in windows of
+    100 with overlap 20 are five chunks and a 20-frame tail padded to 100,
+    each with the metric-depth path's launches."""
+    from pi3_slam_tpu_torch.ops import launch_counts
+    from pi3_slam_tpu_torch.tools import perf_pipeline
+
+    argv = ["--workdir", os.path.join(tmp, "perf_pipeline"), "--moge-checkpoint",
+            os.path.join(tmp, "moge_random.npz")]
+    want = scaled(PATH_LAUNCHES["metric_depth"], 6)
+    for label, extra in (("(a)", []), ("(b)", ["--online"])):
+        log(f"  {label} python -m pi3_slam_tpu_torch.tools.perf_pipeline " + " ".join(argv + extra))
+        before = launch_counts()
+        t0 = time.perf_counter()
+        res = perf_pipeline.run(argv + extra)
+        wall = time.perf_counter() - t0
+        counts = launches_since(before)
+        log(f"    {label} {wall:.1f}s (frames, model build and run); launches {counts}")
+        if counts != want or len(res["per_chunk_fps"]) != 5 or not res["value"] > 0:
+            raise RuntimeError(f"perf_pipeline {label}: {res}, launches {counts} (expected {want})")
+        if extra and res["num_chunks"] != 6:
+            raise RuntimeError(f"perf_pipeline --online: {res['num_chunks']} chunks")
+    chunks = os.path.join(tmp, "perf_pipeline", "chunks_out", "chunks")
+    frames = []
+    for name in sorted(os.listdir(chunks)):
+        with np.load(os.path.join(chunks, name)) as z:
+            frames.append(z["points"].shape[0])
+            if not all(np.isfinite(z[k].astype(np.float64)).all()
+                       for k in ("points", "conf", "camera_poses", "intrinsics")):
+                raise RuntimeError(f"perf_pipeline: {name} holds values that are not finite")
+    if frames != [100] * 5 + [20]:
+        raise RuntimeError(f"perf_pipeline: chunks of {frames} frames")
+
+
+def online_floor_on_card() -> None:
+    """(c) the SfM chain's stages alone at eval scale, on the card and on the
+    host CPU."""
+    from pi3_slam_tpu_torch.tools import perf_online_floor
+
+    res = {}
+    for device in ("cuda", "cpu"):
+        log(f"  (c) python -m pi3_slam_tpu_torch.tools.perf_online_floor --device {device}")
+        t0 = time.perf_counter()
+        res[device] = perf_online_floor.run(["--device", device])
+        its = res[device]["ba_iterations"]
+        log(f"    {time.perf_counter() - t0:.1f}s; BA iterations {its} "
+            f"({'all' if its == [10] * 6 else 'not all'} 10)")
+        if len(its) != 6 or len(res[device]["align_s_per_chunk"]) != 5:  # five and a tail
+            raise RuntimeError(f"perf_online_floor --device {device}: {res[device]}")
+    card, host = res["cuda"], res["cpu"]
+    log(f"    card against host: steady recon {card['steady_recon_s']} / {host['steady_recon_s']} s, "
+        f"align {card['steady_align_s']} / {host['steady_align_s']} s, series ceiling "
+        f"{card['fps_ceiling_single_core']} / {host['fps_ceiling_single_core']} frames/s")
+
+
+def import_on_card(tmp: str) -> None:
+    """(d) a reference .pt chunk directory through the importer, then the
+    reconstructor CLI on the card."""
+    from pi3_slam_tpu_torch.reconstruct_offline import reconstruct
+    from pi3_slam_tpu_torch.tools import import_reference_chunks
+    from pi3_slam_tpu_torch.tools.synthetic import write_reference_pt_chunks
+
+    src, out = os.path.join(tmp, "reference_pt"), os.path.join(tmp, "imported")
+    write_reference_pt_chunks(src)
+    log(f"  (d) python -m pi3_slam_tpu_torch.tools.import_reference_chunks {src} {out}")
+    if import_reference_chunks.main([src, out]) != 0:
+        raise RuntimeError("import_reference_chunks failed")
+    argv = ["--chunks", out, "--output", os.path.join(tmp, "imported_recon"), "--ba-iterations", "2"]
+    log("    python -m pi3_slam_tpu_torch.reconstruct_offline " + " ".join(argv))
+    pos = check_artifacts(reconstruct(argv), 6)
+    log(f"    6 finite poses, centres {np.round(pos, 4).tolist()}")
+
+
+def smoke_on_card(tmp: str) -> None:
+    """(e) smoke_e2e at its defaults (ALIKED, the refinement, dense maps, loop
+    closure, COLMAP, the mesh), its CLIs in processes of their own; the random
+    full-width Pi3 and aliked-n16 files are phase 8's and 9's (the same seed-0
+    weights the tool would write)."""
+    from pi3_slam_tpu_torch.tools import smoke_e2e
+
+    ckpt = os.path.join(tmp, "ckpt")
+    orig = smoke_e2e.save_random_weights
+    smoke_e2e.save_random_weights = lambda work, keypoints: (
+        os.path.join(ckpt, "pi3.npz"), os.path.join(ckpt, "aliked.npz"))
+    argv = ["--workdir", os.path.join(tmp, "smoke")]
+    log("  (e) python -m pi3_slam_tpu_torch.tools.smoke_e2e " + " ".join(argv))
+    t0 = time.perf_counter()
+    try:
+        smoke_e2e.main(argv)
+    except SystemExit as e:
+        raise RuntimeError(f"smoke_e2e failed (exit code {e.code})") from None
+    finally:
+        smoke_e2e.save_random_weights = orig
+    log(f"    {time.perf_counter() - t0:.1f}s")
+
+
+def kv_drift_on_card() -> None:
+    """(f) kv_merge_drift --full --seeds 0 (fp32, 8 and 16 frames of 308x406,
+    merge 2 and 4, sharpen 1 and 8), then the floor: the sharpened exact
+    forward twice on the same frames."""
+    from pi3_slam_tpu_torch.models.convert import init_pi3_params
+    from pi3_slam_tpu_torch.models.pi3 import Pi3Config
+    from pi3_slam_tpu_torch.ops import launch_counts
+    from pi3_slam_tpu_torch.tools import kv_merge_drift as kv
+
+    cfg = Pi3Config()
+    tree = init_pi3_params(0, cfg)
+    log("  (f) python -m pi3_slam_tpu_torch.tools.kv_merge_drift --full --seeds 0")
+    before = launch_counts()
+    t0 = time.perf_counter()
+    rows = kv.run(["--full", "--seeds", "0"], make_params=lambda seed: tree)
+    wall = time.perf_counter() - t0
+    counts = launches_since(before)
+    # four exact and eight merged fp32 forwards: 2 sharpenings x (8, 16 frames) x (1, 2, 4)
+    want = add(scaled(fp32(PI3_LAUNCHES), 4), scaled(fp32(PI3_KV_MERGE_LAUNCHES), 8))
+    log(f"    {wall:.1f}s; launches {counts} (expected {want})")
+    if len(rows) != 8 or counts != want:
+        raise RuntimeError(f"kv_merge_drift: {len(rows)} rows, launches {counts}")
+    dead = [r for r in rows if not r["trans_rel"] > 1e-8]
+    if dead:  # the JAX test's wiring check: the merge must move the poses
+        raise RuntimeError(f"kv_merge_drift: merged runs equal to the exact one: {dead}")
+    model = kv.build_model(kv.sharpen_params(tree, 8.0), cfg, "cuda")
+    imgs = kv.make_video_frames(np.random.default_rng(1000), 8, 308, 406)
+    floor = kv.drift_metrics(kv.forward(model, imgs), kv.forward(model, imgs))
+    sharp = [r for r in rows if r["sharpen"] == 8.0]
+    log(f"    the floor, an exact run against a second exact run on the card (sharpen 8, 8 "
+        f"frames): {floor}; the merged runs at sharpen 8: trans_rel "
+        f"{[round(r['trans_rel'], 6) for r in sharp]}, rot_deg {[round(r['rot_deg'], 4) for r in sharp]}")
+    del model
+
+
+def ablate_on_card() -> None:
+    """(g) ablate_observation_fan at eval scale, one seed, on the card."""
+    from pi3_slam_tpu_torch.tools import ablate_observation_fan
+
+    log("  (g) python -m pi3_slam_tpu_torch.tools.ablate_observation_fan --seeds 0")
+    rows = ablate_observation_fan.run(["--seeds", "0"])
+    if [r["alignments_ok"] for r in rows] != ["5/5", "5/5"] or not all(
+            math.isfinite(r["ape_rmse_m"]) for r in rows):
+        raise RuntimeError(f"ablate_observation_fan: {rows}")
+
+
+def phase_tools(tmp: str) -> dict:
+    """(a)-(g); returns the launch counts of the phase (the "tools" path)."""
+    from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    perf_pipeline_on_card(tmp)
+    online_floor_on_card()
+    import_on_card(tmp)
+    smoke_on_card(tmp)
+    kv_drift_on_card()
+    ablate_on_card()
+    counts = nonzero(launch_counts())
+    log(f"  phase 13 in {time.perf_counter() - t0:.1f}s; launches {counts}")
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "pi3_slam_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -3838,38 +3958,45 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     log(smi.splitlines()[0])
     t0 = time.perf_counter()
-    log("[1] build")
+
+    def stamp(msg: str) -> None:  # a phase's header with the script's seconds so far
+        log(f"{msg}  [t={time.perf_counter() - t0:.1f}s]")
+
+    stamp("[1] build")
     phase_build()
     log(f"  kernels built in {time.perf_counter() - t0:.1f}s")
-    log("[2] kernels vs plain, bf16 and the fp32 entries, main-path shapes")
+    stamp("[2] kernels vs plain, bf16 and the fp32 entries, main-path shapes")
     results = phase_kernels()
-    log("[3] full-width forwards: Pi3 (4 frames, exact and kv-merge 2, bf16 and fp32), MoGe-2 "
+    stamp("[3] full-width forwards: Pi3 (4 frames, exact and kv-merge 2, bf16 and fp32), MoGe-2 "
         "(1 frame, fp32), "
         "the cross-attention block (1 and 4 frames), Blocks at head dim 128 and C 320")
     by_path = phase_model()
     by_path.update(phase_blocks())
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4] main paths: port CLI over 130 frames, with metric depth, with kv-merge 2 and "
+        stamp("[4] main paths: port CLI over 130 frames, with metric depth, with kv-merge 2 and "
             "with --compute-dtype float32")
         by_path.update(phase_cli(tmp))
-        log("[5] sol: the speed-of-light probe (python -m pi3_slam_tpu_torch.tools.perf_lab sol)")
+        stamp("[5] sol: the speed-of-light probe (python -m pi3_slam_tpu_torch.tools.perf_lab sol)")
         by_path["sol"] = phase_sol()
-        log("[6] reconstruct: the port's reconstructor CLI on the card")
+        stamp("[6] reconstruct: the port's reconstructor CLI on the card")
         phase_reconstruct(tmp)
-        log("[7] online: the port's online CLI, its drive modes, SfM on the card and the host")
+        stamp("[7] online: the port's online CLI, its drive modes, SfM on the card and the host")
         by_path["online"], online_wall = phase_online(tmp)
-        log("[8] eval: the checkpoint converters and the 7-Scenes / EuRoC eval tool")
+        stamp("[8] eval: the checkpoint converters and the 7-Scenes / EuRoC eval tool")
         by_path["eval"] = phase_eval(tmp)
-        log("[9] appearance: ALIKED and its converter, ZNCC refinement, loop closure")
+        stamp("[9] appearance: ALIKED and its converter, ZNCC refinement, loop closure")
         by_path["appearance"] = phase_appearance(tmp)
-        log("[10] localization and telemetry: the second camera, georeferencing, COLMAP export")
+        stamp("[10] localization and telemetry: the second camera, georeferencing, COLMAP export")
         by_path["localization"] = phase_localization(tmp)
-        log("[11] mapping: TSDF fusion, raycast, surface nets and mesh export")
+        stamp("[11] mapping: TSDF fusion, raycast, surface nets and mesh export")
         by_path["mapping"] = phase_mapping(tmp, online_wall)
-        log("[12] the last single-device modules: MoGe v1 and its converter, the viewer and the "
+        stamp("[12] the last single-device modules: MoGe v1 and its converter, the viewer and the "
             "debug projections, the model-shape probes and trace_summary")
         paths12, moge_v1_rows = phase_last_modules(tmp)
         by_path.update(paths12)
+        stamp("[13] the repo-root tools: perf_pipeline (offline and --online), perf_online_floor, "
+            "import_reference_chunks, smoke_e2e, kv_merge_drift and ablate_observation_fan")
+        by_path["tools"] = phase_tools(tmp)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]
@@ -3886,6 +4013,7 @@ def main() -> int:
                         **({"tb_per_s": r["tb_per_s"]} if "tb_per_s" in r else {}),
                         **({"loop": LOOPS[name]} if name in LOOPS else {}),
                         **({"moge_v1": moge_v1_rows[name]} if name in moge_v1_rows else {})})
+    stamp("done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -42,6 +42,7 @@ trees and this port's ``Pi3`` and ``MoGe`` modules.
 
 from __future__ import annotations
 
+import itertools
 import re
 from typing import Any, Dict, Tuple
 
@@ -78,7 +79,23 @@ _BLOCK_LEAVES = {
 
 
 def _tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    """A float32 tensor over ``a``'s memory where it can be: a transposed
+    kernel stays a strided view, which the builders make contiguous where the
+    module lands (:func:`_contiguous`). On the card that is an on-device copy;
+    numpy's transposing copy of full-width Pi3's kernels took 11.9 s on the
+    host CPU of an H100 machine. A read-only array (a JAX buffer's view) is
+    copied in its own layout."""
+    a = np.asarray(a, dtype=np.float32)
+    return torch.from_numpy(a if a.flags.writeable else a.copy(order="K"))
+
+
+def _contiguous(module):
+    """``module`` with every parameter and buffer contiguous, each copied on
+    the device it lies on where it is not."""
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        if not t.is_contiguous():
+            t.data = t.data.contiguous()
+    return module
 
 
 def _linear(sd: dict, name: str, kernel, bias) -> None:
@@ -141,7 +158,7 @@ def build_pi3(
     meta device, so no throw-away random init is paid for)."""
     model = Pi3(cfg, device="meta")
     model.load_state_dict(state, strict=True, assign=True)
-    return model.to(device=device, dtype=dtype).eval()
+    return _contiguous(model.to(device=device, dtype=dtype)).eval()
 
 
 def _conv(sd: dict, name: str, p: Dict[str, Any], leaf: str = "") -> None:
@@ -198,7 +215,7 @@ def build_moge(
     kernels in either dtype)."""
     model = MoGe(cfg, device="meta")
     model.load_state_dict(state, strict=True, assign=True)
-    model = model.to(device=device, dtype=torch.float32).eval()
+    model = _contiguous(model.to(device=device, dtype=torch.float32)).eval()
     model.backbone.blocks.to(trunk_dtype)
     return model
 
@@ -613,7 +630,7 @@ def build_moge_v1(cfg: MoGeV1Config, state: Dict[str, torch.Tensor], device: tor
     JAX package does; bf16 is a control)."""
     model = MoGeV1(cfg, device="meta")
     model.load_state_dict(state, strict=True, assign=True)
-    model = model.to(device=device, dtype=torch.float32).eval()
+    model = _contiguous(model.to(device=device, dtype=torch.float32)).eval()
     model.backbone.blocks.to(trunk_dtype)
     return model
 
@@ -1034,7 +1051,7 @@ def build_cross_block(
                        qk_norm="attn.q_norm.weight" in state, layerscale="ls1" in state,
                        device="meta")
     block.load_state_dict(state, strict=True, assign=True)
-    return block.to(device=device, dtype=dtype).eval()
+    return _contiguous(block.to(device=device, dtype=dtype)).eval()
 
 
 def init_cross_block_params(

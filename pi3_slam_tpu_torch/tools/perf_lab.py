@@ -776,14 +776,14 @@ def bench_packed() -> dict:
 def _decoder_block(c: int = 1024, heads: int = HEADS, dtype=torch.bfloat16):
     """A Pi3 decoder block (qk-norm, LayerScale 0.01) with the port's random
     block init of seed 0, on the card."""
-    from ..models.convert import _blocks, _init_block_stack
+    from ..models.convert import _blocks, _contiguous, _init_block_stack
     from ..models.layers import Block
 
     sd = {}
     _blocks(sd, "b", _init_block_stack(0, 1, c, 4, True, 0.01, heads), [0])
     blk = Block(c, heads, 4, qk_norm=True, layerscale=True, device="meta")
     blk.load_state_dict({k[len("b.0."):]: v for k, v in sd.items()}, strict=True, assign=True)
-    return blk.to(device="cuda", dtype=dtype).eval()
+    return _contiguous(blk.to(device="cuda", dtype=dtype)).eval()
 
 
 def bench_block() -> dict:

@@ -21,6 +21,18 @@ from pi3_slam_tpu.models import convert as jconv
 from pi3_slam_tpu_torch.models import aliked as tal
 from pi3_slam_tpu_torch.models import convert as tconv
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = tal.CONFIGS["aliked-t16"]
 JCFG = jal.CONFIGS["aliked-t16"]
 

@@ -19,6 +19,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 import create_offline_chunks as jax_cli
@@ -28,6 +29,18 @@ from pi3_slam_tpu_torch import create_offline_chunks as torch_cli
 from pi3_slam_tpu_torch.models.convert import init_pi3_params
 from pi3_slam_tpu_torch.models.dinov2 import DinoV2Config
 from pi3_slam_tpu_torch.models.pi3 import Pi3Config
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # head dim 64 on every attention, as the GPU kernels require
 CFG = Pi3Config(

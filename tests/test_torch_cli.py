@@ -15,6 +15,17 @@ from pi3_slam_tpu_torch import create_offline_chunks as torch_cli
 from pi3_slam_tpu_torch.device import select_device
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _option_strings(parser):
     return {s for action in parser._actions for s in action.option_strings}
 

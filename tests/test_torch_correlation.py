@@ -23,6 +23,17 @@ from pi3_slam_tpu_torch.ops import correlation as tcor
 from pi3_slam_tpu_torch.slam import chunk_creator as tcc
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _smooth(rng, h, w, sigma=2.0):
     img = gaussian_filter(rng.normal(size=(h, w)), sigma)
     return ((img - img.min()) / (img.max() - img.min())).astype(np.float32)  # in [0, 1]

@@ -39,6 +39,18 @@ from pi3_slam_tpu_torch.models.layers import Block, attention
 from pi3_slam_tpu_torch.ops import launch_counts
 from pi3_slam_tpu_torch.ops.rope import make_patch_positions, rope_tables
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=2e-5, rtol=1e-5)
 
 

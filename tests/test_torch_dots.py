@@ -34,6 +34,18 @@ from pi3_slam_tpu_torch.ops.compare import DOTS, compare
 from pi3_slam_tpu_torch.ops.dots_attention import dots_attention, dots_attention_plain
 from pi3_slam_tpu_torch.tools import perf_lab
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D = 64
 

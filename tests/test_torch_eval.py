@@ -16,6 +16,19 @@ import sys
 
 import numpy as np
 import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))

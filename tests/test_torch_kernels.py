@@ -51,6 +51,18 @@ from pi3_slam_tpu_torch.ops.packed_attention import (
 )
 from pi3_slam_tpu_torch.ops.qkv_producer import qkv_rope_producer, qkv_rope_producer_plain
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 D = 64
 # fp32 on both sides, different summation order (LayerNorm / softmax sums)
 ATOL = 3e-5

@@ -29,6 +29,18 @@ from pi3_slam_tpu_torch.sfm import posegraph as tpg
 from pi3_slam_tpu_torch.sfm.alignment import subsample_live_tracks
 from pi3_slam_tpu_torch.sfm.reconstruction import build_chunk_reconstruction as tbuild
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = "cpu"
 
 

@@ -26,6 +26,18 @@ from pi3_slam_tpu_torch.ops.compare import MLP, compare
 from pi3_slam_tpu_torch.ops.mlp import mlp, mlp_kernel_supported, mlp_plain
 from pi3_slam_tpu_torch.tools import perf_lab
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -34,6 +34,18 @@ from pi3_slam_tpu_torch.models.convert import (
 from pi3_slam_tpu_torch.models.moge import MoGeRunner
 from pi3_slam_tpu_torch.ops.interpolate import bilinear_resize
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = moge_vits_config(num_tokens_range=(100, 400))
 JAX_CFG = jm.MoGeConfig.from_json(CFG.to_json())
 NUM_TOKENS = 100

@@ -42,6 +42,18 @@ from pi3_slam_tpu_torch.models.moge_v1 import MoGeV1Config, moge_v1_forward, mog
 from pi3_slam_tpu_torch.ops.interpolate import bicubic_resize
 from pi3_slam_tpu_torch.tools import convert_checkpoint as tool
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODEL_CONFIG = {  # tests/test_moge_v1_parity.py's
     "encoder": "dinov2_vits14", "intermediate_layers": 4, "dim_proj": 64,
     "dim_upsample": [64, 32, 32], "dim_times_res_block_hidden": 1, "num_res_blocks": 1,

@@ -31,6 +31,18 @@ from pi3_slam_tpu_torch.models.convert import (
 from pi3_slam_tpu_torch.models.dinov2 import DinoV2Config
 from pi3_slam_tpu_torch.models.pi3 import Pi3, Pi3Config
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = Pi3Config(
     encoder=DinoV2Config(embed_dim=128, depth=2, num_heads=2, pos_embed_size=6),
     dec_embed_dim=128, dec_num_heads=2, dec_depth=4, head_dim=128, head_depth=1,
@@ -62,6 +74,22 @@ def test_state_dict_covers_every_parameter():
     assert set(state) == set(model.state_dict())
     for name, p in model.state_dict().items():
         assert tuple(state[name].shape) == tuple(p.shape), name
+
+
+def test_built_model_holds_contiguous_weights_apart_from_the_tree():
+    """The converters hand transposed kernels over as strided views; the
+    built model holds every weight contiguous (the kernels read them so) and
+    equal to the tree's, and writes none of it back into the tree."""
+    tree = init_pi3_params(0, CFG)
+    kernel = tree["decoder"]["even_blocks"]["fc1_kernel"][0]
+    before = kernel.copy()
+    model = build_pi3(CFG, pi3_state_from_jax(tree), torch.device("cpu"), torch.float32)
+    assert all(t.is_contiguous() for t in [*model.parameters(), *model.buffers()])
+    weight = model.decoder[0].fc1.weight
+    np.testing.assert_array_equal(weight.detach().numpy(), kernel.T)
+    with torch.no_grad():
+        weight.add_(1.0)
+    np.testing.assert_array_equal(kernel, before)
 
 
 @pytest.mark.parametrize("n_frames,hw", [(3, (42, 56)), (2, (28, 70))])
@@ -113,8 +141,8 @@ def test_port_imports_and_runs_without_jax():
     Sim3 fit, the APE scorer, the appearance and localization solvers, a
     tiny TSDF fusion with its raycast, mesh file and metrics, the viewer, the
     debug projections' numbers, a tiny MoGe v1 through its converter, the
-    probe table and the trace reader, and finds neither 'jax' nor
-    'pi3_slam_tpu' in sys.modules."""
+    probe table, the trace reader and the repo-root tools' helpers, and finds
+    neither 'jax' nor 'pi3_slam_tpu' nor a test module in sys.modules."""
     code = textwrap.dedent(
         """
         import sys, pkgutil, importlib, torch
@@ -223,6 +251,17 @@ def test_port_imports_and_runs_without_jax():
         with contextlib.redirect_stdout(io.StringIO()):
             assert trace_summary.main([os.path.dirname(trace)]) == 0
         assert trace_summary.summarize(trace)["device_total_us"] == 5.0
+        # the repo-root tools: the synthetic scene, the frames, the drift
+        # helpers, the importer; none of them reaches for a test module
+        from pi3_slam_tpu_torch.tools import (ablate_observation_fan, import_reference_chunks,
+            kv_merge_drift, perf_online_floor, perf_pipeline, smoke_e2e, synthetic)
+        d = tempfile.mkdtemp()
+        assert synthetic.write_synthetic_chunks(d, np.random.default_rng(0)).shape == (14, 3)
+        assert len(perf_pipeline.make_frames(os.path.join(d, "frames"), 2, 24, 32)) == 2
+        assert kv_merge_drift.sharpen_params({"q_norm_scale": np.ones(2)}, 8.0)["q_norm_scale"][0] == 8
+        assert "camera_poses_cw" in import_reference_chunks.convert_chunk(
+            {"camera_poses": torch.eye(4)[None]})
+        assert not [m for m in sys.modules if m.split(".")[0].startswith(("test_", "tests"))]
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert "pi3_slam_tpu" not in sys.modules, sorted(
             m for m in sys.modules if m.split(".")[0] == "pi3_slam_tpu")

@@ -32,6 +32,18 @@ import pytest
 import torch
 from scipy.spatial.transform import Rotation
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import reconstruct_offline as jax_cli  # noqa: E402

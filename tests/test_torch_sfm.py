@@ -33,6 +33,17 @@ from pi3_slam_tpu_torch.sfm import ba as tba
 from pi3_slam_tpu_torch.sfm import native as tnative
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the port's CPU runs are chains of
+    small operations, which the oversubscribed thread pools of parallel test
+    workers slow down many times over; no result here depends on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
 
