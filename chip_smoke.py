@@ -234,6 +234,34 @@ Phases, each of which raises (exit code 1) on failure:
    ablate_observation_fan at eval scale with seed 0 (six chunks): both fans
    5/5 alignments and a finite APE. The phase's launches are the kernels
    line's "tools" path.
+14. multi-device (pi3_slam_tpu_torch/parallel), full width (Pi3Config(),
+   bf16, random seed 0), on meshes whose devices repeat the one card: (a)
+   make_sharded_chunk_step on a dp 2 mesh over phase 4's two chunk windows
+   (frames 0-99, and 80-129 with the tail padded), each chunk's outputs bit
+   for bit the single-device step's; (b) the forward over frames 0-99 on dp 1
+   x tp 2 and on dp 1 x tp 1 x sp 2 (ring attention in the 18 global blocks),
+   pointmaps, confidence and poses against the single-device step within
+   relative L2 SHARD_TOL, the single-device unpacked route as a control, a
+   10%-off output rejected; the ring's own share in fp32 over frames 0-19:
+   sp 2 against the control and tp 2 x sp 2 against tp 2 within RING_TOL, a
+   faulty ring (one key shard met at every step) rejected; (c) ring attention
+   alone at (1, 64300, 16, 64), sp 2 and sp 4, against row 6's flash kernel
+   on the same q, k, v, and again with its last tenth zero-padded keys taken
+   out by their count (the same ring leaving them in is rejected), each ring
+   step's row-5 launch timed beside its bound, and rows 6 and 7 at the tp 2
+   shards' shapes against their plain versions beside their bounds and SDPA
+   (the kernels line's "multidevice_shapes"); (d) the creator API with
+   --data-parallel-chunks 2 and MoGe-2 over phase 4's 130 frames on
+   [cuda:0] * 2 (one group: two chunks, the second a padded tail), its chunk
+   files bit for bit phase 4's single-device chunks; (e) the online API with
+   dp 2 over the same frames, SfM on the card: two chunks consumed, 130
+   finite poses, the queue reading dp 2; (f) phase 11's planted sphere fused
+   with fuse_tsdf(mesh=) over dp 4, bit for bit the single-device fusion.
+   Each run's launch counts (set to 0 just before it) are the kernels line's
+   "multidevice" path; any seconds printed are of replicas that share one
+   card, not a speed figure. (b) also runs dp 1 x tp 2 x sp 2.
+
+multi_card_check.py runs phase 14 over four distinct cards.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -242,6 +270,8 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import glob
 import json
 import math
 import os
@@ -3265,13 +3295,12 @@ def mapping_offline(tmp: str) -> dict:
     return counts
 
 
-def planted_mapping() -> None:
-    """(b) 100 analytic views of the unit sphere at 154x203 fused on the card
-    into 189^3 voxels: the mesh against the sphere, a second fusion bit for
-    bit, 20 frames card against host, 4 raycasts against the analytic depth."""
-    import torch
-
-    from pi3_slam_tpu_torch.mapping import TSDFConfig, fuse_tsdf, raycast_depth
+def planted_sphere_views():
+    """(b)'s scene: PLANT_FRAMES analytic views of the unit sphere at
+    PLANT_H x PLANT_W, coloured, with the TSDF config and bounds of a
+    PLANT_N^3 grid. Returns (depths, intr, rots, cens, colors, config,
+    bounds)."""
+    from pi3_slam_tpu_torch.mapping import TSDFConfig
 
     depths, rots, cens = [], [], []
     for i in range(PLANT_FRAMES):
@@ -3286,8 +3315,20 @@ def planted_mapping() -> None:
     intr = np.tile(PLANT_INTR, (PLANT_FRAMES, 1))
     colors = np.broadcast_to(SPHERE_COLOR, depths.shape + (3,))
     vs = 2.2 / (PLANT_N - 1.5)  # ceil(2.2 / vs) + 1 = PLANT_N voxels an axis
-    cfg = TSDFConfig(voxel_size=vs)
-    bounds = (np.full(3, -1.1), np.full(3, 1.1))
+    return (depths, intr, rots, cens, colors, TSDFConfig(voxel_size=vs),
+            (np.full(3, -1.1), np.full(3, 1.1)))
+
+
+def planted_mapping() -> None:
+    """(b) 100 analytic views of the unit sphere at 154x203 fused on the card
+    into 189^3 voxels: the mesh against the sphere, a second fusion bit for
+    bit, 20 frames card against host, 4 raycasts against the analytic depth."""
+    import torch
+
+    from pi3_slam_tpu_torch.mapping import fuse_tsdf, raycast_depth
+
+    depths, intr, rots, cens, colors, cfg, bounds = planted_sphere_views()
+    vs = cfg.voxel_size
 
     def fuse(n, device):
         torch.cuda.synchronize()
@@ -3938,6 +3979,460 @@ def phase_tools(tmp: str) -> dict:
     return counts
 
 
+# --- phase 14: multi-device (pi3_slam_tpu_torch/parallel) over meshes whose
+# devices repeat the one card (multi_card_check.py: over distinct cards)
+
+# (b)'s bound on the relative L2 of the sharded forwards' pointmaps,
+# confidence and poses against the single-device step's, both bf16. Phase 3
+# holds a bf16 forward within 5e-2 of the fp32 one; a tp or sp route is the
+# same bf16 forward with its sums in another order (tp: bf16 partials of the
+# row-parallel products added in fp32; sp: the ring's fixed-shift partials;
+# both: the unpacked attention route, rows 6 / 7 in place of the producer and
+# rows 1 / 2), so it is held to that bound too, which also rejects a 10%-off
+# output (relative L2 0.1). The control is the single-device unpacked route
+# (the sp 2 mesh on one card with the ring switched off: every attention on
+# the first device, the block MLP's rows split as on the sp mesh)
+SHARD_TOL = 5e-2
+# (b)'s bound on the ring's own share, held in fp32 (ring_share): sp 2
+# against the control, and tp 2 x sp 2 against tp 2. Each pair differs only
+# in the 18 global blocks' attention (the ring's fixed-shift partials in
+# place of row 6). In bf16 sp 2 and the control read ~8e-3 apart on an H100
+# (sharded_forwards logs it): rounding of bf16 activations in another order,
+# amplified over 36 blocks, would hide a faulty ring (key shard 0 at every
+# step), which moves the output by ~1e-3. In fp32 over frames 0-19 the pairs
+# read at most 1.4e-6 and the faulty ring 9.5e-4 to 1.5e-3 (LayerScale 0.01
+# damps what attention adds); 5e-5 sits ~35x above the one and ~20x under
+# the other.
+RING_TOL = 5e-5
+# tp 2: the 57 encoder / frame / head blocks on row 7 and the 18 global blocks
+# on row 6, once on each tp shard; the MLP halves are plain products
+MULTI_TP2_LAUNCHES = {"attention_single_pass": 114, "flash_attention": 36}
+# sp 2: 57 encoder / frame / head blocks on row 7; 18 global blocks of 2 ring
+# steps x 2 shards on row 5; the block MLP on each sp row shard where T
+# divides (the 18 global blocks, 2 pieces each; T 643 is odd: 1 piece)
+MULTI_SP2_LAUNCHES = {"attention_single_pass": 57, "flash_attention_partial": 72, "block_mlp": 93}
+# tp 2 x sp 2: each tp shard's 57 row-7 blocks, and its ring in the global
+# blocks (4 row-5 launches a shard); the MLP halves plain products
+MULTI_TP2_SP2_LAUNCHES = {"attention_single_pass": 114, "flash_attention_partial": 144}
+
+
+def chunk_inputs(frames: str):
+    """Phase 4's two chunk windows of the 130 frames at 308x406 (frames 0-99,
+    and 80-129 padded to 100 by repeating the last frame) with 400 grid
+    keypoints, as the creator builds them: [(uint8 frames, keypoints)]."""
+    from pi3_slam_tpu_torch.data import ChunkDataset, calculate_target_size
+    from pi3_slam_tpu_torch.slam.chunk_creator import pad_tail
+    from pi3_slam_tpu_torch.utils.keypoints import grid_keypoints
+
+    paths = sorted(glob.glob(os.path.join(frames, "*.png")))
+    ds = ChunkDataset(paths, 100, 20, calculate_target_size(paths[0], 255000 // 2))
+    out = []
+    for i in range(2):
+        images = ds[i]["images"]
+        kp = grid_keypoints(*images.shape[-2:], 400)
+        kps = np.broadcast_to(kp[None], (images.shape[0],) + kp.shape).astype(np.float32)
+        out.append(pad_tail(images, kps, 100))
+    return out
+
+
+def sync_all() -> None:
+    import torch
+
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def wall_ms(fn, iters: int) -> float:
+    """Mean host time of fn() over iters calls between synchronisations of
+    every card (the time of work spread over several cards; one warm-up)."""
+    fn()
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync_all()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+# the note on the seconds of a phase 14 run whose mesh repeats one card
+ONE_CARD = [""]
+
+
+def counted(what: str, fn, want: dict) -> dict:
+    """fn() with the counts set to 0 just before it; its launch counts must
+    equal want. Returns (its result, the counts)."""
+    from pi3_slam_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    sync_all()
+    counts = nonzero(launch_counts())
+    log(f"  {what}: launches {counts} in {time.perf_counter() - t0:.2f}s{ONE_CARD[0]}")
+    if counts != want:
+        raise RuntimeError(f"{what}: launch counts {counts} != {want}")
+    return out, counts
+
+
+def dp_step_bits(model, inputs, devs) -> dict:
+    """(a) two chunks through make_sharded_chunk_step on a dp 2 mesh over
+    devs[:2], each output bit for bit the single-device step's on the same
+    chunk (on the first card)."""
+    import torch
+
+    from pi3_slam_tpu_torch.ops import uncounted
+    from pi3_slam_tpu_torch.parallel import make_mesh
+    from pi3_slam_tpu_torch.slam.chunk_creator import make_chunk_step, make_sharded_chunk_step
+
+    dev = torch.device("cuda", 0)
+    up = [(torch.from_numpy(i).to(dev), torch.from_numpy(k).to(dev)) for i, k in inputs]
+    single = make_chunk_step(model, 0.1, 0.03, True)
+    with uncounted():
+        want = [{k: v.cpu() for k, v in single(i, k).items()} for i, k in up]
+    step = make_sharded_chunk_step(model, 0.1, 0.03, True, make_mesh(2, 1, devs[:2]))
+    got, counts = counted(f"(a) dp 2 over {devs[:2]}: make_sharded_chunk_step on chunks 0-99 "
+                          "and 80-129 (padded)", lambda: step([i for i, _ in up], [k for _, k in up]),
+                          {k: 2 * v for k, v in PI3_LAUNCHES.items()})
+    for c in range(2):
+        same = all(torch.equal(got[c][k].cpu(), want[c][k]) for k in want[c])
+        log(f"  (a) chunk {c}: {len(want[c])} outputs bit-identical to the single-device step: "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise RuntimeError(f"(a) chunk {c}: the dp 2 step differs from the single-device step")
+    return counts
+
+
+def sharded_forwards(model, images, devs) -> dict:
+    """(b) the forward over frames 0-99 on dp 1 x tp 2, dp 1 x tp 1 x sp 2
+    and dp 1 x tp 2 x sp 2 against the single-device step (packed route), the
+    single-device unpacked route as a control, and a 10%-off output
+    rejected; over distinct cards each sharded forward's time beside the
+    single-device one's."""
+    import torch
+
+    import pi3_slam_tpu_torch.parallel.context as context
+    from pi3_slam_tpu_torch.ops import uncounted
+    from pi3_slam_tpu_torch.ops.compare import compare
+    from pi3_slam_tpu_torch.parallel import make_mesh, make_sharded_pi3_step
+
+    dev = torch.device("cuda", 0)
+    x = (torch.from_numpy(images).to(dev).float() / 255.0)[None]
+    keys = ("points", "local_points", "conf", "camera_poses")
+    timed = len(set(devs)) > 1  # forwards over one card time no speed
+    with uncounted(), torch.no_grad():
+        ref = {k: v.float() for k, v in model(x).items()}
+        if timed:
+            single_ms = wall_ms(lambda: model(x), 2)
+            log(f"  (b) the single-device forward, 100 frames: {single_ms:.1f} ms")
+
+    def held(what, out, against=ref, tol=SHARD_TOL):
+        for k in keys:
+            c = compare(out[k], against[k], max_rel=float("inf"), l2_rel=tol)
+            log(f"  (b) {what:38s} {k:13s} rel L2 {c.rel_l2:.3e} (bound {tol:g}) "
+                f"{'ok' if c.ok else 'FAIL'}")
+            if not c.ok:
+                raise RuntimeError(f"(b) {what} {k}: {c}")
+
+    by = {}
+    for name, mesh, want in (("tp 2", make_mesh(1, 2, devs[:2]), MULTI_TP2_LAUNCHES),
+                             ("sp 2", make_mesh(1, 1, devs[:2], n_sp=2), MULTI_SP2_LAUNCHES),
+                             ("tp 2 x sp 2", make_mesh(1, 2, devs[:4], n_sp=2),
+                              MULTI_TP2_SP2_LAUNCHES)):
+        step, reps = make_sharded_pi3_step(model, mesh)
+        out, by[name] = counted(f"(b) dp 1 x {name} forward over {mesh.size} devices, 100 frames",
+                                lambda: step(reps, x), want)
+        outs = {k: out[k].float().to(dev) for k in keys}
+        held(f"dp 1 x {name} vs single device", outs)
+        if name == "sp 2":
+            sp2 = outs
+        del out, outs
+        if timed:
+            with uncounted():
+                log(f"  (b) dp 1 x {name}: {wall_ms(lambda: step(reps, x), 2):.1f} ms a forward "
+                    f"against the single device's {single_ms:.1f} ms")
+        del step, reps
+    step, reps = make_sharded_pi3_step(model, make_mesh(1, 1, [dev] * 2, n_sp=2))
+    threshold = context.LONG_SEQUENCE_THRESHOLD
+    context.LONG_SEQUENCE_THRESHOLD = 1 << 30  # the control: no ring
+    try:
+        with uncounted():
+            out = step(reps, x)
+    finally:
+        context.LONG_SEQUENCE_THRESHOLD = threshold
+    held("control: single-device unpacked route", out)
+    for k in keys:  # bf16 rounding alone: why ring_share holds the ring in fp32
+        log(f"  (b) sp 2 vs the control directly, {k:13s} rel L2 "
+            f"{compare(sp2[k], out[k], max_rel=float('inf')).rel_l2:.3e} (read, not held)")
+    del out, sp2
+    off = compare(ref["points"] * 1.1, ref["points"], max_rel=float("inf"), l2_rel=SHARD_TOL)
+    log(f"  (b) a 10%-off pointmap: rel L2 {off.rel_l2:.3e} against {SHARD_TOL:g}: "
+        f"{'rejected, ok' if not off.ok else 'PASSES, FAIL'}")
+    if off.ok:
+        raise RuntimeError("(b) the bound passes a 10%-off output")
+    return add(*by.values())
+
+
+@contextlib.contextmanager
+def patched(module, name: str, value):
+    """module.name set to value inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def ring_share(model32, images, devs) -> None:
+    """(b) the ring's own share, in fp32: the forward over frames 0-19 (T
+    12,860, so the global blocks ring) on dp 1 x sp 2 against the control
+    (the same mesh with the ring off), and on dp 1 x tp 2 x sp 2 against dp
+    1 x tp 2, each within RING_TOL; the same forward with a faulty ring (key
+    shard 0 at every step) rejected. In bf16 two routes already sit ~8e-3
+    apart, as far as that fault moves the output: only fp32 separates them."""
+    import torch
+
+    import pi3_slam_tpu_torch.parallel.context as context
+    import pi3_slam_tpu_torch.parallel.ring as ring
+    from pi3_slam_tpu_torch.ops import launch_counts, uncounted
+    from pi3_slam_tpu_torch.ops.compare import compare
+    from pi3_slam_tpu_torch.parallel import make_mesh, make_sharded_pi3_step
+
+    x = (torch.from_numpy(images[:20]).to(devs[0]).float() / 255.0)[None]
+    ring_attention = ring.ring_attention
+    faulty = lambda q, k, v, n_pad=0: ring_attention(  # noqa: E731
+        q, [k[0].to(x.device) for x in q], [v[0].to(x.device) for x in q], n_pad)
+    meshes = {"sp 2": make_mesh(1, 1, devs[:2], n_sp=2), "tp 2": make_mesh(1, 2, devs[:2]),
+              "tp 2 x sp 2": make_mesh(1, 2, devs[:4], n_sp=2)}
+    outs = {}
+    for name, mesh, patch in (("sp 2", "sp 2", None), ("tp 2", "tp 2", None),
+                              ("tp 2 x sp 2", "tp 2 x sp 2", None),
+                              ("control", "sp 2", (context, "LONG_SEQUENCE_THRESHOLD", 1 << 30)),
+                              ("faulty ring", "sp 2", (ring, "ring_attention", faulty))):
+        step, reps = make_sharded_pi3_step(model32, meshes[mesh])
+        with patched(*patch) if patch else contextlib.nullcontext(), uncounted(), torch.no_grad():
+            rings = launch_counts()["flash_attention_partial_fp32"]
+            out = step(reps, x)
+            rings = launch_counts()["flash_attention_partial_fp32"] - rings
+        want = 0 if "sp" not in mesh or name == "control" else 4 * 18 * (2 if "tp" in mesh else 1)
+        if rings != want:
+            raise RuntimeError(f"(b) fp32 {name}: {rings} row-5 fp32 launches, not {want}")
+        outs[name] = {k: out[k].to(devs[0]) for k in ("points", "local_points", "conf",
+                                                      "camera_poses")}
+        del out, step, reps
+    for a, b in (("sp 2", "control"), ("tp 2 x sp 2", "tp 2"), ("faulty ring", "control")):
+        held = []
+        for k, got in outs[a].items():
+            c = compare(got, outs[b][k], max_rel=float("inf"), l2_rel=RING_TOL)
+            held.append(c.ok)
+            log(f"  (b) fp32, 20 frames: {a:11s} vs {b:7s} {k:13s} rel L2 {c.rel_l2:.3e} (bound "
+                f"{RING_TOL:g}) {'within' if c.ok else 'outside'}")
+        if all(held) != (a != "faulty ring"):
+            raise RuntimeError(f"(b) fp32 {a} vs {b}: " + ("the bound passes a faulty ring"
+                                                            if all(held) else "outside RING_TOL"))
+
+
+def ring_and_shard_kernels(devs) -> dict:
+    """(c) ring attention alone at (1, 64300, 16, 64), sp 2 and sp 4 over
+    devs, against row 6's flash kernel on the same q, k, v, and with its last
+    tenth zero-padded keys taken out by their count against row 6 over the
+    real keys (the same ring leaving them in must be rejected), with the
+    time of one ring step's row-5 launch beside its bound; rows 6 and 7 at the tp 2
+    shards' shapes against their plain versions, beside their bounds and
+    SDPA. Returns {kernel: sub-row} (uncounted: these are comparisons)."""
+    import torch
+
+    from pi3_slam_tpu_torch.ops import uncounted
+    from pi3_slam_tpu_torch.ops.compare import ATTENTION, PARTIAL_L, compare
+    from pi3_slam_tpu_torch.ops.flash_attention import (
+        attention_single_pass, blockwise_attention, flash_attention)
+    from pi3_slam_tpu_torch.ops.partial_attention import (
+        flash_attention_partial, partial_attention_plain)
+    from pi3_slam_tpu_torch.parallel.ring import ring_attention
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    bf16, t, h = torch.bfloat16, N_FRAMES * FRAME_T, 16
+    rows = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(bf16)
+
+    def row(name, shape, checks, ms, plain_ms, work, library_ms):
+        bound_ms, bound_by = bound(*work)
+        rows.setdefault(name, {})[shape] = dict(
+            max_abs_err=max(c.max_abs_err for c in checks), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        lib = "" if library_ms is None else f"   SDPA {library_ms:9.3f} ms"
+        log(f"  {name:30s} {shape:36s} kernel {ms:9.3f} ms   plain {plain_ms:9.3f} ms   "
+            f"bound {bound_ms:8.3f} ms ({bound_by}){lib}")
+
+    with uncounted():
+        q, k, v = randn(1, t, h, 64), randn(1, t, h, 64), randn(1, t, h, 64)
+        flash = flash_attention(q, k, v)
+        flash_ms = time_ms(lambda: flash_attention(q, k, v), 3)
+        log(f"  (c) row 6 flash_attention (1, {t}, 16, 64): {flash_ms:.3f} ms, the ring's yardstick")
+        n_pad = t // 10  # a share of pads that an uncorrected ring shows
+        padded = [torch.cat([x[:, : t - n_pad], torch.zeros_like(x[:, t - n_pad :])], dim=1)
+                  for x in (q, k, v)]
+        flash_real = flash_attention(*(x[:, : t - n_pad].contiguous() for x in padded))
+        for sp in (2, 4):
+            ts = t // sp
+            shards = [[x[:, s * ts : (s + 1) * ts].to(devs[s]) for s in range(sp)]
+                      for x in (q, k, v)]
+            out = torch.cat([o.to(flash.device) for o in ring_attention(*shards)], dim=1)
+            c = check(f"ring sp {sp}", f"(1, {t}, 16, 64)", out, flash, "vs row 6, bf16 P",
+                      **ATTENTION)
+            ring_ms = wall_ms(lambda: ring_attention(*shards), 2)
+            pads = [[x[:, s * ts : (s + 1) * ts].to(devs[s]) for s in range(sp)] for x in padded]
+
+            def real(n):
+                return torch.cat([o.to(flash.device) for o in ring_attention(*pads, n_pad=n)],
+                                 dim=1)[:, : t - n_pad]
+
+            c_pad = check(f"ring sp {sp}, {n_pad} padded keys", f"(1, {t - n_pad}, 16, 64)",
+                          real(n_pad), flash_real, "vs row 6 over the real keys, bf16 P",
+                          **ATTENTION)
+            kept = compare(real(0), flash_real, **ATTENTION)
+            log(f"  (c) ring sp {sp} leaving its {n_pad} pads in: rel L2 {kept.rel_l2:.3e}: "
+                f"{'rejected, ok' if not kept.ok else 'PASSES, FAIL'}")
+            if kept.ok:
+                raise RuntimeError(f"(c) ring sp {sp}: the bound passes a ring that keeps its pads")
+            qs, ks, vs = q[:, :ts], k[:, ts : 2 * ts], v[:, ts : 2 * ts]
+            kn = k.float().square().sum(-1).amax(1).sqrt()
+            (acc, l), (acc_ref, l_ref) = (flash_attention_partial(qs, ks, vs, kn),
+                                          partial_attention_plain(qs, ks, vs, kn))
+            checks = [c, c_pad, check("flash_attention_partial ring step acc", f"sp {sp}", acc, acc_ref,
+                               "bf16 P", **ATTENTION),
+                      check("flash_attention_partial ring step l", f"sp {sp}", l, l_ref,
+                            "fp32 sums", **PARTIAL_L)]
+            step_ms = time_ms(lambda: flash_attention_partial(qs, ks, vs, kn), 5)
+            plain_ms = time_ms(lambda: partial_attention_plain(qs, ks, vs, kn), 1)
+            work = (attention_flops(1, h, ts, ts, 64),
+                    (qs.numel() + ks.numel() + vs.numel()) * 2 + qs.numel() * 4 + ts * h * 4)
+            row("flash_attention_partial", f"ring step sp {sp}: (1, {ts}, 16, 64) x {ts} keys",
+                checks, step_ms, plain_ms, work, None)
+            log(f"  (c) ring sp {sp} over {devs[:sp]}: {sp * sp} row-5 launches, {ring_ms:.3f} ms "
+                f"the whole ring against row 6's {flash_ms:.3f} ms on one card{ONE_CARD[0]}")
+            del out, acc, l, acc_ref, l_ref, shards, pads
+        del q, k, v, flash, padded, flash_real
+        for name, fn, shape in (("flash_attention", flash_attention, (1, t, 8, 64)),
+                                ("attention_single_pass", attention_single_pass,
+                                 (N_FRAMES, FRAME_T, 8, 64))):
+            q, k, v = randn(*shape), randn(*shape), randn(*shape)
+            got = fn(q, k, v)
+            c = check(name, f"tp 2 shard {shape}", got, blockwise_attention(q, k, v), "bf16 P",
+                      **ATTENTION)
+            b, tt, hh, d = shape
+            row(name, f"tp 2 shard {shape}", [c], time_ms(lambda: fn(q, k, v), 5),
+                time_ms(lambda: blockwise_attention(q, k, v), 1),
+                (attention_flops(b, hh, tt, tt, d), 4 * q.numel() * 2),
+                sdpa_ms(q, k, v, d**-0.5, 5))
+            del q, k, v, got
+    return rows
+
+
+def creator_and_online(tmp: str, devs) -> dict:
+    """(d) the creator API with data_parallel_chunks=2 and MoGe-2 on devs[:2]
+    over phase 4's 130 frames, its chunks bit for bit phase 4's
+    single-device chunks; (e) the online API with dp 2 over the same frames,
+    SfM on the card."""
+    from pi3_slam_tpu_torch.create_offline_chunks import create_chunks
+    from pi3_slam_tpu_torch.slam.config import OnlineConfig
+    from pi3_slam_tpu_torch.slam.online import Pi3SLAMOnline
+
+    devices = devs[:2]
+    frames, moge = os.path.join(tmp, "frames"), os.path.join(tmp, "moge_random.npz")
+    out = os.path.join(tmp, "multi_dp2")
+    argv = ["--images", frames, "--output", out, "--chunk-length", "100", "--overlap", "20",
+            "--max-kp", "400", "--moge-path", moge, "--data-parallel-chunks", "2"]
+    log("  (d) create_chunks(" + " ".join(argv) + f", devices={devices})")
+    per_chunk = PATH_LAUNCHES["metric_depth"]
+    records, counts_d = counted("(d) creator, one dp 2 group of 2 chunks (its Pi3 build included)",
+                                lambda: create_chunks(argv, devices=devices),
+                                {k: 2 * v for k, v in per_chunk.items()})
+    log(f"  (d) the group's records: infer_s {[r['infer_s'] for r in records]}{ONE_CARD[0]}")
+    if [r.get("dp_group") for r in records] != [0, 0] or nonzero(records[1]["launches"]):
+        raise RuntimeError(f"(d) records {records}")
+    for name in sorted(os.listdir(os.path.join(out, "chunks"))):
+        with np.load(os.path.join(out, "chunks", name)) as a, \
+                np.load(os.path.join(tmp, "metric", "chunks", name)) as b:
+            if a.files != b.files or not all(np.array_equal(a[k], b[k]) for k in a.files):
+                raise RuntimeError(f"(d) {name} differs from phase 4's single-device chunk")
+        log(f"  (d) {name}: {len(b.files)} keys, bit-identical to phase 4's chunk: ok")
+
+    cfg = OnlineConfig(chunk_length=100, overlap=20, max_keypoints=400, moge_checkpoint_path=moge,
+                       data_parallel_chunks=2, output_dir=os.path.join(tmp, "multi_online"))
+    paths = sorted(glob.glob(os.path.join(frames, "*.png")))
+
+    def run():
+        slam = Pi3SLAMOnline(cfg, devices=devices)
+        return slam, slam.process_image_paths(paths)
+
+    (slam, result), counts_e = counted("(e) online, dp 2, SfM on the card (its Pi3 build included)",
+                                       run, {k: 2 * v for k, v in per_chunk.items()})
+    status = slam.queue_status()
+    centers = slam._merged_trajectory()[0]
+    log(f"  (e) {result}; queue {({k: v for k, v in status.items() if k != 'timing'})}; "
+        f"{len(centers)} poses")
+    if (result["num_chunks"], status["chunks_consumed"], status["data_parallel_chunks"]) != (2, 2, 2) \
+            or len(centers) != 130 or not np.isfinite(centers).all():
+        raise RuntimeError("(e) the online dp 2 run")
+    return add(counts_d, counts_e)
+
+
+def sharded_fusion(devs) -> None:
+    """(f) phase 11's planted sphere fused with mesh= over dp 4 on devs[:4],
+    bit for bit the single-device fusion."""
+    from pi3_slam_tpu_torch.mapping import fuse_tsdf
+    from pi3_slam_tpu_torch.parallel import make_mesh
+
+    depths, intr, rots, cens, colors, cfg, bounds = planted_sphere_views()
+    vols = {}
+    for name, mesh in (("single", None), ("dp 4", make_mesh(4, 1, devs[:4]))):
+        sync_all()
+        t0 = time.perf_counter()
+        vols[name] = fuse_tsdf(depths, intr, rots, cens, colors=colors, config=cfg, bounds=bounds,
+                               mesh=mesh, device="cuda")
+        vols[name].tsdf  # the pull
+        log(f"  (f) {name}: {PLANT_FRAMES} views into {vols[name].shape} in "
+            f"{time.perf_counter() - t0:.3f}s")
+    same = all(np.array_equal(getattr(vols["single"], k), getattr(vols["dp 4"], k))
+               for k in ("tsdf", "weight", "color"))
+    log(f"  (f) fuse_tsdf(mesh=) over dp 4 on {devs[:4]} bit-identical to single-device fusion: "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise RuntimeError("(f) the voxel-sharded fusion differs from single-device fusion")
+
+
+def phase_multidevice(tmp: str, devs) -> tuple[dict, dict]:
+    """Phase 14 over the four devices devs (cuda:0 four times, or four
+    cards). Returns (the path's launch counts, {kernel: sub-rows})."""
+    import torch
+
+    from pi3_slam_tpu_torch.models.convert import build_pi3, init_pi3_params, pi3_state_from_jax
+    from pi3_slam_tpu_torch.models.pi3 import Pi3Config
+
+    t0 = time.perf_counter()
+    state = pi3_state_from_jax(init_pi3_params(0, Pi3Config()))
+    model = build_pi3(Pi3Config(), state, torch.device("cuda", 0), torch.bfloat16)
+    ONE_CARD[0] = " (every replica on one card: not a speed figure)" if len(set(devs)) == 1 else ""
+    log(f"  random full-width Pi3 (seed 0, bf16) in {time.perf_counter() - t0:.1f}s; mesh "
+        f"devices {[str(d) for d in devs]}")
+    inputs = chunk_inputs(os.path.join(tmp, "frames"))
+    counts = dp_step_bits(model, inputs, devs)
+    counts = add(counts, sharded_forwards(model, inputs[0][0], devs))
+    del model
+    model = build_pi3(Pi3Config(), state, torch.device("cuda", 0), torch.float32)
+    del state
+    ring_share(model, inputs[0][0], devs)
+    del model
+    torch.cuda.empty_cache()
+    rows = ring_and_shard_kernels(devs)
+    counts = add(counts, creator_and_online(tmp, devs))
+    sharded_fusion(devs)
+    return counts, rows
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "pi3_slam_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -3997,6 +4492,9 @@ def main() -> int:
         stamp("[13] the repo-root tools: perf_pipeline (offline and --online), perf_online_floor, "
             "import_reference_chunks, smoke_e2e, kv_merge_drift and ablate_observation_fan")
         by_path["tools"] = phase_tools(tmp)
+        stamp("[14] multi-device: the dp x tp x sp mesh over [cuda:0] * n, ring attention, the "
+              "creator's and the online driver's dp groups, MoGe-2's batch, sharded TSDF fusion")
+        by_path["multidevice"], multi_rows = phase_multidevice(tmp, [torch.device("cuda", 0)] * 4)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]
@@ -4012,7 +4510,8 @@ def main() -> int:
                         **({"products_ms": r["products_ms"]} if "products_ms" in r else {}),
                         **({"tb_per_s": r["tb_per_s"]} if "tb_per_s" in r else {}),
                         **({"loop": LOOPS[name]} if name in LOOPS else {}),
-                        **({"moge_v1": moge_v1_rows[name]} if name in moge_v1_rows else {})})
+                        **({"moge_v1": moge_v1_rows[name]} if name in moge_v1_rows else {}),
+                        **({"multidevice_shapes": multi_rows[name]} if name in multi_rows else {})})
     stamp("done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

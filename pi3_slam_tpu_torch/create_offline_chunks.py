@@ -5,10 +5,13 @@ observation refinement), on the GPU by default.
     python -m pi3_slam_tpu_torch.create_offline_chunks --images <dir> \\
         --output <out> --chunk-length 100 --overlap 20 --max-kp 400 --moge-path moge.npz
 
-Same flags as the JAX package's ``create_offline_chunks.py``. Flags that
-name parts not ported yet exit non-zero with a message naming their
-ROADMAP.md entry; nothing is skipped quietly. ``--device cuda`` (the
-default) needs a CUDA device; ``--device cpu`` is the explicit CPU mode.
+Same flags as the JAX package's ``create_offline_chunks.py``. ``--device
+cuda`` (the default) needs a CUDA device; ``--device cpu`` is the explicit CPU
+mode. The device mesh of ``--data-parallel-chunks``, ``--tensor-parallel``
+and ``--sequence-parallel`` is laid over the devices there are: every visible
+card on ``cuda``, the one host device on ``cpu``; a request beyond them is
+clamped as the JAX CLI clamps it, so on one card dp 4 runs the single-device
+path.
 """
 
 from __future__ import annotations
@@ -66,9 +69,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--estimate-intrinsics", action="store_true", default=True)
     parser.add_argument("--num-workers", type=int, default=2, help="Prefetch decode threads")
     parser.add_argument("--data-parallel-chunks", type=int, default=1,
-                        help="Chunks per step over several devices (only 1 is ported)")
-    parser.add_argument("--tensor-parallel", type=int, default=1, help="Only 1 is ported")
-    parser.add_argument("--sequence-parallel", type=int, default=1, help="Only 1 is ported")
+                        help="Chunks per step, one on each dp replica of the device mesh "
+                             "(1 = single device; clamped to the devices there are)")
+    parser.add_argument("--tensor-parallel", type=int, default=1,
+                        help="Tensor parallelism over heads / MLP hidden (the Megatron split; "
+                             "dp x tp devices a step)")
+    parser.add_argument("--sequence-parallel", type=int, default=1,
+                        help="Ring attention over the sp mesh axis for the global attention "
+                             "(dp x tp x sp devices a step)")
     parser.add_argument("--skip-start", type=int, default=0)
     parser.add_argument("--skip-end", type=int, default=0)
     parser.add_argument("--pixel-limit", type=int, default=255000 // 2)
@@ -101,25 +109,13 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def unported(args) -> str | None:
-    """The message for the first requested feature this port lacks, or None."""
-    for flag, value in (("--data-parallel-chunks", args.data_parallel_chunks),
-                        ("--tensor-parallel", args.tensor_parallel),
-                        ("--sequence-parallel", args.sequence_parallel)):
-        if value > 1:
-            return f"{flag} > 1 is not yet ported (ROADMAP.md Queue 1: multi-device)"
-    return None
-
-
-def create_chunks(argv=None) -> list[dict]:
+def create_chunks(argv=None, devices: list | None = None) -> list[dict]:
     """Parse ``argv``, write the chunks and return the per-chunk records of
-    ``OfflineChunkCreator.process_and_save``. Exits with code 2 on an
-    unported flag or when no image is found."""
+    ``OfflineChunkCreator.process_and_save``. ``devices``: the list the
+    device mesh is laid over (None: the devices ``--device`` sees). Exits
+    with code 2 when no image is found."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    msg = unported(args)
-    if msg:
-        parser.error(msg)
 
     paths = collect_image_paths(args.images, args.skip_start, args.skip_end)
     if not paths:
@@ -149,6 +145,9 @@ def create_chunks(argv=None) -> list[dict]:
         cam_dist_path=args.cam_dist_path,
         num_loader_workers=args.num_workers,
         resume=args.resume,
+        data_parallel_chunks=args.data_parallel_chunks,
+        tensor_parallel=args.tensor_parallel,
+        sequence_parallel=args.sequence_parallel,
         save_dense=args.save_dense,
         dense_stride=args.dense_stride or (2 if args.save_dense else 1),
         chunk_compression=args.chunk_compression,
@@ -156,7 +155,7 @@ def create_chunks(argv=None) -> list[dict]:
         refine_observations=args.refine_observations,
         refine_max_observations=args.refine_max_observations,
     )
-    return OfflineChunkCreator(config).process_and_save(paths)
+    return OfflineChunkCreator(config, devices=devices).process_and_save(paths)
 
 
 def main(argv=None) -> int:

@@ -39,6 +39,7 @@
 // Bound: the same FLOPs, 0.044 ms at (1, 4100, 2, 320) and 0.107 ms at
 // (100, 643, 2, 320).
 
+#include "device_guard.cuh"
 #include "bthd_attention.cuh"
 
 using namespace pi3;
@@ -79,7 +80,8 @@ extern "C" int pi3_attention(const void* q, const void* k, const void* v, void* 
                              long long k_sb, long long k_st, long long k_sh, long long v_sb,
                              long long v_st, long long v_sh, float scale_log2, int device,
                              void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   const BthdStrides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh}, vs{v_sb, v_st, v_sh};
   cudaStream_t s = (cudaStream_t)stream;

@@ -38,6 +38,7 @@
 // x 64) 1.9e10, 0.12 ms. The sliced variant does (slices + 1) / 2 times
 // that work (each slice recomputes S).
 
+#include "device_guard.cuh"
 #include <math.h>
 
 #include "bthd_attention_f32.cuh"
@@ -56,7 +57,8 @@ extern "C" int pi3_attention_f32(const void* q, const void* k, const void* v, vo
                                  long long v_sb, long long v_st, long long v_sh, float scale,
                                  int device, void* stream) {
   if (D <= 0 || D % 64) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   const BthdStrides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh}, vs{v_sb, v_st, v_sh};
   const auto* qp = static_cast<const float*>(q);
@@ -78,7 +80,8 @@ extern "C" int pi3_partial_attention_f32(const void* q, const void* k, const voi
                                          long long k_sb, long long k_st, long long k_sh,
                                          long long v_sb, long long v_st, long long v_sh,
                                          float scale, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   return launch_attention_f32_tma<kPartialSums>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),

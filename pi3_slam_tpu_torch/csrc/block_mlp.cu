@@ -33,6 +33,7 @@
 // gemm_f32.cuh (TMA + wgmma in TF32 with the 3xTF32 split), fp32 throughout
 // (the hidden activation too).
 
+#include "device_guard.cuh"
 #include <math.h>
 
 #include "gemm_f32.cuh"
@@ -134,7 +135,8 @@ extern "C" int pi3_block_mlp(const void* x, const void* gamma, const void* beta,
                              const void* b1, const void* w2, const void* b2, const void* ls,
                              void* xn, void* hid, void* out, int M, int C, int hidden, float eps,
                              int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
@@ -159,7 +161,8 @@ extern "C" int pi3_block_mlp(const void* x, const void* gamma, const void* beta,
 extern "C" int pi3_mlp(const void* x, const void* w1, const void* b1, const void* w2,
                        const void* b2, void* hid, void* out, int M, int C, int hidden, int device,
                        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   auto* hb = static_cast<__nv_bfloat16*>(hid);
@@ -178,7 +181,8 @@ extern "C" int pi3_block_mlp_f32(const void* x, const void* gamma, const void* b
                                  const void* b1, const void* w2, const void* b2, const void* ls,
                                  void* xn, void* hid, void* out, int M, int C, int hidden,
                                  float eps, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const auto* xf = static_cast<const float*>(x);
@@ -200,7 +204,8 @@ extern "C" int pi3_block_mlp_f32(const void* x, const void* gamma, const void* b
 extern "C" int pi3_mlp_f32(const void* x, const void* w1, const void* b1, const void* w2,
                            const void* b2, void* hid, void* out, int M, int C, int hidden,
                            int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   auto* hf = static_cast<float*>(hid);

@@ -28,6 +28,7 @@
 // Bound on the H100: FLOPs, 4 * T^2 * 64 per (batch, head): 1.76e13 at
 // (1, 65536, 3072), 17.8 ms at 989 TFLOP/s.
 
+#include "device_guard.cuh"
 #include "bthd_attention.cuh"
 
 using namespace pi3;
@@ -36,7 +37,8 @@ using namespace pi3;
 // bf16, contiguous. Returns a cudaError_t.
 extern "C" int pi3_dots_attention(const void* qkv, void* out, int B, int T, int H, int device,
                                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   const long long c = 64ll * H;
   const BthdStrides st{(long long)T * 3 * c, 3 * c, 64};  // q, k and v views of the projection

@@ -47,6 +47,7 @@
 // * setmaxnreg: the producer warpgroup drops to 24 registers, the consumers
 //   take 240 (S 64, P 32 and O 32 of them live at once).
 
+#include "device_guard.cuh"
 #include "hopper.cuh"
 
 using namespace pi3;
@@ -229,7 +230,8 @@ packed_attention_kernel(const __grid_constant__ CUtensorMap qkv_map,
 // cudaError_t: cudaErrorInvalidValue if the tensor map cannot be encoded.
 extern "C" int pi3_packed_attention(const void* qkv, void* out, int B, int T, int H,
                                     int t_valid, float scale_log2, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;

@@ -28,6 +28,7 @@
 // 64,300 queries x 32,150 keys x 16 heads: 8.5 TFLOP per call, 8.6 ms at 989
 // TFLOP/s), and at head dim 64 as many exp2 on the special-function units.
 
+#include "device_guard.cuh"
 #include "bthd_attention.cuh"
 
 using namespace pi3;
@@ -42,7 +43,8 @@ extern "C" int pi3_partial_attention(const void* q, const void* k, const void* v
                                      long long k_sb, long long k_st, long long k_sh,
                                      long long v_sb, long long v_st, long long v_sh,
                                      float scale_log2, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   return launch_bthd_attention<64, kPartialSums>(
       q, k, v, acc, static_cast<const float*>(kn), static_cast<float*>(l), B, Tq, Tk, H,

@@ -42,6 +42,7 @@
 //   are >= 0, so the integer order is the float order). A max does not
 //   depend on the order of its operands, so kn repeats bit for bit.
 
+#include "device_guard.cuh"
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -276,7 +277,8 @@ template <typename Elem>
 int produce(const void* qkv, const void* cos_t, const void* sin_t, const void* qw, const void* qb,
             const void* kw, const void* kb, void* out, void* kn_sq, int B, int T, int out_t, int H,
             float eps, float scale, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   if (H < 1 || T < 0 || out_t < T) return (int)cudaErrorInvalidValue;
   const float* c = static_cast<const float*>(cos_t);

@@ -11,6 +11,7 @@
 //   pi3_attention_f32_depth: the fp32 attention loop at head dim 64
 //     (bthd_attention_f32.cuh) at group depth 4 or 8.
 
+#include "device_guard.cuh"
 #include "bthd_attention_f32.cuh"
 #include "gemm_f32.cuh"
 
@@ -62,7 +63,8 @@ tf32_probe_kernel(const __grid_constant__ CUtensorMap a_map,
 // a (64, 32), w (128, 32) fp32 row-major, 16-byte aligned; out (64, 128)
 // fp32 = a[:, :8] . w[:, :8]^T in one tf32 wgmma. Returns a cudaError_t.
 extern "C" int pi3_tf32_probe(const void* a, const void* w, void* out, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   CUtensorMap a_map, b_map;
   if (!encode_matrix_map(&a_map, a, 64, 32, 64, 4) || !encode_matrix_map(&b_map, w, 128, 32, 128, 4))
@@ -76,7 +78,8 @@ extern "C" int pi3_tf32_probe(const void* a, const void* w, void* out, int devic
 // groups of g8 k8 steps (4, 8, 16 or 32; 0: all of K in one group).
 extern "C" int pi3_gemm_f32_depth(const void* A, const void* W, const void* bias, void* out, int M,
                                   int N, int K, int g8, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   const auto* a = static_cast<const float*>(A);
   const auto* w = static_cast<const float*>(W);
@@ -99,7 +102,8 @@ extern "C" int pi3_gemm_f32_depth(const void* A, const void* W, const void* bias
 extern "C" int pi3_attention_f32_depth(const void* q, const void* k, const void* v, void* out,
                                        int B, int Tq, int Tk, int H, float scale, int g8,
                                        int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   const auto* qp = static_cast<const float*>(q);
   const auto* kp = static_cast<const float*>(k);

@@ -252,11 +252,15 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).to(torch.float32)
 
 
-def voxel_centers(origin: torch.Tensor, voxel_size: torch.Tensor, dims) -> torch.Tensor:
-    """(V, 3) world coordinates of the flat grid's voxel centers, made on
-    ``origin``'s device (flat index -> (x, y, z) by div / mod, z fastest)."""
+def voxel_centers(origin: torch.Tensor, voxel_size: torch.Tensor, dims, v_base: int = 0,
+                  count: int | None = None) -> torch.Tensor:
+    """(count, 3) world coordinates of the voxel centers of flat indices
+    [v_base, v_base + count) (default: the whole grid), made on ``origin``'s
+    device (flat index -> (x, y, z) by div / mod, z fastest). Indices past
+    the grid (a shard's padding) give centers outside it."""
     X, Y, Z = dims
-    idx = torch.arange(X * Y * Z, device=origin.device)
+    count = X * Y * Z if count is None else count
+    idx = torch.arange(v_base, v_base + count, device=origin.device)
     vx = (idx // (Y * Z)).to(torch.float32)
     vy = ((idx // Z) % Y).to(torch.float32)
     vz = (idx % Z).to(torch.float32)
@@ -315,17 +319,18 @@ def _integrate(state, p_w, tab, intr, rot, center, trunc_dist, conf_threshold, d
 
 
 def _fuse_frames(state, frames, origin, voxel_size, trunc_dist, conf_threshold, depth_min,
-                 depth_max, dims, height, width):
+                 depth_max, dims, height, width, v_base: int = 0):
     """Integrate a batch of frames into the flat (tsdf, weight, color) state,
     frame after frame on the state's device (the JAX ``lax.scan`` body).
 
     frames: depth (F, H, W), conf (F, H, W), rgb (F, H, W, 3), intr (F, 4)
     fx fy cx cy, rot (F, 3, 3) world->cam, center (F, 3), device tensors;
     origin (3,) and voxel_size () fp32 device tensors, the other scalars
-    floats (exact in fp32)."""
+    floats (exact in fp32). The state covers the flat voxel indices
+    [v_base, v_base + len)."""
     depth, conf, rgb, intr, rot, center = frames
     F = depth.shape[0]
-    p_w = voxel_centers(origin, voxel_size, dims)
+    p_w = voxel_centers(origin, voxel_size, dims, v_base, state[0].shape[0])
     tab = torch.cat([depth[..., None], conf[..., None], rgb], dim=-1).reshape(
         F, height * width, 5)
     for f in range(F):
@@ -363,12 +368,13 @@ def fuse_tsdf(
     bounds: optional (lo, hi) world box; auto-computed from the
     back-projected depths otherwise. volume: continue integrating into an
     existing volume (incremental / multi-chunk use; its grid wins).
-    mesh: the JAX package's voxel-sharded multi-device fusion, not ported.
+    mesh: a ``parallel.Mesh``: the flat voxel state is split over its
+    ``mesh_axis`` (padded so the shards divide it), shard s on that axis's
+    s-th device, the frames replicated on each; every shard gathers its own
+    voxels (offset ``v_base``), with no collectives, and the state comes back
+    on the first shard's device, equal to single-device fusion. ``device``
+    then only switches TF32 off (``select_device``).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "voxel-sharded TSDF fusion (mesh=) is not yet ported "
-            "(ROADMAP.md Queue 1: multi-device)")
     dev = resolve_device(device)
     depth = np.asarray(depth, np.float32)
     F, H, W = depth.shape
@@ -405,20 +411,53 @@ def fuse_tsdf(
         dims = volume.shape
         vs = volume.voxel_size
         trunc = volume.trunc_dist
-        state = volume.device_state(dev)
+        state = volume.device_state(dev if mesh is None else mesh.device())
 
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    def fuse(state, device, v_base=0):
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
-    frames = (up(depth), up(cf), up(rgb), up(intr), up(rot), up(cen))
-    state = _fuse_frames(
-        state, frames, up(np.asarray(origin, np.float32)),
-        torch.tensor(_f32(vs), dtype=torch.float32, device=dev), _f32(trunc),
-        _f32(config.conf_threshold), _f32(config.depth_min), _f32(config.depth_max),
-        tuple(dims), H, W,
-    )
+        frames = (up(depth), up(cf), up(rgb), up(intr), up(rot), up(cen))
+        return _fuse_frames(
+            state, frames, up(np.asarray(origin, np.float32)),
+            torch.tensor(_f32(vs), dtype=torch.float32, device=device), _f32(trunc),
+            _f32(config.conf_threshold), _f32(config.depth_min), _f32(config.depth_max),
+            tuple(dims), H, W, v_base,
+        )
+
+    if mesh is None:
+        state = fuse(state, dev)
+    else:
+        state = _fuse_sharded(state, fuse, mesh, mesh_axis)
     return TSDFVolume._from_state(state, dims, np.asarray(origin, np.float64), float(vs),
                                   float(trunc))
+
+
+def _fuse_sharded(state, fuse, mesh, axis: str):
+    """The voxel-sharded fusion (the JAX ``_fuse_frames_sharded``): the flat
+    state padded to a multiple of the axis size (tsdf with +1, the rest with
+    0) and split, shard s fused on the axis's s-th device by ``fuse(state,
+    device, v_base)``, shards on distinct devices from threads of their own;
+    the shards are joined on the first device and the padding dropped."""
+    from ..parallel import run_on_devices
+
+    n = mesh.axis_size(axis)
+    devices = [mesh.device(**{axis: s}) for s in range(n)]
+    V = state[0].shape[0]
+    vs = -(-V // n)
+    pad = vs * n - V
+    if pad:
+        state = (torch.nn.functional.pad(state[0], (0, pad), value=1.0),
+                 torch.nn.functional.pad(state[1], (0, pad)),
+                 torch.nn.functional.pad(state[2], (0, 0, 0, pad)))
+
+    def job(s):
+        part = tuple(t[s * vs : (s + 1) * vs].to(devices[s]) for t in state)
+        return fuse(part, devices[s], s * vs)
+
+    parts = run_on_devices([(devices[s], lambda s=s: job(s)) for s in range(n)])
+    lead = devices[0]
+    return tuple(torch.cat([p[i].to(lead) for p in parts])[:V] for i in range(3))
 
 
 def _backproject_sample(depth, conf, intr, rot, cen, cfg, max_per_frame=2048):

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ..ops.interpolate import interpolate_pos_embed
-from .layers import Block, layer_norm, linear
+from .layers import Block, apply_linear, layer_norm
 
 
 @dataclass(frozen=True)
@@ -68,7 +68,7 @@ class DinoVisionTransformer(nn.Module):
         dtype = self.patch_embed.weight.dtype
         p = cfg.patch_size
         b, _, H, W = images.shape
-        tokens = linear(patchify(images.to(dtype), p), self.patch_embed.weight, self.patch_embed.bias)
+        tokens = apply_linear(patchify(images.to(dtype), p), self.patch_embed)
         cls = self.cls_token.to(dtype).expand(b, 1, cfg.embed_dim)
         x = torch.cat([cls, tokens], dim=1)
         pos = self.pos_embed.float()

@@ -24,6 +24,17 @@ PyTorch version. Which kernel a block takes is decided by shape alone.
   attention kernel with Tq != Tk (:func:`merged_kv_attention`).
 * the MLP half: the fused block-MLP kernel where C and hidden are multiples
   of 128, else LayerNorm, :func:`mlp`, LayerScale and the residual.
+
+Under an active device mesh (``parallel/context.py``), as in the JAX layers:
+
+* kv-merge is ignored (every global block exact);
+* with tp > 1 or sp > 1 attention takes the unpacked route
+  (:func:`sharded_attention`): the heads on tp, each tp shard's qkv from the
+  replicated projection, qk-norm and RoPE in plain torch, the rows-6/7
+  kernels or the ring on sp, ``proj`` row-parallel with one all-reduce;
+* with tp > 1 the MLP half is the Megatron pair of plain products
+  (``TPShards.mlp``), else the block-MLP kernel on each dp / sp row shard;
+* with dp only (tp = sp = 1) every block runs its single-device route.
 """
 
 from __future__ import annotations
@@ -35,13 +46,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import SINGLE_PASS_MAX_T, sdpa, sdpa_reference
-from ..ops.block_mlp import block_mlp
 from ..ops.mlp import mlp as fused_mlp
 from ..ops.mlp import mlp_kernel_supported
 from ..ops.packed_attention import attention_single_pass_packed, flash_attention_packed
 from ..ops.partial_attention import flash_attention_partial
 from ..ops.qkv_producer import qkv_rope_producer
 from ..ops.rope import apply_rope
+from ..parallel.context import (
+    current_shards,
+    current_tp_mesh,
+    replicate_over_tp,
+    shard_attention,
+    sharded_block_mlp,
+    to_device,
+)
 
 LOG2_E = math.log2(math.e)
 QK_NORM_EPS = 1e-5
@@ -56,6 +74,14 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: f
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
     """x @ weight^T + bias in x's dtype (weights cast like the JAX path)."""
     return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+
+
+def apply_linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """``layer`` on x: through its tp shards where the active replica splits
+    it (``parallel/mesh.pi3_param_shardings``), else :func:`linear`."""
+    shards = current_shards()
+    y = None if shards is None else shards.linear(x, layer)
+    return linear(x, layer.weight, layer.bias) if y is None else y
 
 
 def mlp(x: torch.Tensor, m: nn.Module) -> torch.Tensor:
@@ -122,8 +148,12 @@ class Block(nn.Module):
         if self.ls1 is not None:
             h = h * self.ls1.to(h.dtype)
         x = x + h
-        if mlp_kernel_supported(x.shape[-1], self.fc1.out_features):
-            return block_mlp(
+        mesh = current_tp_mesh()
+        if mesh is not None and mesh.axis_size("tp") > 1:
+            h = current_shards().mlp(layer_norm(x, self.norm2.weight, self.norm2.bias, self.eps),
+                                     self.fc1, self.fc2)
+        elif mlp_kernel_supported(x.shape[-1], self.fc1.out_features):
+            return sharded_block_mlp(
                 x,
                 self.norm2.weight,
                 self.norm2.bias,
@@ -134,7 +164,8 @@ class Block(nn.Module):
                 ls=self.ls2,
                 eps=self.eps,
             )
-        h = mlp(layer_norm(x, self.norm2.weight, self.norm2.bias, self.eps), self)
+        else:
+            h = mlp(layer_norm(x, self.norm2.weight, self.norm2.bias, self.eps), self)
         if self.ls2 is not None:
             h = h * self.ls2.to(h.dtype)
         return x + h
@@ -151,8 +182,13 @@ def attention(
 
     kv_groups = (n_frames, tokens_per_frame, merge): the global blocks' k/v
     merge; it applies when merge > 1 and merge divides n_frames, and the
-    block takes the exact path otherwise (a 50-frame tail with merge 4)."""
-    if kv_groups is not None and kv_groups[2] > 1 and kv_groups[0] % kv_groups[2] == 0:
+    block takes the exact path otherwise (a 50-frame tail with merge 4), and
+    under an active mesh."""
+    mesh = current_tp_mesh()
+    if mesh is not None and (mesh.axis_size("tp") > 1 or mesh.axis_size("sp") > 1):
+        return sharded_attention(x, attn, rope, mesh)
+    if (kv_groups is not None and kv_groups[2] > 1 and kv_groups[0] % kv_groups[2] == 0
+            and mesh is None):
         return merged_kv_attention(x, attn, rope, kv_groups)
     b, t, c = x.shape
     h = attn.num_heads
@@ -190,15 +226,52 @@ def _qk_norm_rope(
     rope: tuple[torch.Tensor, torch.Tensor] | None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """qk-norm (if ``attn`` has it) and RoPE (if given) on (B, T, H, D)
-    q / k views, in plain torch; v passes through."""
+    q / k views, in plain torch, with the weights and tables on q's device;
+    v passes through."""
     q, k, v = qkv
+    dev = q.device
     if attn.q_norm is not None:
-        q = layer_norm(q, attn.q_norm.weight, attn.q_norm.bias, attn.q_norm.eps)
-        k = layer_norm(k, attn.k_norm.weight, attn.k_norm.bias, attn.k_norm.eps)
+        qn, kn = attn.q_norm, attn.k_norm
+        q = layer_norm(q, to_device(qn.weight, dev), to_device(qn.bias, dev), qn.eps)
+        k = layer_norm(k, to_device(kn.weight, dev), to_device(kn.bias, dev), kn.eps)
     if rope is not None:
-        q = apply_rope(q, *rope)
-        k = apply_rope(k, *rope)
+        cos, sin = rope[0].to(dev), rope[1].to(dev)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+def sharded_attention(
+    x: torch.Tensor,
+    attn: nn.Module,
+    rope: tuple[torch.Tensor, torch.Tensor] | None,
+    mesh,
+) -> torch.Tensor:
+    """The unpacked route under a mesh with tp > 1 or sp > 1 (the JAX
+    ``sharded_sdpa`` path). tp shard j, on its device, projects the
+    replicated x with the replicated qkv weights (the JAX spec keeps qkv
+    whole), keeps its H/tp heads, applies qk-norm and RoPE, attends over its
+    sp devices (``context.shard_attention``) and multiplies by its rows of
+    ``proj``; the partials meet in one all-reduce. With tp 1 the one shard
+    holds every head and ``proj`` is a plain product."""
+    b, t, c = x.shape
+    h = attn.num_heads
+    d = c // h
+    tp = mesh.axis_size("tp")
+    if h % tp:
+        raise ValueError(f"{h} heads do not split over tp {tp}")
+    hs = h // tp
+    outs = []
+    for j in range(tp):
+        dev = mesh.device(tp=j)
+        w, bias = to_device(attn.qkv.weight, dev), to_device(attn.qkv.bias, dev)
+        qkv = linear(x.to(dev), w, bias).view(b, t, 3, h, d)[:, :, :, j * hs : (j + 1) * hs]
+        q, k, v = _qk_norm_rope(qkv.unbind(2), attn, rope)
+        outs.append(shard_attention(q, k, v, mesh.sp_devices(j)).reshape(b, t, hs * d))
+    if tp == 1:
+        return linear(outs[0].to(x.device), attn.proj.weight, attn.proj.bias)
+    partials = [F.linear(o, wp.to(o.dtype)) for o, (wp, _) in zip(outs, current_shards().parts(attn.proj))]
+    return replicate_over_tp(partials, attn.proj.bias, x.device)
 
 
 def merged_kv_attention(

@@ -26,7 +26,7 @@ from ..geometry.transforms import homogenize_points, svd_orthogonalize
 from ..ops.pixel_shuffle import tokens_to_image
 from ..ops.rope import make_patch_positions, rope_tables
 from .dinov2 import VIT_LARGE, DinoV2Config, DinoVisionTransformer
-from .layers import Block, linear
+from .layers import Block, apply_linear
 
 IMAGE_MEAN = (0.485, 0.456, 0.406)
 IMAGE_STD = (0.229, 0.224, 0.225)
@@ -147,11 +147,11 @@ class Pi3(nn.Module):
 
     def _head_decoder_forward(self, dec: TransformerDecoder, hidden, positions) -> torch.Tensor:
         cfg = self.cfg
-        h = linear(hidden, dec.project.weight, dec.project.bias)
+        h = apply_linear(hidden, dec.project)
         rope = rope_tables(positions, h.shape[-1] // cfg.head_num_heads, cfg.rope_base)
         for blk in dec.blocks:
             h = blk(h, rope=rope)
-        return linear(h, dec.out.weight, dec.out.bias)
+        return apply_linear(h, dec.out)
 
     def _camera_head_forward(self, feat: torch.Tensor) -> torch.Tensor:
         """Residual linear blocks, token-mean pool, 2-layer MLP, then fp32
@@ -160,15 +160,15 @@ class Pi3(nn.Module):
         relu = torch.relu
         x = feat
         for rc in p.res_conv:
-            h = relu(linear(x, rc.fc1.weight, rc.fc1.bias))
-            h = relu(linear(h, rc.fc2.weight, rc.fc2.bias))
-            h = relu(linear(h, rc.fc3.weight, rc.fc3.bias))
+            h = relu(apply_linear(x, rc.fc1))
+            h = relu(apply_linear(h, rc.fc2))
+            h = relu(apply_linear(h, rc.fc3))
             x = x + h
         pooled = x.mean(dim=1)
-        h = relu(linear(pooled, p.mlp1.weight, p.mlp1.bias))
-        h32 = relu(linear(h, p.mlp2.weight, p.mlp2.bias)).float()
-        t = linear(h32, p.fc_t.weight, p.fc_t.bias)
-        R = svd_orthogonalize(linear(h32, p.fc_rot.weight, p.fc_rot.bias))
+        h = relu(apply_linear(pooled, p.mlp1))
+        h32 = relu(apply_linear(h, p.mlp2)).float()
+        t = apply_linear(h32, p.fc_t)
+        R = svd_orthogonalize(apply_linear(h32, p.fc_rot))
         pose = torch.zeros((feat.shape[0], 4, 4), dtype=torch.float32, device=feat.device)
         pose[:, :3, :3] = R
         pose[:, :3, 3] = t
@@ -203,14 +203,14 @@ class Pi3(nn.Module):
         reg = cfg.num_register_tokens
         pt = point_hidden[:, reg:].float()
         ret = tokens_to_image(
-            linear(pt, self.point_head.weight, self.point_head.bias), (ph, pw), p, 3
+            apply_linear(pt, self.point_head), (ph, pw), p, 3
         ).reshape(B, N, H, W, 3)
         xy, z = ret[..., :2], ret[..., 2:]
         z = torch.exp(z)
         local_points = torch.cat([xy * z, z], dim=-1)
         cf = conf_hidden[:, reg:].float()
         conf = tokens_to_image(
-            linear(cf, self.conf_head.weight, self.conf_head.bias), (ph, pw), p, 1
+            apply_linear(cf, self.conf_head), (ph, pw), p, 1
         ).reshape(B, N, H, W, 1)
         camera_poses = self._camera_head_forward(camera_hidden[:, reg:]).reshape(B, N, 4, 4)
         points = torch.einsum(

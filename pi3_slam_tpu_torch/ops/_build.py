@@ -10,17 +10,22 @@ package are compiled.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check_launch` turns a non-zero code into an
 exception (a refused launch never runs, and a later synchronise would not
-report it).
+report it). It switches to the tensor's device for the launch and back to the
+thread's device after it (``csrc/device_guard.cuh``).
+
+Threads may launch at once (the replicas of a device mesh,
+``parallel/mesh.py``): a library is built and loaded once under a lock, and
+the launch counts are incremented under another.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -90,11 +95,19 @@ def build(name: str) -> tuple[Path, float]:
     return so, seconds
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+_LIBRARIES: dict[str, ctypes.CDLL] = {}
+
+
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
-    so, _ = build(name)
-    return ctypes.CDLL(str(so))
+    """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library, once
+    a process: a thread that asks while another builds waits for that build."""
+    with _LOAD_LOCK:
+        if name not in _LIBRARIES:
+            so, _ = build(name)
+            _LIBRARIES[name] = ctypes.CDLL(str(so))
+        return _LIBRARIES[name]
 
 
 def check_launch(code: int, what: str) -> None:
@@ -104,11 +117,13 @@ def check_launch(code: int, what: str) -> None:
 
 def count_launch(wrapper, fp32: bool) -> None:
     """One launch of a wrapper's fp32 kernel (``launches_fp32``) or of its
-    bf16 one (``launches``)."""
-    if fp32:
-        wrapper.launches_fp32 += 1
-    else:
-        wrapper.launches += 1
+    bf16 one (``launches``), counted under a lock: the read-modify-write of
+    two threads launching at once would lose one."""
+    with _COUNT_LOCK:
+        if fp32:
+            wrapper.launches_fp32 += 1
+        else:
+            wrapper.launches += 1
 
 
 def is_fp32(x: torch.Tensor, what: str) -> bool:

@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from ._build import check_launch, load_library
+from ._build import check_launch, count_launch, load_library
 
 HEAD_DIM = 64
 Q_BLOCK = 1024  # queries per block of the plain version
@@ -75,7 +75,7 @@ def dots_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     code = _kernel()(qkv.data_ptr(), out.data_ptr(), b, t, num_heads, qkv.device.index,
                      torch.cuda.current_stream(qkv.device).cuda_stream)
     check_launch(code, "dots_attention")
-    dots_attention.launches += 1
+    count_launch(dots_attention, False)
     return out
 
 

@@ -11,9 +11,11 @@ the reprojection-debug GIFs), on the GPU by default.
 
 Same flags as the JAX package's ``pi3_slam_online.py`` (image folder, glob or
 list, or ``--video``; the reference's underscore spellings as aliases).
-Flags that name parts not ported yet exit 2 with a message naming their
-ROADMAP.md entry. ``--device cuda`` (the default) needs a CUDA device;
-``--device cpu`` is the explicit CPU mode. Writes ``final_points.ply`` and
+``--device cuda`` (the default) needs a CUDA device; ``--device cpu`` is the
+explicit CPU mode. The device mesh of ``--data-parallel-chunks``,
+``--tensor-parallel`` and ``--sequence-parallel`` is laid over every visible
+card on ``cuda`` and over the one host device on ``cpu``, clamped as the JAX
+CLI clamps it. Writes ``final_points.ply`` and
 ``trajectory_tum.txt`` (and ``trajectory.tum`` with ``--save-tum``, and
 ``fused_mesh.ply`` with ``--export-mesh``).
 """
@@ -62,11 +64,12 @@ def build_parser() -> argparse.ArgumentParser:
     g_proc.add_argument("--pixel-limit", type=int, default=255000 // 2)
     g_proc.add_argument("--num-workers", type=int, default=2)
     g_proc.add_argument("--data-parallel-chunks", type=int, default=1,
-                        help="Chunks per step over several devices (only 1 is ported)")
+                        help="Chunks per step, one on each dp replica of the device mesh")
     g_proc.add_argument("--tensor-parallel", type=int, default=1,
-                        help="Tensor parallelism over heads / hidden (only 1 is ported)")
+                        help="Tensor parallelism over heads / hidden (dp x tp devices a step)")
     g_proc.add_argument("--sequence-parallel", type=int, default=1,
-                        help="Ring attention over several devices (only 1 is ported)")
+                        help="Ring attention over the sp mesh axis for the global attention "
+                             "(dp x tp x sp devices a step)")
     g_proc.add_argument("--no-overlap", dest="overlap_device_host", action="store_false",
                         help="Disable the infer/reconstruction overlap (strictly serial)")
     g_proc.add_argument("--no-pad-tail", dest="pad_tail_chunks", action="store_false",
@@ -221,14 +224,14 @@ def run_online(argv=None) -> dict:
     ``loop_closure`` (``apply_loop_closure``'s statistics, None without
     ``--loop-closure``), ``telemetry`` (``apply_telemetry``'s statistics, None
     without ``--telemetry``) and ``artifacts`` (output paths). Exits with code
-    2 on an unported flag or when no frame is found."""
+    2 when no frame is found."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.no_visualization:
         args.visualize = False
 
     from .slam.config import OnlineConfig
-    from .slam.online import Pi3SLAMOnline, unported
+    from .slam.online import Pi3SLAMOnline
 
     config = OnlineConfig(
         chunk_length=args.chunk_length,
@@ -277,9 +280,6 @@ def run_online(argv=None) -> dict:
         save_volume=args.save_volume,
         live_mesh_every=args.live_mesh_every,
     )
-    msg = unported(config)
-    if msg:
-        parser.error(msg)
     paths = _frames(args, parser)
     print(f"{len(paths)} frames")
 

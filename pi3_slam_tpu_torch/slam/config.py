@@ -49,7 +49,17 @@ class OfflineCreatorConfig:
     save_dense: bool = False
     dense_stride: int = 1
     resume: bool = False  # skip chunks whose files already exist
-    # torch.profiler trace of chunk 1 (the first after warm-up) into this dir
+    # chunk-level data parallelism: this many chunks a step, one on each dp
+    # replica of the device mesh (1 = the single-device path)
+    data_parallel_chunks: int = 1
+    # tensor parallelism over attention heads / MLP hidden (the Megatron
+    # split of parallel/mesh.py); dp * tp devices are used a step
+    tensor_parallel: int = 1
+    # sequence parallelism: ring attention over the sp mesh axis for the
+    # global attention (parallel/ring.py); dp * tp * sp devices a step
+    sequence_parallel: int = 1
+    # torch.profiler trace of chunk 1 (the first after warm-up; with dp > 1
+    # the second group) into this dir
     profile_dir: Optional[str] = None
     # ZNCC refinement of the observation fan inside the chunk step
     # (ops/correlation.py); the reconstructor then uses the stored fan
@@ -118,9 +128,7 @@ class ReconstructorConfig:
 @dataclass
 class OnlineConfig:
     """Port of the JAX package's ``OnlineConfig``: the same fields and
-    defaults, plus ``device``. The multi-device fields, not ported yet, are
-    kept so a config reads the same; ``Pi3SLAMOnline`` refuses them above 1
-    (``slam.online.unported``)."""
+    defaults, plus ``device``."""
 
     chunk_length: int = 30
     overlap: int = 5
@@ -182,6 +190,8 @@ class OnlineConfig:
     # (on the card the consumer thread works on a CUDA stream of its own),
     # 'cpu' = the host
     sfm_backend: str = "auto"
+    # the device mesh (see OfflineCreatorConfig); dp > 1 groups that many
+    # chunks a step
     data_parallel_chunks: int = 1
     tensor_parallel: int = 1
     sequence_parallel: int = 1

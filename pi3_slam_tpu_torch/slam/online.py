@@ -1,6 +1,6 @@
 """Online (streaming) SLAM: chunked inference with incremental alignment.
 
-Port of ``pi3_slam_tpu/slam/online.py`` (``Pi3SLAMOnline``) on one device:
+Port of ``pi3_slam_tpu/slam/online.py`` (``Pi3SLAMOnline``):
 
 * each chunk's step (the Pi3 forward, masks, intrinsics, keypoint sampling)
   and MoGe-2 on its first frame are enqueued on the device and stay in
@@ -48,10 +48,20 @@ SfM device). The frame and keypoints the viewer gets are host arrays (the
 loader's batch and the detector's host copy), so the consumer thread reads
 no device tensor for it. A failure of either is printed and skipped.
 
+On a device mesh (``data_parallel_chunks``, ``tensor_parallel``,
+``sequence_parallel``; ``parallel/``, as the offline creator sets it up) the
+step is ``chunk_creator.make_sharded_chunk_step``. With dp > 1 the drive
+thread takes the chunks dp at a time (:meth:`Pi3SLAMOnline._dispatch_group`,
+the group padded to dp by repeating its last chunk, one chunk on each dp
+replica's device, MoGe-2 on each first frame there) and pulls a group
+(:meth:`Pi3SLAMOnline._finish_group`) one group behind, so group k + 1
+computes while group k is consumed; the group's chunks are then consumed in
+order as single chunks are.
+
 An error in the consumer stops it and reaches the caller from the drive
 thread; no chunk is consumed twice. The JAX class's backend-reset recovery
-and its multi-device parts are not ported: ``unported`` names their
-ROADMAP.md entry and the class refuses a config that asks for them.
+(and the redo of a group after ``UNAVAILABLE`` / ``crashed``) is not ported:
+a CUDA fault is sticky to its context.
 """
 
 from __future__ import annotations
@@ -76,35 +86,26 @@ from ..io.ply import write_ply
 from ..io.tum import write_tum_trajectory
 from ..models.pi3 import Pi3Config
 from ..ops import launch_counts
+from ..parallel import mesh_devices
 from ..sfm.alignment import align_chunks
 from ..sfm.reconstruction import ChunkReconstruction, build_chunk_reconstruction
 from ..sfm.serialization import render_debug_projections, save_reconstruction
 from ..utils.timing import TimingStats
 from .chunk_creator import (
-    _fan_table,
     _store_dense_maps,
-    detect,
+    group_compatible,
     host_outputs,
     load_models,
     make_chunk_step,
     make_keypoint_extractor,
+    make_sharded_chunk_step,
     metric_scale,
-    pad_tail,
+    prepare_chunk,
     refine_settings,
+    setup_mesh,
     slice_tail,
 )
 from .config import OnlineConfig
-
-
-def unported(config: OnlineConfig) -> str | None:
-    """The message for the first part ``config`` asks for that the port
-    lacks, or None; each names its ROADMAP.md entry."""
-    for flag, value in (("--data-parallel-chunks", config.data_parallel_chunks),
-                        ("--tensor-parallel", config.tensor_parallel),
-                        ("--sequence-parallel", config.sequence_parallel)):
-        if value > 1:
-            return f"{flag} > 1 is not yet ported (ROADMAP.md Queue 1: multi-device)"
-    return None
 
 
 def _host(x):
@@ -123,10 +124,11 @@ _DONE = object()
 
 
 class Pi3SLAMOnline:
-    def __init__(self, config: OnlineConfig, pi3_config: Pi3Config | None = None):
-        msg = unported(config)
-        if msg:
-            raise NotImplementedError(msg)
+    def __init__(self, config: OnlineConfig, pi3_config: Pi3Config | None = None,
+                 devices: list | None = None):
+        """``devices``: the device list a mesh is laid over (None: every
+        visible card on ``cuda``, the one device on ``cpu``); used only when
+        the config asks for dp, tp or sp above 1."""
         if config.sfm_backend not in ("auto", "default", "cpu"):
             raise ValueError(f"sfm_backend {config.sfm_backend!r}: use 'auto', 'default' or 'cpu'")
         self.config = config
@@ -136,11 +138,11 @@ class Pi3SLAMOnline:
         self.sfm_device = torch.device("cpu") if config.sfm_backend == "cpu" else self.device
         self.undistorter = create_undistorter(config.cam_dist_path) if config.cam_dist_path else None
         self.keypoint_extractor = make_keypoint_extractor(config, self.device)
-        self.step = make_chunk_step(
-            self.model, config.conf_threshold, config.depth_edge_rtol,
-            config.estimate_camera_params, return_dense=self._dense_on(),
-            dense_stride=config.dense_stride, refine_obs=refine_settings(config),
-        )
+        self.mesh = setup_mesh(config, mesh_devices(self.device) if devices is None else devices,
+                               "online device mesh")
+        if self.mesh is not None and self.moge is not None:
+            self.moge.shard_params(self.mesh)
+        self._make_steps()
         self.reconstructions: List[ChunkReconstruction] = []
         self.alignment_results = []
         self.timing = TimingStats()
@@ -155,6 +157,20 @@ class Pi3SLAMOnline:
 
             self.visualizer = OnlineVisualizer(port=config.viz_port)
 
+    def _make_steps(self) -> None:
+        """The chunk step: the single-device one, or on a mesh the sharded
+        step (``_group_step``) with ``step`` running one chunk through it."""
+        cfg = self.config
+        kw = dict(conf_threshold=cfg.conf_threshold, edge_rtol=cfg.depth_edge_rtol,
+                  estimate_intrinsics=cfg.estimate_camera_params, return_dense=self._dense_on(),
+                  dense_stride=cfg.dense_stride, refine_obs=refine_settings(cfg))
+        self._group_step = None
+        if self.mesh is None:
+            self.step = make_chunk_step(self.model, **kw)
+            return
+        self._group_step = make_sharded_chunk_step(self.model, mesh=self.mesh, **kw)
+        self.step = self._group_step.one
+
     def _dense_on(self) -> bool:
         """Whether chunks stash their dense maps (mesh export needs them)."""
         cfg = self.config
@@ -167,26 +183,14 @@ class Pi3SLAMOnline:
         ``overlap_device_host`` the outputs stay device tensors (the forward
         in flight while the host consumes the previous chunk) and an event
         marks their end; without it they are pulled here."""
-        images = batch["images"]
-        N = images.shape[0]
         launches0 = launch_counts()
         with self.timing.track("dispatch"):
-            imgs = torch.from_numpy(images).to(self.device, non_blocking=True)
-            kps, det, _ = detect(self.keypoint_extractor, imgs, self.config.max_keypoints)
-            target = self.config.chunk_length if self.config.pad_tail_chunks else 0
-            if N < target:
-                imgs_np, kps_dev = pad_tail(images, kps, target)
-                imgs = torch.from_numpy(imgs_np).to(self.device, non_blocking=True)
-            else:
-                kps_dev = kps
-            cand = None
-            if self.config.refine_observations:
-                cand = torch.from_numpy(_fan_table(N, imgs.shape[0],
-                                                   self.config.refine_max_observations))
-                cand = cand.to(self.device)
-            dev = self.step(imgs, torch.from_numpy(kps_dev).to(self.device), cand)
+            prep = prepare_chunk(self.config, self.keypoint_extractor, self.device,
+                                 batch["images"], self.device)
+            dev = self.step(prep["imgs"], prep["kps_dev"], prep["cand"])
             # the first frame is sliced from the uploaded chunk
-            moge_depth = self.moge.infer_depth_async(imgs[0]) if self.moge is not None else None
+            moge_depth = (self.moge.infer_depth_async(prep["imgs"][0])
+                          if self.moge is not None else None)
             ready = None
             if not self.config.overlap_device_host:
                 dev = host_outputs(dev)
@@ -196,8 +200,64 @@ class Pi3SLAMOnline:
                 ready.record()
         self.chunk_launches.append({k: v - launches0[k] for k, v in launch_counts().items()})
         self._produced += 1
-        return {"dev": dev, "moge_depth": moge_depth, "ready": ready, "kps": kps, "det": det,
-                "batch": batch}
+        return {"dev": dev, "moge_depth": moge_depth, "ready": ready, "kps": prep["kps"],
+                "det": prep["det"], "batch": batch}
+
+    def _dispatch_group(self, group: List[Dict], dp: int) -> Dict:
+        """Enqueue one dp group: ``group`` padded to dp by repeating its last
+        chunk, each chunk uploaded to its replica's device, the sharded step,
+        and MoGe-2 on the first frames behind it. The group's kernel launches
+        are recorded on its first chunk (its other chunks record none)."""
+        n_real = len(group)
+        padded = group + [group[-1]] * (dp - n_real)
+        launches0 = launch_counts()
+        with self.timing.track("dispatch"):
+            preps = [prepare_chunk(self.config, self.keypoint_extractor, self.device,
+                                   b["images"], self._group_step.device_of(i, dp))
+                     for i, b in enumerate(padded)]
+            cand = None if preps[0]["cand"] is None else [p["cand"] for p in preps]
+            devs = self._group_step([p["imgs"] for p in preps], [p["kps_dev"] for p in preps],
+                                    cand)
+            moge = (self.moge.infer_depth_batch_async([p["imgs"][0] for p in preps])
+                    if self.moge is not None else None)
+        launches = {k: v - launches0[k] for k, v in launch_counts().items()}
+        self.chunk_launches += [launches] + [dict.fromkeys(launches, 0)] * (n_real - 1)
+        self._produced += n_real
+        return {"devs": devs, "moge": moge, "preps": preps, "group": list(group), "n_real": n_real}
+
+    def _finish_group(self, pending: Dict) -> List[Dict]:
+        """Pull a dispatched group (the synchronisation point) into consume
+        items of its real chunks, in order."""
+        n = pending["n_real"]
+        with self.timing.track("materialize"):
+            hosts = [host_outputs(d) for d in pending["devs"][:n]]
+            moge = ([_host(d) for d in pending["moge"][:n]] if pending["moge"] is not None
+                    else [None] * n)
+        return [{"dev": hosts[b], "moge_depth": moge[b], "ready": None,
+                 "kps": pending["preps"][b]["kps"], "det": pending["preps"][b]["det"],
+                 "batch": pending["group"][b]} for b in range(n)]
+
+    def _group_items(self, loader, dp: int, depth: int):
+        """Consume items of dp groups in chunk order: a group is dispatched
+        when it holds dp chunks, when the next chunk does not fit it
+        (``group_compatible``) or at the end, and pulled once more than
+        ``depth`` groups are in flight."""
+        group: List[Dict] = []
+        pending: List[Dict] = []
+        for batch in loader:
+            if not group_compatible(group, batch, self.config.pad_tail_chunks):
+                pending.append(self._dispatch_group(group, dp))
+                group = []
+            group.append(batch)
+            if len(group) == dp:
+                pending.append(self._dispatch_group(group, dp))
+                group = []
+            while len(pending) > depth:
+                yield from self._finish_group(pending.pop(0))
+        if group:
+            pending.append(self._dispatch_group(group, dp))
+        while pending:
+            yield from self._finish_group(pending.pop(0))
 
     def _consume(self, pending: Dict) -> ChunkReconstruction:
         """Build and finish one chunk on the calling thread."""
@@ -511,7 +571,7 @@ class Pi3SLAMOnline:
             "chunks_produced": self._produced,
             "chunks_consumed": self._consumed,
             "chunks_inflight": self._produced - self._consumed,
-            "data_parallel_chunks": self.config.data_parallel_chunks,
+            "data_parallel_chunks": self.mesh.axis_size("dp") if self.mesh is not None else 1,
             "overlap_device_host": self.config.overlap_device_host,
             "alignments": len(self.alignment_results),
             "alignment_failures": sum(1 for r in self.alignment_results if not r.success),
@@ -538,14 +598,22 @@ class Pi3SLAMOnline:
         loader = PrefetchLoader(dataset, num_workers=cfg.num_loader_workers)
 
         t_start = time.time()
+        dp = cfg.data_parallel_chunks if self.mesh is not None else 1
+        if dp > 1:
+            # dp groups pipeline one group deep (with overlap_device_host)
+            # inside the generator; their items are pulled already
+            items = self._group_items(loader, dp, 1 if pipelined and cfg.overlap_device_host else 0)
+            depth = 0
+        else:
+            items = (self._dispatch_device(batch) for batch in loader)
+            depth = 1 if pipelined else 0
         if pipelined and cfg.overlap_device_host and cfg.async_sfm:
-            frames_done = self._drive_async(loader)
+            frames_done = self._drive_async(items)
         else:
             frames_done = 0
-            depth = 1 if pipelined else 0
             pending: List[Dict] = []  # dispatched, not yet consumed (in order)
-            for batch in loader:
-                pending.append(self._dispatch_device(batch))
+            for item in items:
+                pending.append(item)
                 while len(pending) > depth:
                     item = pending.pop(0)
                     self._consume(item)
@@ -568,10 +636,10 @@ class Pi3SLAMOnline:
             return None
         return torch.cuda.Stream(self.device, priority=-1)
 
-    def _drive_async(self, loader) -> int:
-        """The drive thread dispatches; an ``sfm-consumer`` thread finishes
-        chunks in order while a one-worker ``sfm-build`` executor builds the
-        next one. The queue holds at most two dispatched chunks. On an error
+    def _drive_async(self, items) -> int:
+        """The drive thread dispatches (draws ``items``, the dispatched
+        chunks); an ``sfm-consumer`` thread finishes chunks in order while a
+        one-worker ``sfm-build`` executor builds the next one. The queue holds at most two dispatched chunks. On an error
         the consumer waits for its lookahead build and exits; the drive thread
         re-raises the error at its next enqueue or at the drain, and no chunk
         is consumed again. Returns the frames consumed."""
@@ -635,8 +703,8 @@ class Pi3SLAMOnline:
                     continue
 
         try:
-            for batch in loader:
-                enqueue(self._dispatch_device(batch))
+            for item in items:
+                enqueue(item)
             enqueue(_DONE)
             consumer.join()
             service()

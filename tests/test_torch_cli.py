@@ -1,6 +1,6 @@
 """The port's chunk-creation CLI: the same options as the JAX package's
-``create_offline_chunks.py``, a clear non-zero exit for every flag that
-names a part not ported yet, no quiet CPU fallback for ``--device cuda``,
+``create_offline_chunks.py``, the parallel flags clamped to the one device
+of ``--device cpu``, no quiet CPU fallback for ``--device cuda``,
 the JAX creator's contract for a missing MoGe checkpoint (a message, no
 metric scale) and an error for a bad one, and ``--global-kv-merge``.
 """
@@ -45,20 +45,28 @@ def test_defaults_match_except_device():
 
 
 @pytest.mark.parametrize(
-    "flags,entry",
-    [
-        (["--no-metric-depth", "--data-parallel-chunks", "2"], "multi-device"),
-        (["--no-metric-depth", "--tensor-parallel", "2"], "multi-device"),
-        (["--no-metric-depth", "--sequence-parallel", "2"], "multi-device"),
-    ],
-)
-def test_unported_flags_exit_nonzero(tmp_path, capsys, flags, entry):
-    with pytest.raises(SystemExit) as exc:
-        torch_cli.main(["--images", str(tmp_path), "--output", str(tmp_path / "out")] + flags)
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "ROADMAP.md" in err and entry in err
-    assert not (tmp_path / "out").exists()
+    "flag", ["--data-parallel-chunks", "--tensor-parallel", "--sequence-parallel"])
+def test_parallel_flags_clamp_to_one_cpu_device(tmp_path, capsys, flag):
+    """--device cpu lays the mesh over one device: each parallel flag at 2 is
+    clamped to the single-device path, as the JAX CLI clamps it on one chip,
+    and writes the same chunk files, bit for bit, as a run without it."""
+    import numpy as np
+
+    args = _tiny_checkpoint_and_frames(tmp_path)
+    out = args.index("--output") + 1
+    base = list(args)
+    base[out] = str(tmp_path / "base")
+    assert torch_cli.main(base) == 0
+    assert torch_cli.main(args + [flag, "2"]) == 0
+    assert "device mesh" not in capsys.readouterr().out
+    names = sorted(os.listdir(tmp_path / "base" / "chunks"))
+    assert names == sorted(os.listdir(tmp_path / "out" / "chunks")) and len(names) == 3
+    for name in names:
+        with np.load(tmp_path / "base" / "chunks" / name) as a, \
+                np.load(tmp_path / "out" / "chunks" / name) as b:
+            assert a.files == b.files
+            for key in a.files:
+                np.testing.assert_array_equal(b[key], a[key], err_msg=key)
 
 
 def test_cuda_without_a_device_raises(monkeypatch):

@@ -1084,3 +1084,124 @@ def test_tsdf_fusion_on_the_card_repeats_bit_for_bit_and_agrees_with_the_host(ge
     a = raycast_depth(card[0], intr, R, c, h, w, device="cuda")
     b = raycast_depth(host, intr, R, c, h, w, device="cpu")
     assert (a["mask"] == b["mask"]).mean() >= 0.999 and a["mask"].mean() > 0.2
+
+
+# ----- threads and devices through the wrappers (the replicas of a device mesh) -----
+
+
+def _partial_inputs(gen, dev, t=300):
+    q, k, v = (_randn(gen, 1, t, 2, D).to(dev) for _ in range(3))
+    kn = k.float().square().sum(-1).amax(dim=1).sqrt()
+    return q, k, v, kn
+
+
+@pytest.mark.cuda
+def test_a_launch_leaves_the_calling_threads_device(gen):
+    """Every launcher switches to its tensor's device for the launch and
+    back after it (csrc/device_guard.cuh): a launch on each card, from this
+    thread and from a new one, leaves the thread on cuda:0, where an
+    allocation without an index then lands."""
+    import threading
+
+    def launch_everywhere():
+        torch.cuda.set_device(0)
+        for d in range(torch.cuda.device_count()):
+            dev = torch.device("cuda", d)
+            q, k, v, kn = _partial_inputs(gen, dev)
+            flash_attention_partial(q, k, v, kn)
+            attention_single_pass(q, k, v)
+            x = _randn(gen, 40, 128).to(dev)
+            w1, w2 = _randn(gen, 512, 128, scale=0.05).to(dev), _randn(gen, 128, 512, scale=0.05).to(dev)
+            ones, zeros = torch.ones(128, device=dev), torch.zeros(128, device=dev)
+            block_mlp(x, ones, zeros, w1, torch.zeros(512, device=dev), w2, zeros)
+            assert torch.cuda.current_device() == 0
+            assert torch.empty(1, device="cuda").device.index == 0
+        torch.cuda.synchronize()
+
+    launch_everywhere()
+    errors = []
+    t = threading.Thread(target=lambda: errors.append(launch_everywhere()))
+    t.start()
+    t.join()
+    assert errors == [None]
+
+
+@pytest.mark.cuda
+def test_threads_launching_at_once_are_all_counted_and_agree(gen):
+    """Eight threads launch the partial kernel 25 times each at once (the
+    replicas of a mesh on one card): the count grows by exactly 200, and
+    every output equals the one-thread output bit for bit."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    q, k, v, kn = _partial_inputs(gen, "cuda")
+    ref = flash_attention_partial(q, k, v, kn)
+    torch.cuda.synchronize()
+    before = launch_counts()["flash_attention_partial"]
+
+    def run(_):
+        outs = [flash_attention_partial(q, k, v, kn) for _ in range(25)]
+        torch.cuda.current_stream().synchronize()
+        return outs
+
+    with ThreadPoolExecutor(8) as pool:
+        results = [o for outs in pool.map(run, range(8)) for o in outs]
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_partial"] - before == 200
+    for acc, l in results:
+        assert torch.equal(acc, ref[0]) and torch.equal(l, ref[1])
+
+
+@pytest.mark.cuda
+def test_a_first_build_from_eight_threads_compiles_once(gen, tmp_path, monkeypatch):
+    """Eight threads ask for one library that is not built yet (an empty
+    build directory): nvcc runs once, under the lock, and every thread gets
+    the same handle."""
+    import threading
+
+    from pi3_slam_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIBRARIES", {})
+    builds = []
+    build = _build.build
+    monkeypatch.setattr(_build, "build", lambda name: builds.append(build(name)) or builds[-1])
+    handles = []
+    threads = [threading.Thread(target=lambda: handles.append(_build.load_library("dots_attention")))
+               for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(builds) == 1 and builds[0][1] > 0  # compiled, once
+    assert len(handles) == 8 and len({id(h) for h in handles}) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_the_ring_launches_row_5_at_every_step_and_raises_off_its_head_dim(gen, dtype):
+    """ring_attention over two sequence shards on the card: each of its 4
+    steps is a counted row-5 launch (bf16 or fp32 entry), and its output, 20
+    zero-padded tail keys taken out by their count, holds against plain
+    attention over the real keys (ATTENTION in bf16, FP32 in fp32). At head
+    dim 128, which row 5 has no kernel for, the ring raises rather than run
+    a plain step on the card."""
+    from pi3_slam_tpu_torch.ops.attention import sdpa_reference
+    from pi3_slam_tpu_torch.parallel.ring import ring_attention
+
+    t, n_pad = 600, 20
+    q, k, v = (_randn(gen, 1, t, 4, D).to(dtype) for _ in range(3))
+    for x in (q, k, v):
+        x[:, t - n_pad :] = 0
+    key = "flash_attention_partial" + ("_fp32" if dtype == torch.float32 else "")
+    before = launch_counts()[key]
+    out = ring_attention(*[[x[:, : t // 2], x[:, t // 2 :]] for x in (q, k, v)], n_pad=n_pad)
+    assert launch_counts()[key] - before == 4
+    got = torch.cat(out, dim=1)[:, : t - n_pad]
+    real = [x[:, : t - n_pad] for x in (q, k, v)]
+    if dtype == torch.bfloat16:
+        _assert_close(got, blockwise_attention(*real), **ATTENTION)
+    else:
+        _assert_close(got, sdpa_reference(*real), **FP32)
+    wide = [_randn(gen, 1, t, 2, 128).to(dtype) for _ in range(3)]
+    with pytest.raises(ValueError, match="head dim 64"):
+        ring_attention(*[[x[:, : t // 2], x[:, t // 2 :]] for x in wide])

@@ -11,6 +11,8 @@ ray-sphere intersection). Tolerances:
   (FMA chains), so both pick the same pixel for every voxel and the weights
   agree exactly; tsdf and colour within 1e-5 (XLA contracts the running
   average's products into FMAs, the port rounds each: 1-2 ulp);
+* ``fuse_tsdf(mesh=)``: bit for bit the port's single-device fusion (each
+  voxel's update reads only its own row), and the JAX sharded fusion as above;
 * ``raycast_depth``: 192 steps of trilinear samples from volumes 1e-7 apart:
   the hit masks on 99.9% of the rays and depth within 1e-4 on the rays both
   hit;
@@ -270,10 +272,36 @@ def test_confidence_below_the_gate_everywhere_raises_as_in_jax():
         jmap.fuse_tsdf(depths, intrs, rots, cens, conf=conf)
 
 
-def test_sharded_fusion_is_refused_naming_multi_device():
-    depths, intrs, rots, cens = _sphere_views(n_views=2, h=12, w=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: multi-device"):
-        tmap.fuse_tsdf(depths, intrs, rots, cens, mesh=object(), device="cpu")
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_voxel_sharded_fusion_equals_single_device_and_matches_jax(n_shards):
+    """fuse_tsdf(mesh=) over a CPU mesh built through ``devices=``: the flat
+    state split over the dp axis (padded where the shards do not divide it:
+    4 shards of a grid whose voxel count 4 does not divide), each shard
+    gathering its own voxels. Bit for bit the port's single-device fusion,
+    fresh and continued (``volume=``); within FUSE_TOL of the JAX package's
+    sharded fusion on the same shard count."""
+    from pi3_slam_tpu.parallel import make_mesh as jax_make_mesh
+
+    from pi3_slam_tpu_torch.parallel import make_mesh
+
+    depths, intrs, rots, cens = _sphere_views(n_views=4, h=24, w=32)
+    cfg = dict(voxel_size=0.1)
+    mesh = make_mesh(n_shards, 1, devices=["cpu"] * n_shards)
+    one = tmap.fuse_tsdf(depths, intrs, rots, cens, config=tmap.TSDFConfig(**cfg), device="cpu")
+    got = tmap.fuse_tsdf(depths, intrs, rots, cens, config=tmap.TSDFConfig(**cfg), mesh=mesh,
+                         device="cpu")
+    if n_shards == 4:
+        assert np.prod(got.shape) % 4
+    for name in ("tsdf", "weight", "color"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(one, name), err_msg=name)
+    more = _sphere_views(n_views=2, h=24, w=32)
+    got2 = tmap.fuse_tsdf(*more, volume=got, mesh=mesh, device="cpu")
+    one2 = tmap.fuse_tsdf(*more, volume=one, device="cpu")
+    for name in ("tsdf", "weight", "color"):
+        np.testing.assert_array_equal(getattr(got2, name), getattr(one2, name), err_msg=name)
+    want = jmap.fuse_tsdf(depths, intrs, rots, cens, config=jmap.TSDFConfig(**cfg),
+                          mesh=jax_make_mesh(n_shards, 1), mesh_axis="dp")
+    _same_volume(got, want)
 
 
 def test_cuda_without_a_device_is_refused(monkeypatch):

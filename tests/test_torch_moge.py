@@ -156,6 +156,29 @@ def test_moge_forward_matches_jax(tree, model, image):
                                rtol=1e-5)
 
 
+def _hold_depth(got, want, img, out, model, num_tokens):
+    """The port's depth ``got`` against JAX's ``want`` for one (3, H, W)
+    image, given the shift of the JAX forward's output ``out`` (see
+    test_moge_infer_depth_matches_jax)."""
+    pts, mask = np.asarray(out["points"][0]), np.asarray(out["mask"][0]) > 0.5
+    scale = float(out["metric_scale"][0])
+    from pi3_slam_tpu.geometry.focal import recover_focal_shift
+
+    _, jshift = recover_focal_shift(jnp.asarray(pts[None]), jnp.asarray(mask[None]))
+    with torch.no_grad():
+        port_out = model(torch.from_numpy(img[None]), num_tokens)
+        z = port_out["points"][0, ..., 2].numpy()
+    assert got.shape == want.shape == img.shape[1:]
+    finite = np.isfinite(got)
+    assert finite.sum() >= 10  # enough valid pixels for a metric scale
+    shift = got[finite] / scale - z[finite]  # the port's own shift, per pixel
+    np.testing.assert_allclose(shift, shift.mean(), atol=1e-4)
+    given = (z + float(jshift[0])) * scale
+    both = finite & np.isfinite(want)
+    _close(given[both], want[both], 1e-4, "depth given the JAX shift")
+    assert (finite != np.isfinite(want)).mean() < 0.01
+
+
 def test_moge_infer_depth_matches_jax(tree, model, image):
     """Depth = (z + shift) * metric_scale inside the mask, inf outside. The
     focal / shift solve on random-weight points can be ill-posed (ROADMAP
@@ -165,25 +188,43 @@ def test_moge_infer_depth_matches_jax(tree, model, image):
     jtree = _to_jax(tree)
     img = image[0]
     want = np.asarray(jm.moge_infer_depth(jtree, jnp.asarray(img), JAX_CFG, NUM_TOKENS))
-    out = jm.moge_forward(jtree, jnp.asarray(img[None]), JAX_CFG, NUM_TOKENS)
-    pts, mask = np.asarray(out["points"][0]), np.asarray(out["mask"][0]) > 0.5
-    scale = float(out["metric_scale"][0])
-    from pi3_slam_tpu.geometry.focal import recover_focal_shift
-
-    _, jshift = recover_focal_shift(jnp.asarray(pts[None]), jnp.asarray(mask[None]))
     with torch.no_grad():
         got = tm.moge_infer_depth(model, torch.from_numpy(img), NUM_TOKENS).numpy()
-        port_out = model(torch.from_numpy(image), NUM_TOKENS)
-        z = port_out["points"][0, ..., 2].numpy()
-    assert got.shape == want.shape == (140, 140)
-    finite = np.isfinite(got)
-    assert finite.sum() >= 10  # enough valid pixels for a metric scale
-    shift = got[finite] / scale - z[finite]  # the port's own shift, per pixel
-    np.testing.assert_allclose(shift, shift.mean(), atol=1e-4)
-    given = (z + float(jshift[0])) * scale
-    both = finite & np.isfinite(want)
-    _close(given[both], want[both], 1e-4, "depth given the JAX shift")
-    assert (finite != np.isfinite(want)).mean() < 0.01
+    out = jm.moge_forward(jtree, jnp.asarray(img[None]), JAX_CFG, NUM_TOKENS)
+    _hold_depth(got, want, img, out, model, NUM_TOKENS)
+
+
+def test_batched_runner_on_a_dp_mesh_matches_jax(tree, tmp_path):
+    """shard_params over a dp-2 CPU mesh (``devices=``), then
+    infer_depth_batch_async on two first frames (uint8, as the creator hands
+    them over): one frame on each replica, each depth bit for bit the
+    runner's single-frame depth, and held to the JAX runner's dp-sharded
+    batch given the JAX shift. The replicas share the runner's weights."""
+    from pi3_slam_tpu.models.moge import MoGeRunner as JaxRunner
+    from pi3_slam_tpu.parallel import make_mesh as jax_make_mesh
+
+    from pi3_slam_tpu_torch.parallel import make_mesh
+
+    path = str(tmp_path / "moge.npz")
+    # the runner's token count is the range's top: 100 tokens, as above
+    cfg = dataclasses.replace(CFG, num_tokens_range=(NUM_TOKENS, NUM_TOKENS))
+    save_params_npz(path, {**tree, "_config_json": cfg.to_json()})
+    runner = MoGeRunner(path, torch.device("cpu"))
+    imgs = np.random.default_rng(4).integers(0, 256, (2, 3, 140, 140), dtype=np.uint8)
+    single = [runner.infer_depth(im) for im in imgs]
+    runner.shard_params(make_mesh(2, 1, devices=["cpu"] * 2))
+    assert [m for _, m in runner._replicas] == [runner.model] * 2
+    got = [d.numpy() for d in runner.infer_depth_batch_async(imgs)]
+    for g, s in zip(got, single):
+        np.testing.assert_array_equal(g, s)
+    jrunner = JaxRunner(path)
+    jrunner.shard_params(jax_make_mesh(2, 1))
+    want = np.asarray(jrunner.infer_depth_batch_async(imgs))
+    floats = imgs.astype(np.float32) / 255.0
+    forward = jax.jit(lambda p, x: jm.moge_forward(p, x, JAX_CFG, NUM_TOKENS))
+    for b in range(2):
+        out = forward(_to_jax(tree), jnp.asarray(floats[b : b + 1]))
+        _hold_depth(got[b], want[b], floats[b], out, runner.model, NUM_TOKENS)
 
 
 def test_port_written_npz_reads_back_in_jax(tree, tmp_path, image):

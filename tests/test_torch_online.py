@@ -434,12 +434,22 @@ def test_consumer_error_reaches_the_caller(image_dir, ckpt, tmp_path):
 
 
 def test_sfm_backend_and_unported_parts_are_refused(ckpt, tmp_path, capsys):
-    """A bad sfm_backend and the multi-device parts are refused; the viewer
-    is made (console lines without viser, as the JAX class does)."""
+    """A bad sfm_backend is refused; dp 2 on ``device="cpu"`` (one device)
+    is clamped to the single-device path, as the JAX class clamps it on one
+    chip, and a CPU mesh built through ``devices=`` is taken; the viewer is
+    made (console lines without viser, as the JAX class does)."""
     with pytest.raises(ValueError, match="sfm_backend"):
         online.Pi3SLAMOnline(OnlineConfig(device="cpu", sfm_backend="tpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: multi-device"):
-        _port(tmp_path, ckpt, data_parallel_chunks=2)
+    slam = _port(tmp_path, ckpt, data_parallel_chunks=2)
+    assert slam.mesh is None and slam.config.data_parallel_chunks == 1
+    assert slam.queue_status()["data_parallel_chunks"] == 1
+    slam = online.Pi3SLAMOnline(
+        OnlineConfig(output_dir=str(tmp_path / "mesh"), device="cpu",
+                     **_kw(ckpt, data_parallel_chunks=2, sequence_parallel=2)),
+        pi3_config=PORT_TINY, devices=["cpu"] * 8)
+    assert slam.mesh.shape == {"dp": 2, "tp": 1, "sp": 2}
+    assert slam.queue_status()["data_parallel_chunks"] == 2
+    assert "online device mesh: dp=2 x tp=1 x sp=2 over 8 devices" in capsys.readouterr().out
     slam = _port(tmp_path, ckpt, visualize=True, viz_port=8123)
     assert slam.visualizer is not None
     if not viz._HAS_VISER:
@@ -463,19 +473,30 @@ def test_cli_has_every_jax_option_with_its_default():
     assert got == want
 
 
-@pytest.mark.parametrize("flags,entry", [
-    (["--data-parallel-chunks", "2"], "multi-device"),
-    (["--tensor-parallel", "2"], "multi-device"),
-    (["--sequence-parallel", "2"], "multi-device"),
-])
-def test_cli_refuses_unported_flags(tmp_path, capsys, flags, entry):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--images", str(tmp_path), "--output", str(tmp_path / "out"),
-                  "--device", "cpu"] + flags)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "ROADMAP.md" in err and entry in err
-    assert not (tmp_path / "out").exists()
+@pytest.fixture(scope="module")
+def cli_base(image_dir, ckpt, tmp_path_factory):
+    """The online CLI on the CPU without parallel flags: (its arguments, its
+    output directory)."""
+    out = tmp_path_factory.mktemp("cli_base")
+    args = ["--images", image_dir, "--model-path", ckpt, "--device", "cpu", "--chunk-length",
+            "4", "--overlap", "2", "--max-kp", "20", "--pixel-limit", "4000",
+            "--compute-dtype", "float32", "--no-metric-depth"]
+    assert cli.main(args + ["--output", str(out)]) == 0
+    return args, out
+
+
+@pytest.mark.parametrize(
+    "flag", ["--data-parallel-chunks", "--tensor-parallel", "--sequence-parallel"])
+def test_cli_clamps_parallel_flags_to_one_cpu_device(cli_base, tmp_path, capsys, flag):
+    """--device cpu lays the mesh over one device: each parallel flag at 2 is
+    clamped to the single-device path (no mesh printed) and the run writes
+    the trajectory of a run without it, byte for byte."""
+    args, base = cli_base
+    capsys.readouterr()
+    assert cli.main(args + ["--output", str(tmp_path / "out"), flag, "2"]) == 0
+    assert "device mesh" not in capsys.readouterr().out
+    for name in ("trajectory_tum.txt", "final_points.ply"):
+        assert (tmp_path / "out" / name).read_bytes() == (base / name).read_bytes(), name
 
 
 def test_cli_no_visualization_wins_and_input_is_required(tmp_path, capsys):

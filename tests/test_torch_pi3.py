@@ -262,6 +262,7 @@ def test_port_imports_and_runs_without_jax():
         assert "camera_poses_cw" in import_reference_chunks.convert_chunk(
             {"camera_poses": torch.eye(4)[None]})
         assert not [m for m in sys.modules if m.split(".")[0].startswith(("test_", "tests"))]
+        assert "pi3_slam_tpu_torch.parallel.ring" in sys.modules  # the walk covers parallel/
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert "pi3_slam_tpu" not in sys.modules, sorted(
             m for m in sys.modules if m.split(".")[0] == "pi3_slam_tpu")
