@@ -104,8 +104,9 @@ def build_parser() -> argparse.ArgumentParser:
                         default="default",
                         help="npz deflate level: 'default' zlib-6, 'fast' zlib-1, 'none' STORED")
     parser.add_argument("--profile-dir", default=None,
-                        help="Write a torch.profiler trace (Chrome JSON) and a per-kernel "
-                             "summary of chunk 1, the first after warm-up, into this directory")
+                        help="Write a torch.profiler trace (Chrome JSON) of chunk 1, the "
+                             "first after warm-up, with its npz write and the program's stage "
+                             "spans, and a per-kernel summary, into this directory")
     return parser
 
 

@@ -11,6 +11,7 @@ import queue
 import threading
 from typing import Iterator, List, Sequence, Tuple
 
+from ..utils.timing import span
 from .image_io import load_images
 
 
@@ -50,7 +51,8 @@ class ChunkDataset:
     def __getitem__(self, idx: int) -> dict:
         start, end = self.windows[idx]
         paths = self.image_paths[start:end]
-        images = load_images(paths, self.target_size, self.undistorter)
+        with span("loader.decode", chunk=idx):  # on the prefetch threads
+            images = load_images(paths, self.target_size, self.undistorter)
         # a video frame is named "<video_path>#<frame_idx>"
         return {"chunk_idx": idx, "start": start, "end": end, "images": images,
                 "paths": [f"{p[0]}#{p[1]}" if isinstance(p, tuple) else p for p in paths]}

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.timing import span
 from .convert import build_moge, load_moge_checkpoint, moge_state_from_jax
 from .moge_model import moge_infer_depth
 
@@ -57,10 +58,11 @@ class MoGeRunner:
         """Enqueue depth inference on the current stream and return the (H, W)
         device tensor without waiting for it (the creator queues it right
         behind the Pi3 chunk step)."""
-        img = torch.as_tensor(image).to(self.device, non_blocking=True)
-        if img.dtype == torch.uint8:  # raw bytes from the loader
-            img = img.float() / 255.0
-        return moge_infer_depth(self.model, img)
+        with span("moge.forward"):
+            img = torch.as_tensor(image).to(self.device, non_blocking=True)
+            if img.dtype == torch.uint8:  # raw bytes from the loader
+                img = img.float() / 255.0
+            return moge_infer_depth(self.model, img)
 
     def infer_depth_batch_async(self, images) -> list[torch.Tensor]:
         """Depth of B first frames ((B, 3, H, W), or a sequence of (3, H, W)):
@@ -81,7 +83,9 @@ class MoGeRunner:
             with torch.no_grad():
                 return moge_infer_depth(model, img)
 
-        return run_on_devices([(self._replicas[b // per][0], lambda b=b: job(b)) for b in range(n)])
+        with span("moge.forward"):
+            return run_on_devices([(self._replicas[b // per][0], lambda b=b: job(b))
+                                   for b in range(n)])
 
     def infer_depth(self, image) -> np.ndarray:
         return self.infer_depth_async(image).cpu().numpy()

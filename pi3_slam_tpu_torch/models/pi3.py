@@ -25,6 +25,7 @@ from torch import nn
 from ..geometry.transforms import homogenize_points, svd_orthogonalize
 from ..ops.pixel_shuffle import tokens_to_image
 from ..ops.rope import make_patch_positions, rope_tables
+from ..utils.timing import span
 from .dinov2 import VIT_LARGE, DinoV2Config, DinoVisionTransformer
 from .layers import Block, apply_linear
 
@@ -184,13 +185,16 @@ class Pi3(nn.Module):
         ph, pw = H // p, W // p
         mean = torch.tensor(IMAGE_MEAN, dtype=imgs.dtype, device=imgs.device).reshape(1, 1, 3, 1, 1)
         std = torch.tensor(IMAGE_STD, dtype=imgs.dtype, device=imgs.device).reshape(1, 1, 3, 1, 1)
-        imgs = (imgs - mean) / std
-        hidden = self.encoder(imgs.reshape(B * N, 3, H, W))["patch_tokens"]
-        hidden_cat, pos = self._decode(hidden, B, N, (ph, pw))
-        point_hidden = self._head_decoder_forward(self.point_decoder, hidden_cat, pos)
-        conf_hidden = self._head_decoder_forward(self.conf_decoder, hidden_cat, pos)
-        camera_hidden = self._head_decoder_forward(self.camera_decoder, hidden_cat, pos)
-        return self._dense_heads(point_hidden, conf_hidden, camera_hidden, B, N, H, W)
+        with span("pi3.encoder"):
+            imgs = (imgs - mean) / std
+            hidden = self.encoder(imgs.reshape(B * N, 3, H, W))["patch_tokens"]
+        with span("pi3.decoder"):
+            hidden_cat, pos = self._decode(hidden, B, N, (ph, pw))
+        with span("pi3.heads"):
+            point_hidden = self._head_decoder_forward(self.point_decoder, hidden_cat, pos)
+            conf_hidden = self._head_decoder_forward(self.conf_decoder, hidden_cat, pos)
+            camera_hidden = self._head_decoder_forward(self.camera_decoder, hidden_cat, pos)
+            return self._dense_heads(point_hidden, conf_hidden, camera_hidden, B, N, H, W)
 
     def _dense_heads(self, point_hidden: torch.Tensor, conf_hidden: torch.Tensor,
                      camera_hidden: torch.Tensor, B: int, N: int, H: int, W: int

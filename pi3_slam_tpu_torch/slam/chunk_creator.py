@@ -37,6 +37,7 @@ tunnel, is not ported: each chunk goes to its own device).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -63,6 +64,7 @@ from ..parallel import make_mesh, mesh_devices, run_on_devices
 from ..parallel.mesh import make_replicas
 from ..sfm.reconstruction import _candidate_frames
 from ..utils.keypoints import ALIKEDExtractor, create_keypoint_extractor, grid_keypoints
+from ..utils.timing import TimingStats, add_spans_to_trace, span
 from .config import OfflineCreatorConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -210,44 +212,46 @@ def make_chunk_step(
              cand: torch.Tensor | None = None) -> Dict[str, torch.Tensor]:
         images = images.float() / 255.0
         out = model(images[None])
-        local = out["local_points"][0]  # (N, H, W, 3)
-        world = out["points"][0]
-        conf = out["conf"][0]  # (N, H, W, 1)
-        poses = out["camera_poses"][0]  # (N, 4, 4)
+        with span("step.post"):  # masks, sampling, intrinsics, refinement
+            local = out["local_points"][0]  # (N, H, W, 3)
+            world = out["points"][0]
+            conf = out["conf"][0]  # (N, H, W, 1)
+            poses = out["camera_poses"][0]  # (N, 4, 4)
 
-        conf_mask = torch.sigmoid(conf[..., 0]) > conf_threshold
-        non_edge = ~depth_edge(local[..., 2], rtol=edge_rtol)
-        masks = conf_mask & non_edge  # (N, H, W)
+            conf_mask = torch.sigmoid(conf[..., 0]) > conf_threshold
+            non_edge = ~depth_edge(local[..., 2], rtol=edge_rtol)
+            masks = conf_mask & non_edge  # (N, H, W)
 
-        # bilinear for points and colours, nearest for confidence and masks
-        result = {
-            "points_kp": grid_sample_frames(world, keypoints, mode="bilinear"),
-            "local_points_kp": grid_sample_frames(local, keypoints, mode="bilinear"),
-            "conf_kp": grid_sample_frames(conf, keypoints, mode="nearest"),
-            "masks_kp": grid_sample_frames(masks[..., None].float(), keypoints, mode="nearest")[..., 0]
-            > 0.5,
-            "colors_kp": grid_sample_frames(images.permute(0, 2, 3, 1), keypoints, mode="bilinear"),
-            "camera_poses": poses,
-            # frame 0's depth and mask, for the MoGe metric scale
-            "depth0": local[0, ..., 2],
-            "mask0": masks[0],
-        }
-        cam = None
-        if estimate_intrinsics:
-            cam = estimate_camera_parameters(local, conf)
-            result["intrinsics"] = cam["intrinsics"]
-        if refine_obs is not None:
-            # on the unscaled geometry: the metric scale is applied on the host
-            interval = _Interval(images.device)
-            result.update(_project_and_refine_observations(
-                images, keypoints, result["points_kp"], poses, cam, refine_obs, cand))
-            result["_refine"] = interval.stop()
-        if return_dense:
-            s = dense_stride
-            result["local_points_dense"] = local[:, ::s, ::s].half()
-            result["conf_dense"] = conf[:, ::s, ::s].half()
-            result["masks_dense"] = masks[:, ::s, ::s]
-        return result
+            # bilinear for points and colours, nearest for confidence and masks
+            result = {
+                "points_kp": grid_sample_frames(world, keypoints, mode="bilinear"),
+                "local_points_kp": grid_sample_frames(local, keypoints, mode="bilinear"),
+                "conf_kp": grid_sample_frames(conf, keypoints, mode="nearest"),
+                "masks_kp": grid_sample_frames(masks[..., None].float(), keypoints,
+                                               mode="nearest")[..., 0] > 0.5,
+                "colors_kp": grid_sample_frames(images.permute(0, 2, 3, 1), keypoints,
+                                                mode="bilinear"),
+                "camera_poses": poses,
+                # frame 0's depth and mask, for the MoGe metric scale
+                "depth0": local[0, ..., 2],
+                "mask0": masks[0],
+            }
+            cam = None
+            if estimate_intrinsics:
+                cam = estimate_camera_parameters(local, conf)
+                result["intrinsics"] = cam["intrinsics"]
+            if refine_obs is not None:
+                # on the unscaled geometry: the metric scale is applied on the host
+                interval = _Interval(images.device)
+                result.update(_project_and_refine_observations(
+                    images, keypoints, result["points_kp"], poses, cam, refine_obs, cand))
+                result["_refine"] = interval.stop()
+            if return_dense:
+                s = dense_stride
+                result["local_points_dense"] = local[:, ::s, ::s].half()
+                result["conf_dense"] = conf[:, ::s, ::s].half()
+                result["masks_dense"] = masks[:, ::s, ::s]
+            return result
 
     return step
 
@@ -476,45 +480,51 @@ def refine_settings(config) -> tuple | None:
 
 def detect(extractor: ALIKEDExtractor | None, images: torch.Tensor, max_keypoints: int):
     """Keypoints (N, K, 2) float32 for a chunk's uploaded frames: ALIKED's on
-    the device (its outputs and their seconds returned beside them), else the
-    grid's. Returns (keypoints, detection or None, seconds or None)."""
+    the device (its outputs returned beside them), else the grid's. Returns
+    (keypoints, detection or None)."""
     N, _, H, W = images.shape
     if extractor is None:
         kp = grid_keypoints(H, W, max_keypoints)
-        return np.broadcast_to(kp[None], (N, kp.shape[0], 2)).astype(np.float32), None, None
-    t0 = time.perf_counter()
+        return np.broadcast_to(kp[None], (N, kp.shape[0], 2)).astype(np.float32), None
     det = extractor.extract(images)  # ends with the host copy
-    return det["keypoints"].astype(np.float32), det, time.perf_counter() - t0
+    return det["keypoints"].astype(np.float32), det
 
 
 def prepare_chunk(config, extractor: ALIKEDExtractor | None, extractor_device: torch.device,
-                  images: np.ndarray, device: torch.device, dense_only: bool = False) -> Dict:
+                  images: np.ndarray, device: torch.device, dense_only: bool = False,
+                  timing: TimingStats | None = None) -> Dict:
     """Upload one chunk to ``device`` and make its step inputs: ``kps_dev``
     (grid or ALIKED keypoints, the extractor on ``extractor_device``; with
     ``dense_only`` a single centre point, which keeps the step's outputs
     well-formed where the dense maps are what is stored), ``imgs`` with a
     short tail padded to chunk_length, and ``cand``, the refinement fan over
     the real frame count. Also returns the host keypoints ``kps``, the
-    detection ``det`` and ALIKED's seconds ``aliked_s``."""
+    detection ``det`` and ALIKED's seconds ``aliked_s`` (its
+    ``creator.keypoints`` span: detection to its host copy, and a tail's
+    padding). The uploads are ``creator.upload`` spans, tracked in
+    ``timing``."""
+    timing = timing or TimingStats()
     N, _, H, W = images.shape
-    imgs = torch.from_numpy(images).to(device, non_blocking=True)
-    if dense_only:
-        kps = np.full((N, 1, 2), [W / 2.0, H / 2.0], np.float32)
-        det = aliked_s = None
-    else:
-        kps, det, aliked_s = detect(extractor, imgs.to(extractor_device), config.max_keypoints)
-    target = config.chunk_length if config.pad_tail_chunks else 0
-    if N < target:
-        imgs_np, kps_dev = pad_tail(images, kps, target)
-        imgs = torch.from_numpy(imgs_np).to(device, non_blocking=True)
-    else:
-        kps_dev = kps
-    cand = None
-    if config.refine_observations:
-        cand = torch.from_numpy(
-            _fan_table(N, imgs.shape[0], config.refine_max_observations)).to(device)
-    return {"imgs": imgs, "kps_dev": torch.from_numpy(kps_dev).to(device), "cand": cand,
-            "kps": kps, "det": det, "aliked_s": aliked_s}
+    with timing.track("creator.upload"):
+        imgs = torch.from_numpy(images).to(device, non_blocking=True)
+    with timing.track("creator.keypoints") as kp_span:
+        if dense_only:
+            kps = np.full((N, 1, 2), [W / 2.0, H / 2.0], np.float32)
+            det = None
+        else:
+            kps, det = detect(extractor, imgs.to(extractor_device), config.max_keypoints)
+        target = config.chunk_length if config.pad_tail_chunks else 0
+        imgs_np, kps_dev = pad_tail(images, kps, target) if N < target else (None, kps)
+    with timing.track("creator.upload"):
+        if imgs_np is not None:
+            imgs = torch.from_numpy(imgs_np).to(device, non_blocking=True)
+        cand = None
+        if config.refine_observations:
+            cand = torch.from_numpy(
+                _fan_table(N, imgs.shape[0], config.refine_max_observations)).to(device)
+        kps_dev = torch.from_numpy(kps_dev).to(device)
+    return {"imgs": imgs, "kps_dev": kps_dev, "cand": cand, "kps": kps, "det": det,
+            "aliked_s": kp_span.seconds if det is not None else None}
 
 
 def host_outputs(dev: Dict) -> Dict[str, np.ndarray]:
@@ -542,6 +552,8 @@ class OfflineChunkCreator:
         self.chunks_dir = os.path.join(config.output_dir, "chunks")
         os.makedirs(self.chunks_dir, exist_ok=True)
         self.keypoint_extractor = make_keypoint_extractor(config, self.device)
+        # the creator's stages: totals, and the recorder's spans where it is on
+        self.timing = TimingStats()
         step_kw = dict(
             conf_threshold=config.conf_threshold,
             edge_rtol=config.depth_edge_rtol,
@@ -564,48 +576,58 @@ class OfflineChunkCreator:
     def _dispatch_chunk(self, images: np.ndarray, paths: List[str]) -> Dict:
         """Upload one chunk and enqueue its device step and the MoGe forward on
         its first frame (asynchronous on the GPU: nothing here waits for the
-        device)."""
-        t0 = time.perf_counter()
-        launches0 = launch_counts()
-        prep = prepare_chunk(self.config, self.keypoint_extractor, self.device, images,
-                             self.device, dense_only=self.config.keypoint_type == "none")
-        dev = self._step(prep["imgs"], prep["kps_dev"], prep["cand"])
-        # queued behind the Pi3 step before the host sync; the first frame is
-        # sliced from the uploaded chunk
-        moge = self.moge.infer_depth_async(prep["imgs"][0]) if self.moge is not None else None
+        device). Its ``creator.dispatch`` span starts the chunk's ``infer_s``
+        (``t0``, on the ``time.perf_counter`` clock)."""
+        with self.timing.track("creator.dispatch") as d:
+            launches0 = launch_counts()
+            prep = prepare_chunk(self.config, self.keypoint_extractor, self.device, images,
+                                 self.device, dense_only=self.config.keypoint_type == "none",
+                                 timing=self.timing)
+            dev = self._step(prep["imgs"], prep["kps_dev"], prep["cand"])
+            # queued behind the Pi3 step before the host sync; the first frame is
+            # sliced from the uploaded chunk
+            moge = self.moge.infer_depth_async(prep["imgs"][0]) if self.moge is not None else None
         return {"dev": dev, "moge": moge, "kps": prep["kps"], "det": prep["det"],
-                "aliked_s": prep["aliked_s"], "t0": t0, "images": images, "paths": paths,
-                "launches0": launches0}
+                "aliked_s": prep["aliked_s"], "t0": d.start_ns / 1e9, "images": images,
+                "paths": paths, "launches0": launches0}
 
     def _finish_chunk(self, pending: Dict) -> Dict:
-        """Wait for a dispatched chunk and build its storage dict."""
-        N = pending["images"].shape[0]
-        host = slice_tail(host_outputs(pending["dev"]), N)  # sync point
-        moge_depth = pending["moge"].cpu().numpy() if pending["moge"] is not None else None
-        dt = max(1e-6, time.perf_counter() - pending["t0"])
-        fps = N / dt
-        print(f"   inference+interp: {dt:.3f}s for {N} frames -> {fps:.2f} FPS")
-        launches = {k: v - pending["launches0"][k] for k, v in launch_counts().items()}
-        if any(launches.values()):  # the hand-written kernels ran (GPU)
-            print(f"   kernel launches: {json.dumps(launches)}")
-        return self._chunk_result(pending, host, moge_depth,
-                                  {"infer_s": dt, "num_frames": N, "fps": fps, "launches": launches})
+        """Wait for a dispatched chunk and build its storage dict. ``infer_s``
+        runs from the start of its dispatch to the end of the host copy (the
+        ``creator.sync`` span)."""
+        with self.timing.track("creator.finish"):
+            N = pending["images"].shape[0]
+            with self.timing.track("creator.sync") as sync:
+                host = slice_tail(host_outputs(pending["dev"]), N)  # sync point
+                moge_depth = pending["moge"].cpu().numpy() if pending["moge"] is not None else None
+            dt = max(1e-6, sync.end_ns / 1e9 - pending["t0"])
+            fps = N / dt
+            print(f"   inference+interp: {dt:.3f}s for {N} frames -> {fps:.2f} FPS")
+            launches = {k: v - pending["launches0"][k] for k, v in launch_counts().items()}
+            if any(launches.values()):  # the hand-written kernels ran (GPU)
+                print(f"   kernel launches: {json.dumps(launches)}")
+            with self.timing.track("creator.result"):
+                return self._chunk_result(
+                    pending, host, moge_depth,
+                    {"infer_s": dt, "num_frames": N, "fps": fps, "launches": launches})
 
     def _dispatch_group(self, batches: List[Dict], n_real: int) -> Dict:
         """Enqueue one dp group (``batches``, padded to dp by the caller; the
         first ``n_real`` are real): each chunk uploaded to its replica's
         device, the sharded step, and MoGe-2 on the first frames behind it."""
-        t0 = time.perf_counter()
-        launches0 = launch_counts()
-        n = len(batches)
-        preps = [prepare_chunk(self.config, self.keypoint_extractor, self.device, b["images"],
-                               self._group_step.device_of(i, n)) for i, b in enumerate(batches)]
-        cand = None if preps[0]["cand"] is None else [p["cand"] for p in preps]
-        devs = self._group_step([p["imgs"] for p in preps], [p["kps_dev"] for p in preps], cand)
-        moge = (self.moge.infer_depth_batch_async([p["imgs"][0] for p in preps])
-                if self.moge is not None else None)
+        with self.timing.track("creator.dispatch") as d:
+            launches0 = launch_counts()
+            n = len(batches)
+            preps = [prepare_chunk(self.config, self.keypoint_extractor, self.device,
+                                   b["images"], self._group_step.device_of(i, n),
+                                   timing=self.timing) for i, b in enumerate(batches)]
+            cand = None if preps[0]["cand"] is None else [p["cand"] for p in preps]
+            devs = self._group_step([p["imgs"] for p in preps], [p["kps_dev"] for p in preps],
+                                    cand)
+            moge = (self.moge.infer_depth_batch_async([p["imgs"][0] for p in preps])
+                    if self.moge is not None else None)
         return {"devs": devs, "moge": moge, "preps": preps, "batches": batches, "n_real": n_real,
-                "t0": t0, "launches0": launches0}
+                "t0": d.start_ns / 1e9, "launches0": launches0}
 
     def _finish_group(self, pending: Dict) -> List[Dict]:
         """Wait for a dispatched group and build the storage dicts of its real
@@ -613,27 +635,31 @@ class OfflineChunkCreator:
         group's size; the group's kernel launches go to its first chunk (the
         others report none)."""
         batches, n_real = pending["batches"], pending["n_real"]
-        hosts = [slice_tail(host_outputs(d), b["images"].shape[0])
-                 for d, b in zip(pending["devs"][:n_real], batches)]  # sync point
-        moge = ([d.cpu().numpy() for d in pending["moge"][:n_real]]
-                if pending["moge"] is not None else [None] * n_real)
-        dt = max(1e-6, time.perf_counter() - pending["t0"])
-        n_frames = [b["images"].shape[0] for b in batches]
-        print(f"   dp-group inference: {dt:.3f}s for {len(batches)}x{max(n_frames)} frames "
-              f"-> {sum(n_frames) / dt:.2f} FPS")
-        launches = {k: v - pending["launches0"][k] for k, v in launch_counts().items()}
-        if any(launches.values()):
-            print(f"   kernel launches of the group: {json.dumps(launches)}")
-        results = []
-        for b in range(n_real):
-            prep, batch = pending["preps"][b], batches[b]
-            chunk = {"images": batch["images"], "paths": batch["paths"], "kps": prep["kps"],
-                     "det": prep["det"], "aliked_s": prep["aliked_s"]}
-            metrics = {"infer_s": dt / len(batches), "num_frames": n_frames[b],
-                       "fps": n_frames[b] / dt,
-                       "launches": launches if b == 0 else dict.fromkeys(launches, 0)}
-            results.append(self._chunk_result(chunk, hosts[b], moge[b], metrics))
-        return results
+        with self.timing.track("creator.finish"):
+            with self.timing.track("creator.sync") as sync:
+                hosts = [slice_tail(host_outputs(d), b["images"].shape[0])
+                         for d, b in zip(pending["devs"][:n_real], batches)]  # sync point
+                moge = ([d.cpu().numpy() for d in pending["moge"][:n_real]]
+                        if pending["moge"] is not None else [None] * n_real)
+            dt = max(1e-6, sync.end_ns / 1e9 - pending["t0"])
+            n_frames = [b["images"].shape[0] for b in batches]
+            print(f"   dp-group inference: {dt:.3f}s for {len(batches)}x{max(n_frames)} frames "
+                  f"-> {sum(n_frames) / dt:.2f} FPS")
+            launches = {k: v - pending["launches0"][k] for k, v in launch_counts().items()}
+            if any(launches.values()):
+                print(f"   kernel launches of the group: {json.dumps(launches)}")
+            results = []
+            with self.timing.track("creator.result"):
+                for b in range(n_real):
+                    prep, batch = pending["preps"][b], batches[b]
+                    chunk = {"images": batch["images"], "paths": batch["paths"],
+                             "kps": prep["kps"], "det": prep["det"],
+                             "aliked_s": prep["aliked_s"]}
+                    metrics = {"infer_s": dt / len(batches), "num_frames": n_frames[b],
+                               "fps": n_frames[b] / dt,
+                               "launches": launches if b == 0 else dict.fromkeys(launches, 0)}
+                    results.append(self._chunk_result(chunk, hosts[b], moge[b], metrics))
+            return results
 
     def _chunk_result(self, pending: Dict, host: Dict, moge_depth, metrics: Dict) -> Dict:
         """One chunk's storage dict from its host outputs and MoGe depth."""
@@ -685,18 +711,24 @@ class OfflineChunkCreator:
                 result.pop(key)
             result["dense"] = np.bool_(True)
         return result
-    def _profiled(self, run):
-        """Run ``run()`` under torch.profiler; write the Chrome trace and a
-        per-kernel summary into ``config.profile_dir``."""
+
+    @contextlib.contextmanager
+    def _profiled(self):
+        """Run the block (one chunk or dp group, its npz writes included)
+        under torch.profiler, which turns the span recorder on; write the
+        Chrome trace, with the program's spans merged in as
+        ``user_annotation`` events, and a per-kernel summary into
+        ``config.profile_dir``."""
         from torch.profiler import ProfilerActivity, profile
 
         cuda = self.device.type == "cuda"
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
         os.makedirs(self.config.profile_dir, exist_ok=True)
         with profile(activities=acts) as prof:
-            result = run()
+            yield
         trace = os.path.join(self.config.profile_dir, "chunk_trace.json")
         prof.export_chrome_trace(trace)
+        add_spans_to_trace(trace)
         table = prof.key_averages().table(
             sort_by="self_device_time_total" if cuda else "self_cpu_time_total", row_limit=40
         )
@@ -707,7 +739,6 @@ class OfflineChunkCreator:
         with open(os.path.join(self.config.profile_dir, "summary.txt"), "w") as f:
             f.write(table)
         print(f"   profiler trace written to {self.config.profile_dir}")
-        return result
 
     def process_and_save(self, image_paths: List) -> List[Dict]:
         """Write one ``chunk_*.npz`` per chunk window plus the manifest.
@@ -773,7 +804,8 @@ class OfflineChunkCreator:
             result["chunk_index"] = batch["chunk_idx"]
             result["start_idx"] = batch["start"]
             result["end_idx"] = batch["end"]
-            save_npz(record["path"], cfg.chunk_compression, **result)
+            with self.timing.track("creator.save"):
+                save_npz(record["path"], cfg.chunk_compression, **result)
             print(f"   saved {record['path']}")
 
         # dp groups: the open group's batches, and the dispatched group not
@@ -783,11 +815,15 @@ class OfflineChunkCreator:
         pending: List = []
         flushed = {"n": 0}
 
+        def chunk_ids(real):
+            return tuple(b["chunk_idx"] for b in real)
+
         def finish_pending():
             while pending:
                 g, real, disp = pending.pop(0)
-                for batch, result in zip(real, self._finish_group(disp)):
-                    save(batch, result, g)
+                with self.timing.track("chunk", chunk=chunk_ids(real)):
+                    for batch, result in zip(real, self._finish_group(disp)):
+                        save(batch, result, g)
 
         def flush():
             if not group:
@@ -798,16 +834,28 @@ class OfflineChunkCreator:
             flushed["n"] += 1
             if cfg.profile_dir and g == 1:  # the second group: warm, traced alone
                 finish_pending()
-                results = self._profiled(
-                    lambda: self._finish_group(self._dispatch_group(padded, len(real))))
-                for batch, result in zip(real, results):
-                    save(batch, result, g)
+                with self._profiled(), self.timing.track("chunk", chunk=chunk_ids(real)):
+                    results = self._finish_group(self._dispatch_group(padded, len(real)))
+                    for batch, result in zip(real, results):
+                        save(batch, result, g)
                 return
-            disp = self._dispatch_group(padded, len(real))
+            with self.timing.track("chunk", chunk=chunk_ids(real)):
+                disp = self._dispatch_group(padded, len(real))
             finish_pending()
             pending.append((g, real, disp))
 
-        for batch in loader:
+        def batches():
+            # the loader's chunks in order, each wait a span with its chunk's id
+            it = iter(loader)
+            while True:
+                with self.timing.track("creator.loader_wait") as wait:
+                    batch = next(it, None)
+                    wait.chunk = None if batch is None else batch["chunk_idx"]
+                if batch is None:
+                    return
+                yield batch
+
+        for batch in batches():
             idx = batch["chunk_idx"]
             out_path = os.path.join(self.chunks_dir, f"chunk_{idx:06d}.npz")
             if cfg.resume and os.path.exists(out_path):
@@ -824,10 +872,11 @@ class OfflineChunkCreator:
                     flush()
                 continue
 
-            def run():
-                return self._finish_chunk(self._dispatch_chunk(batch["images"], batch["paths"]))
-
-            save(batch, self._profiled(run) if cfg.profile_dir and idx == 1 else run())
+            profiled = cfg.profile_dir and idx == 1
+            with (self._profiled() if profiled else contextlib.nullcontext()), \
+                    self.timing.track("chunk", chunk=idx):
+                save(batch, self._finish_chunk(self._dispatch_chunk(batch["images"],
+                                                                    batch["paths"])))
         flush()
         finish_pending()
         if totals["s"] > 0:

@@ -59,7 +59,8 @@ class OfflineCreatorConfig:
     # global attention (parallel/ring.py); dp * tp * sp devices a step
     sequence_parallel: int = 1
     # torch.profiler trace of chunk 1 (the first after warm-up; with dp > 1
-    # the second group) into this dir
+    # the second group), its npz writes and the program's spans included,
+    # into this dir
     profile_dir: Optional[str] = None
     # ZNCC refinement of the observation fan inside the chunk step
     # (ops/correlation.py); the reconstructor then uses the stored fan

@@ -184,7 +184,7 @@ class Pi3SLAMOnline:
         in flight while the host consumes the previous chunk) and an event
         marks their end; without it they are pulled here."""
         launches0 = launch_counts()
-        with self.timing.track("dispatch"):
+        with self.timing.track("dispatch", chunk=batch["chunk_idx"]):
             prep = prepare_chunk(self.config, self.keypoint_extractor, self.device,
                                  batch["images"], self.device)
             dev = self.step(prep["imgs"], prep["kps_dev"], prep["cand"])
@@ -211,7 +211,7 @@ class Pi3SLAMOnline:
         n_real = len(group)
         padded = group + [group[-1]] * (dp - n_real)
         launches0 = launch_counts()
-        with self.timing.track("dispatch"):
+        with self.timing.track("dispatch", chunk=tuple(b["chunk_idx"] for b in group)):
             preps = [prepare_chunk(self.config, self.keypoint_extractor, self.device,
                                    b["images"], self._group_step.device_of(i, dp))
                      for i, b in enumerate(padded)]
@@ -229,7 +229,8 @@ class Pi3SLAMOnline:
         """Pull a dispatched group (the synchronisation point) into consume
         items of its real chunks, in order."""
         n = pending["n_real"]
-        with self.timing.track("materialize"):
+        with self.timing.track("materialize",
+                               chunk=tuple(b["chunk_idx"] for b in pending["group"])):
             hosts = [host_outputs(d) for d in pending["devs"][:n]]
             moge = ([_host(d) for d in pending["moge"][:n]] if pending["moge"] is not None
                     else [None] * n)
@@ -269,7 +270,8 @@ class Pi3SLAMOnline:
         the async consumer runs build(k+1) beside finish(k). ``idx`` is the
         chunk's index for the dense stash (None: the consumed count)."""
         batch = pending["batch"]
-        with self.timing.track("materialize"):
+        cid = batch["chunk_idx"]
+        with self.timing.track("materialize", chunk=cid):
             if pending["ready"] is not None:
                 # this thread's stream waits for the drive thread's step; the
                 # pull blocks, so the step's tensors are free to drop after it
@@ -282,7 +284,7 @@ class Pi3SLAMOnline:
 
         poses = host["camera_poses"].astype(np.float64)
         points_kp = host["points_kp"].astype(np.float64)
-        with self.timing.track("metric_scale"):
+        with self.timing.track("metric_scale", chunk=cid):
             scale_factor = metric_scale(moge_depth, host)
             if scale_factor is not None:
                 points_kp *= scale_factor
@@ -313,9 +315,9 @@ class Pi3SLAMOnline:
             chunk["descriptors"] = det["descriptors"].astype(np.float32)
         if "local_points_dense" in host:
             self._stash_dense(host, poses, chunk, scale_factor,
-                              self._consumed if idx is None else idx, batch["images"])
+                              self._consumed if idx is None else idx, batch["images"], cid)
 
-        with self.timing.track("reconstruction"):
+        with self.timing.track("reconstruction", chunk=cid):
             recon = build_chunk_reconstruction(
                 chunk,
                 max_observations_per_track=self.config.max_observations_per_track,
@@ -329,7 +331,7 @@ class Pi3SLAMOnline:
         """Stage 2, strictly in order: Sim3-align against the previous chunk,
         append to the chain, then the debug artifacts."""
         recon = ctx["recon"]
-        with self.timing.track("alignment"):
+        with self.timing.track("alignment", chunk=ctx["pending"]["batch"]["chunk_idx"]):
             res = None
             if self.reconstructions:
                 res = align_chunks(
@@ -415,11 +417,11 @@ class Pi3SLAMOnline:
         with open(os.path.join(self.config.output_dir, "overlap_debug.jsonl"), "a") as f:
             f.write(json.dumps(entry) + "\n")
 
-    def _stash_dense(self, host, poses, chunk, scale_factor, idx, images) -> None:
+    def _stash_dense(self, host, poses, chunk, scale_factor, idx, images, chunk_idx) -> None:
         """Write the chunk's strided dense maps to <output>/dense/dense_<idx>.npz
         (the offline ``--save-dense`` layout), with the pre-alignment,
         metric-scaled poses the reconstruction was built from."""
-        with self.timing.track("dense_stash"):
+        with self.timing.track("dense_stash", chunk=chunk_idx):
             dense = {
                 "camera_poses": poses.astype(np.float32),
                 "original_height": chunk["original_height"],
@@ -566,7 +568,8 @@ class Pi3SLAMOnline:
 
     def queue_status(self) -> Dict:
         """Produced / consumed / in-flight chunk counts, alignment counts and
-        the stage timings."""
+        the stage timings (``online.queue_wait``: the SfM consumer's waits on
+        its queue, with ``async_sfm``)."""
         return {
             "chunks_produced": self._produced,
             "chunks_consumed": self._consumed,
@@ -661,7 +664,10 @@ class Pi3SLAMOnline:
             try:
                 with torch.cuda.stream(finish_stream):
                     while True:
-                        it = cq.get()
+                        with self.timing.track("online.queue_wait") as wait:
+                            it = cq.get()
+                            wait.chunk = (it["batch"]["chunk_idx"] if isinstance(it, dict)
+                                          else None)
                         if stop.is_set():  # the drive thread gave up
                             it = _DONE
                         nxt_fut = None

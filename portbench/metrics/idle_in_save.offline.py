@@ -1,0 +1,17 @@
+"""idle_in_save.offline: the share of the traced window in which the device was
+idle while the host was in ``creator.save``, writing the chunk's npz.
+The split is ``portbench/spans.py``'s: the program's own spans laid onto the
+trace by their clock anchor, each idle microsecond charged to the innermost
+span of the creator's thread. The six ``idle_in_*`` / ``idle_unattributed``
+shares sum to ``idle_share.offline``. None where the program recorded no
+span."""
+
+from portbench.spans import read_share
+
+NAME = "idle_in_save.offline"
+UNIT = "%"
+LAYER = "creator and loader (host)"
+
+
+def read(run):
+    return read_share(run, "save")

@@ -1,0 +1,18 @@
+"""idle_in_upload.offline: the share of the traced window in which the device was
+idle while the host was in ``creator.upload``: the chunk's frames, keypoints and fan
+table copied to the card from pageable memory.
+The split is ``portbench/spans.py``'s: the program's own spans laid onto the
+trace by their clock anchor, each idle microsecond charged to the innermost
+span of the creator's thread. The six ``idle_in_*`` / ``idle_unattributed``
+shares sum to ``idle_share.offline``. None where the program recorded no
+span."""
+
+from portbench.spans import read_share
+
+NAME = "idle_in_upload.offline"
+UNIT = "%"
+LAYER = "creator and loader (host)"
+
+
+def read(run):
+    return read_share(run, "upload")

@@ -1205,3 +1205,59 @@ def test_the_ring_launches_row_5_at_every_step_and_raises_off_its_head_dim(gen, 
     wide = [_randn(gen, 1, t, 2, 128).to(dtype) for _ in range(3)]
     with pytest.raises(ValueError, match="head dim 64"):
         ring_attention(*[[x[:, : t // 2], x[:, t // 2 :]] for x in wide])
+
+
+def _port_checkpoint_and_frames(tmp_path, side):
+    """A tiny Pi3 (head dim 64) written by the port's own converter, six
+    ``side`` x ``side`` frames, and the creator's arguments for them."""
+    import numpy as np
+    from PIL import Image
+
+    from pi3_slam_tpu_torch.models.convert import init_pi3_params, save_pi3_checkpoint
+    from pi3_slam_tpu_torch.models.dinov2 import DinoV2Config
+    from pi3_slam_tpu_torch.models.pi3 import Pi3Config
+
+    cfg = Pi3Config(
+        encoder=DinoV2Config(embed_dim=128, depth=1, num_heads=2, pos_embed_size=4),
+        dec_embed_dim=128, dec_num_heads=2, dec_depth=2, head_dim=128, head_depth=1,
+        head_num_heads=2, camera_dim=16,
+    )
+    ckpt = str(tmp_path / "pi3.npz")
+    save_pi3_checkpoint(ckpt, init_pi3_params(0, cfg), cfg)
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        Image.fromarray(rng.integers(0, 256, (side, side, 3), dtype=np.uint8)).save(
+            frames / f"{i}.png")
+    return ["--images", str(frames), "--model-path", ckpt, "--output", str(tmp_path / "out"),
+            "--chunk-length", "3", "--overlap", "1", "--pixel-limit", str(side * side),
+            "--no-metric-depth"]
+
+
+@pytest.mark.cuda
+def test_a_profiled_chunk_s_root_span_carries_the_trace_s_device_time(tmp_path):
+    """On the card, the ``chunk`` row of ``trace_summary``'s by-span table
+    over a ``--profile-dir`` trace carries at least 95% of the trace's
+    device time: every launch of the chunk, the hand-written kernels' among
+    them, is charged to the span it was made in, whichever lane the trace
+    puts the launching thread's CUDA calls on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the device time of a profiled chunk)")
+    from pi3_slam_tpu_torch import create_offline_chunks
+    from pi3_slam_tpu_torch.tools import trace_summary
+
+    prof = tmp_path / "prof"
+    before = launch_counts()
+    rc = create_offline_chunks.main(_port_checkpoint_and_frames(tmp_path, 112) + [
+        "--device", "cuda", "--profile-dir", str(prof)])
+    assert rc == 0
+    assert sum(launch_counts().values()) > sum(before.values())  # the hand-written kernels ran
+    s = trace_summary.summarize(str(prof / "chunk_trace.json"))
+    total, table = s["device_total_us"], s["by_span"]
+    assert total > 0 and table["chunk"]["count"] == 1
+    assert table["chunk"]["device_us"] >= 0.95 * total, (table["chunk"], total)
+    assert table["chunk"]["device_us"] <= total * (1 + 1e-9)
+    parts = sum(table[n]["device_us"] for n in ("creator.dispatch", "creator.finish"))
+    assert parts <= table["chunk"]["device_us"] * (1 + 1e-9)
+    assert table["pi3.decoder"]["device_us"] > 0

@@ -14,6 +14,7 @@ import json
 import os
 import runpy
 import sys
+from collections import deque
 
 import pytest
 import torch
@@ -52,21 +53,97 @@ def test_the_jax_probes_are_all_there_and_all_is_the_default(monkeypatch, capsys
     assert capsys.readouterr().out == "device: a card\n"
 
 
-def test_trace_summary_reads_a_cpu_profile(tmp_path, capsys):
-    """A torch.profiler trace of a CPU run: no device event, host slices."""
+def test_trace_summary_reads_a_cpu_profile(tmp_path, capsys, monkeypatch):
+    """A torch.profiler trace of a CPU run: no device event, host slices;
+    the program's spans merged into it (as ``--profile-dir`` merges them)
+    give the by-span table."""
     from torch.profiler import ProfilerActivity, profile
 
+    from pi3_slam_tpu_torch.utils import timing
+
+    monkeypatch.setattr(timing, "_buffer", deque(maxlen=timing.MAX_SPANS))
     x = torch.rand(64, 64)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for _ in range(3):
-            x = torch.relu(x @ x)
+            with timing.span("step.post"):
+                x = torch.relu(x @ x)
     prof.export_chrome_trace(str(tmp_path / "chunk_trace.json"))
+    assert timing.add_spans_to_trace(str(tmp_path / "chunk_trace.json")) == 3
     assert trace_summary.main([str(tmp_path)]) == 0
     out = capsys.readouterr().out.splitlines()
     assert out[0] == f"trace: {tmp_path / 'chunk_trace.json'}"
     assert out[1].startswith("device leaf total: 0.0 ms   host slices total: ")
     s = trace_summary.summarize(str(tmp_path / "chunk_trace.json"))
     assert s["device_total_us"] == 0 and s["host_total_us"] > 0
+    row = s["by_span"]["step.post"]
+    assert row["count"] == 3 and row["host_us"] > 0 and row["device_us"] == 0
+    assert out[-2].split() == ["span", "host", "s", "x", "device", "s"]
+    assert out[-1].split()[0] == "step.post" and out[-1].split()[2] == "3"
+
+
+def test_trace_summary_charges_device_time_to_the_launching_span():
+    """A kernel counts for every span around its launch call on the
+    launching thread (by correlation id), never for a span on another
+    thread or one the launch lies outside."""
+    events = [
+        {"ph": "X", "cat": "user_annotation", "name": "creator.dispatch", "ts": 0.0,
+         "dur": 100.0, "tid": 1},
+        {"ph": "X", "cat": "user_annotation", "name": "pi3.encoder", "ts": 10.0, "dur": 20.0,
+         "tid": 1},
+        {"ph": "X", "cat": "user_annotation", "name": "loader.decode", "ts": 0.0, "dur": 100.0,
+         "tid": 2},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 15.0, "dur": 2.0,
+         "tid": 1, "args": {"correlation": 7}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 50.0, "dur": 2.0,
+         "tid": 1, "args": {"correlation": 8}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ts": 150.0, "dur": 2.0,
+         "tid": 1, "args": {"correlation": 9}},
+        {"ph": "X", "cat": "kernel", "name": "gemm_kernel<0>", "ts": 400.0, "dur": 300.0,
+         "tid": 7, "args": {"correlation": 7}},
+        {"ph": "X", "cat": "kernel", "name": "packed_attention_kernel", "ts": 700.0,
+         "dur": 500.0, "tid": 7, "args": {"correlation": 8}},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 1200.0, "dur": 40.0,
+         "tid": 7, "args": {"correlation": 9}},
+    ]
+    table = trace_summary.by_span(events)
+    assert table["creator.dispatch"] == {"host_us": 100.0, "count": 1, "device_us": 800.0}
+    assert table["pi3.encoder"]["device_us"] == 300.0
+    assert table["loader.decode"]["device_us"] == 0.0
+
+
+def test_trace_summary_matches_launches_on_either_lane_of_the_thread():
+    """A merged span lists its thread's native and pthread ids: launches on
+    either lane count for it and for a span of the other lane, driver
+    launches (``cuda_driver``) as runtime ones; another thread's do not."""
+    native, pthread, other = 616, 1174846720, 617
+    span = {"ph": "X", "cat": "user_annotation"}
+    launch = {"ph": "X", "dur": 1.0}
+    events = [
+        {**span, "name": "chunk", "ts": 0.0, "dur": 100.0, "tid": native,
+         "args": {"span_id": 1, "threads": [native, pthread]}},
+        {**span, "name": "pi3.decoder", "ts": 10.0, "dur": 50.0, "tid": native,
+         "args": {"span_id": 2, "threads": [native, pthread]}},
+        {**span, "name": "record_function", "ts": 0.0, "dur": 100.0, "tid": pthread},
+        {**span, "name": "loader.decode", "ts": 0.0, "dur": 100.0, "tid": other,
+         "args": {"span_id": 3, "threads": [other, 99]}},
+        {**launch, "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 20.0, "tid": pthread,
+         "args": {"correlation": 1}},
+        {**launch, "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 30.0, "tid": native,
+         "args": {"correlation": 2}},
+        {**launch, "cat": "cuda_driver", "name": "cuLaunchKernel", "ts": 70.0, "tid": pthread,
+         "args": {"correlation": 3}},
+        {**launch, "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 40.0, "tid": 99,
+         "args": {"correlation": 4}},
+    ]
+    for c, (name, us) in enumerate([("packed_attention_kernel", 500.0), ("gemm_kernel<0>", 70.0),
+                                    ("triton_k", 9.0), ("copy", 2.0)], 1):
+        events.append({"ph": "X", "cat": "kernel", "name": name, "ts": 1000.0 * c, "dur": us,
+                       "tid": 7, "args": {"correlation": c}})
+    table = trace_summary.by_span(events)
+    assert table["chunk"]["device_us"] == 579.0
+    assert table["pi3.decoder"]["device_us"] == 570.0
+    assert table["record_function"]["device_us"] == 579.0
+    assert table["loader.decode"]["device_us"] == 2.0
 
 
 def _synthetic_events():
