@@ -45,7 +45,11 @@ Phases, each of which raises (exit code 1) on failure:
    at 128 (views) and 256 at (1, 8192, H, D), 192 and 320 at (100, 643, H,
    D) and 320, 384 and 512 at (1, 4100, 2, D), keys past Tk NaN at D 256
    and 512 leaving the output bit-identical; each is reported under
-   "routes" too.
+   "routes" too. Last the focal / shift solve (csrc/focal_shift.cu) at
+   (100, 4096) and (1, 4096) against the eager solve on the card (rtol 1e-5
+   on the focal, atol 1e-5 on the shift; a second call bit for bit), with
+   the eager solve's device time (its kernels summed over a profiler trace)
+   and host time (the enqueue of its launches) beside the kernel's.
 3. Full-width forwards with random weights (seed 0): Pi3 on a 4-frame chunk
    at 308x406, exact and with global_kv_merge=2, in bf16 and in fp32, MoGe-2
    (ViT-S backbone, fp32 trunk as MoGeRunner builds it) on one 308x406
@@ -285,7 +289,8 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 try:  # the card's peaks, the bounds and the checks: perf_lab's too
     from pi3_slam_tpu_torch.ops.roofline import (
-        PEAK_3XTF32, PEAK_BF16, PEAK_BYTES, PEAK_FP32, attention_flops, bound, exp2_ms, mlp_work)
+        PEAK_3XTF32, PEAK_BF16, PEAK_BYTES, PEAK_FP32, attention_flops, bound, exp2_ms,
+        focal_shift_work, mlp_work)
     # a kernel's output against its plain version's, or raise
     from pi3_slam_tpu_torch.ops.compare import hold as check
     # the eval-scale synthetic scene of the system APE gates
@@ -314,6 +319,9 @@ KERNELS = {
         "cuda", "pi3_slam_tpu_torch/csrc/block_mlp.cu", "pi3_slam_tpu/ops/pallas_mlp.py:285"),
     "dots_attention": (
         "cuda", "pi3_slam_tpu_torch/csrc/dots_attention.cu", "tools/perf_lab.py:107"),
+    "focal_shift": (
+        "cuda", "pi3_slam_tpu_torch/csrc/focal_shift.cu",
+        "none: XLA's loop of pi3_slam_tpu/geometry/focal.py:66"),
 }
 # the loop a kernel runs, where its source does not say it alone
 LOOPS = {"dots_attention": "pi3_slam_tpu_torch/csrc/bthd_attention.cuh (products-only mode)",
@@ -339,7 +347,8 @@ F32_SOURCES = {
 }
 KERNELS.update({
     f"{name}_fp32": ("cuda", F32_SOURCES[name], replaces)
-    for name, (_, _, replaces) in list(KERNELS.items()) if name != "dots_attention"})
+    for name, (_, _, replaces) in list(KERNELS.items())
+    if name not in ("dots_attention", "focal_shift")})
 # launches of one Pi3 forward over a chunk: 36 decoder + 15 head producer
 # passes; 24 encoder + 18 frame + 15 head single-pass; 18 global; 75 block MLPs
 # (the nonzero counts of a run; an fp32 model runs the same counts on the
@@ -357,6 +366,9 @@ PI3_KV_MERGE_LAUNCHES = {"qkv_rope_producer": 33, "attention_single_pass_packed"
 # MoGe-2's 12 ViT-S encoder blocks on the chunk's first frame, in fp32 as the
 # JAX runner computes them
 MOGE_LAUNCHES = {"attention_single_pass_packed_fp32": 12, "block_mlp_fp32": 12}
+# the focal / shift solve: one launch for the chunk step's intrinsics (all its
+# frames), one for MoGe-2's depth shift on the chunk's first frame
+FOCAL_LAUNCHES = {"focal_shift": 1}
 
 
 def fp32(counts: dict) -> dict:
@@ -377,9 +389,9 @@ def nonzero(counts: dict) -> dict:
 
 
 PATH_LAUNCHES = {  # launches per chunk of each main path through the CLI
-    "metric_depth": add(PI3_LAUNCHES, MOGE_LAUNCHES),
-    "kv_merge": PI3_KV_MERGE_LAUNCHES,
-    "float32": add(fp32(PI3_LAUNCHES), MOGE_LAUNCHES),
+    "metric_depth": add(PI3_LAUNCHES, MOGE_LAUNCHES, FOCAL_LAUNCHES, FOCAL_LAUNCHES),
+    "kv_merge": add(PI3_KV_MERGE_LAUNCHES, FOCAL_LAUNCHES),
+    "float32": add(fp32(PI3_LAUNCHES), MOGE_LAUNCHES, FOCAL_LAUNCHES, FOCAL_LAUNCHES),
 }
 # launches of one forward of each phase-3 block (nonzero counts): the cross
 # block's self-attention takes the producer and a packed entry (single-pass
@@ -499,13 +511,46 @@ def check_fp32(name: str, shape: str, got, ref, bf16_got, why: str, **bounds):
     return c
 
 
+def focal_shift_inputs(g, n: int, h: int = 308, w: int = 406):
+    """points (n, 4096, 3), uv (4096, 2) and weight (n, 4096) as
+    recover_focal_shift hands them to the solve: n noisy pinhole maps (focal
+    1.3, shift 0.4, z in [2, 3)) at h x w, 70% of pixels masked in, resized
+    to 64 x 64."""
+    import torch
+
+    from pi3_slam_tpu_torch.geometry.maps import nearest_resize, normalized_view_plane_uv
+
+    uv = normalized_view_plane_uv(w, h, device="cuda")
+    z = 2 + torch.rand(n, h, w, generator=g, device="cuda")
+    pts = torch.cat([uv[None] * (z[..., None] + 0.4) / 1.3, z[..., None]], dim=-1)
+    pts = pts + 0.01 * torch.randn(pts.shape, generator=g, device="cuda")
+    mask = (torch.rand(n, h, w, generator=g, device="cuda") > 0.3).float()
+    return (nearest_resize(pts, (64, 64)).reshape(n, -1, 3),
+            nearest_resize(uv, (64, 64)).reshape(-1, 2),
+            nearest_resize(mask[..., None], (64, 64)).reshape(n, -1))
+
+
+def device_ms(fn) -> float:
+    """The device time of one call of fn: its kernels' times summed over a
+    profiler trace (CUDA events around a call that the host enqueues more
+    slowly than the card runs it would time the enqueue)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from pi3_slam_tpu_torch.ops._build import build
 
     names = ("qkv_producer", "packed_attention", "partial_attention", "block_mlp", "attention",
-             "dots_attention", "attention_f32")
+             "dots_attention", "attention_f32", "focal_shift")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(build, names))
     for name, (so, seconds) in zip(names, built):
@@ -540,6 +585,7 @@ def phase_kernels() -> dict:
     from pi3_slam_tpu_torch.ops.dots_attention import dots_attention, dots_attention_plain
     from pi3_slam_tpu_torch.ops.flash_attention import (
         attention_single_pass, blockwise_attention, flash_attention)
+    from pi3_slam_tpu_torch.ops.focal_shift import solve_shift, solve_shift_plain
     from pi3_slam_tpu_torch.ops.mlp import mlp, mlp_plain
     from pi3_slam_tpu_torch.ops.packed_attention import (
         attention_single_pass_packed, flash_attention_packed, packed_attention_plain)
@@ -1084,6 +1130,34 @@ def phase_kernels() -> dict:
     record("mlp_fp32", shape_name, [c], time_ms(run, 5), time_ms(plain, 5),
            (*mlp_work(x, w1), PEAK_3XTF32), library_ms=lib)
     gemm_bits("mlp_fp32", shape_name, x, lambda a: mlp(a, w1, b1, w2, b2))
+
+    # the focal / shift solve at the chunk step's shape (100 frames) and
+    # MoGe-2's (1 frame), 4096 points a frame, against the eager solve on the
+    # same card (JAX parity bounds: rtol 1e-5 focal, atol 1e-5 shift); the
+    # plain version's device time (its kernels, summed) and host time (the
+    # enqueue of its ~5,600 launches) beside the kernel's
+    for n in (N_FRAMES, 1):
+        points, uv, weight = focal_shift_inputs(g, n)
+        shape_name = f"({n}, 4096) fp32"
+        run = lambda: solve_shift(points, uv, weight)
+        plain = lambda: solve_shift_plain(points, uv, weight)
+        (focal, shift), (ref_focal, ref_shift) = run(), plain()
+        why = "fp32, each sum in another order"
+        checks = [check("focal_shift focal", shape_name, focal, ref_focal, why, max_rel=1e-5,
+                        l2_rel=1e-5),
+                  check("focal_shift shift", shape_name, shift, ref_shift, why, max_rel=0.0,
+                        l2_rel=1e-4, atol=1e-5)]
+        same_bits("focal_shift", shape_name, run(), (focal, shift), "a second call")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        plain_ms = device_ms(plain)
+        record("focal_shift", shape_name, checks, time_ms(run, 20), plain_ms,
+               (*focal_shift_work(n, 4096, 30), PEAK_FP32))
+        results["focal_shift"].setdefault("plain_host_ms", {})[shape_name] = host_ms
+        log(f"  {'focal_shift':30s} {shape_name:28s} plain: {host_ms:9.3f} ms of host time to "
+            f"enqueue, {plain_ms:9.3f} ms of device time")
     return results
 
 
@@ -3472,7 +3546,8 @@ def phase_mapping(tmp: str, online_wall: float) -> dict:
 # trace_summary
 
 MOGE_V1_T = 2452  # 43 x 57 patches of a 308x406 frame at 2500 tokens + cls
-MOGE_V1_LAUNCHES = {"attention_single_pass_packed_fp32": 24, "block_mlp_fp32": 24}
+MOGE_V1_LAUNCHES = {"attention_single_pass_packed_fp32": 24, "block_mlp_fp32": 24,
+                    **FOCAL_LAUNCHES}
 # (a)'s bound, chosen before the first run: the card's fp32 MoGe v1 against
 # the host's, relative L2 of the points and the depth inside both masks and
 # of the mask score over the frame, each within MOGE_V1_TOL (phase 3's MoGe-2
@@ -4092,7 +4167,7 @@ def dp_step_bits(model, inputs, devs) -> dict:
     step = make_sharded_chunk_step(model, 0.1, 0.03, True, make_mesh(2, 1, devs[:2]))
     got, counts = counted(f"(a) dp 2 over {devs[:2]}: make_sharded_chunk_step on chunks 0-99 "
                           "and 80-129 (padded)", lambda: step([i for i, _ in up], [k for _, k in up]),
-                          {k: 2 * v for k, v in PI3_LAUNCHES.items()})
+                          scaled(add(PI3_LAUNCHES, FOCAL_LAUNCHES), 2))
     for c in range(2):
         same = all(torch.equal(got[c][k].cpu(), want[c][k]) for k in want[c])
         log(f"  (a) chunk {c}: {len(want[c])} outputs bit-identical to the single-device step: "
@@ -4509,6 +4584,7 @@ def main() -> int:
                         "shape": r["shape"], **({"routes": r["routes"]} if r["routes"] else {}),
                         **({"products_ms": r["products_ms"]} if "products_ms" in r else {}),
                         **({"tb_per_s": r["tb_per_s"]} if "tb_per_s" in r else {}),
+                        **({"plain_host_ms": r["plain_host_ms"]} if "plain_host_ms" in r else {}),
                         **({"loop": LOOPS[name]} if name in LOOPS else {}),
                         **({"moge_v1": moge_v1_rows[name]} if name in moge_v1_rows else {}),
                         **({"multidevice_shapes": multi_rows[name]} if name in multi_rows else {})})

@@ -12,6 +12,7 @@ from contextlib import contextmanager
 from .block_mlp import block_mlp
 from .dots_attention import dots_attention
 from .flash_attention import attention_single_pass, flash_attention
+from .focal_shift import solve_shift
 from .mlp import mlp
 from .packed_attention import attention_single_pass_packed, flash_attention_packed
 from .partial_attention import flash_attention_partial
@@ -27,11 +28,14 @@ KERNEL_WRAPPERS = {
     "attention_single_pass": attention_single_pass,
     "mlp": mlp,
     "dots_attention": dots_attention,
+    "focal_shift": solve_shift,
 }
 
 
-# the wrappers with an fp32 entry (every one but the bf16 probe's)
-FP32_ENTRIES = tuple(name for name in KERNEL_WRAPPERS if name != "dots_attention")
+# the wrappers with an fp32 entry beside their bf16 one (every one but the
+# bf16 probe's and the fp32-only focal / shift solve's)
+FP32_ENTRIES = tuple(name for name in KERNEL_WRAPPERS
+                     if name not in ("dots_attention", "focal_shift"))
 
 
 def launch_counts() -> dict[str, int]:

@@ -40,6 +40,13 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v", "-lineinfo",
 )
+# flags of one library on top of NVCC_FLAGS: the focal / shift solve rounds
+# every product on its own, as the plain solve's separate elementwise ops do
+LIBRARY_FLAGS = {"focal_shift": ("-fmad=false",)}
+
+
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + LIBRARY_FLAGS.get(name, ())
 
 
 def _nvcc() -> str:
@@ -62,7 +69,7 @@ def _sources(name: str) -> list[Path]:
 
 def _library_path(name: str) -> Path:
     """Where the built library for ``csrc/<name>.cu`` lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for p in _sources(name):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -81,7 +88,7 @@ def build(name: str) -> tuple[Path, float]:
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

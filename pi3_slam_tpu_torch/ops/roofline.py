@@ -52,3 +52,14 @@ def mlp_work(x, w1) -> tuple[float, float]:
     m = x.numel() // c
     e = x.element_size()
     return 4.0 * m * c * hidden, 2 * m * c * e + 2 * w1.numel() * e + (hidden + 4 * c) * 4
+
+
+def focal_shift_work(frames: int, points: int, iterations: int) -> tuple[float, float]:
+    """(flops, bytes) of the focal / shift solve (``csrc/focal_shift.cu``),
+    counting each fp32 add, multiply, subtract and division as one
+    operation: per point and iteration 53 for the step's first sums, 62 for
+    its loss and derivatives, 13 and 14 for the trial's two passes; 14 more
+    for the weight sum and the last focal. Points (12 bytes), weight (4) and
+    uv (8) read once, focal and shift written once."""
+    flops = frames * points * (142.0 * iterations + 14.0)
+    return flops, frames * points * 16 + points * 8 + frames * 8

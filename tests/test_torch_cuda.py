@@ -1261,3 +1261,150 @@ def test_a_profiled_chunk_s_root_span_carries_the_trace_s_device_time(tmp_path):
     parts = sum(table[n]["device_us"] for n in ("creator.dispatch", "creator.finish"))
     assert parts <= table["chunk"]["device_us"] * (1 + 1e-9)
     assert table["pi3.decoder"]["device_us"] > 0
+
+
+# ----- the focal / shift solve (csrc/focal_shift.cu) against its plain version on the card -----
+
+
+def _pinhole_maps(gen, n, h, w, focal=1.3, shift=0.4, noise=0.01):
+    """n well-posed pinhole pointmaps (n, h, w, 3) on the card (xy = uv (z +
+    shift) / focal, z in [2, 3), Gaussian noise) and a random mask (70% on)."""
+    from pi3_slam_tpu_torch.geometry.maps import normalized_view_plane_uv
+
+    uv = normalized_view_plane_uv(w, h, device="cuda")
+    z = 2 + torch.rand(n, h, w, generator=gen, device="cuda")
+    xy = uv[None] * (z[..., None] + shift) / focal
+    pts = torch.cat([xy, z[..., None]], dim=-1)
+    pts = pts + noise * torch.randn(pts.shape, generator=gen, device="cuda")
+    return pts, torch.rand(n, h, w, generator=gen, device="cuda") > 0.3
+
+
+def _plain_recover(monkeypatch, pts, mask, size=(64, 64)):
+    """recover_focal_shift with the eager solve on the card in place of the
+    kernel (the same downsampling and weights)."""
+    from pi3_slam_tpu_torch.geometry import focal as gfocal
+    from pi3_slam_tpu_torch.ops.focal_shift import solve_shift_plain
+
+    with monkeypatch.context() as m:
+        m.setattr(gfocal, "solve_shift", solve_shift_plain)
+        return gfocal.recover_focal_shift(pts, mask, downsample_size=size)
+
+
+# (frames, h, w, downsample size, noise): well-posed maps, on which fp32 fixes
+# the solve to well under the bounds (the plain solve's own shift moves by at
+# most ~1e-6 when its points are permuted, which reorders its sums). At 32 x
+# 32 points with noise 0.03 it does not: the loss's descent near the minimum
+# falls under the rounding of its sum, trials are rejected on rounding and
+# lambda grows until the steps stall, at a point that depends on the order of
+# the sums (on the CPU the plain solve's shift moved by up to 1.9e-4 under a
+# permutation of its points, and sat up to 1.9e-4 from the float64 solve)
+FOCAL_CASES = [(4, 56, 84, (64, 64), noise) for noise in (0.0, 0.01, 0.03)] + [
+    (100, 308, 406, (64, 64), noise) for noise in (0.0, 0.01, 0.03)] + [
+    (4, 56, 84, (32, 32), noise) for noise in (0.0, 0.01)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,size,noise", FOCAL_CASES)
+def test_focal_shift_kernel_matches_the_plain_solve(gen, monkeypatch, n, h, w, size, noise):
+    """The kernel's focal and shift against the eager solve on the same card
+    and inputs, within the JAX parity bounds (rtol 1e-5 focal, atol 1e-5
+    shift): the same fp32 arithmetic term for term, each sum in another
+    order. One launch a call."""
+    from pi3_slam_tpu_torch.geometry.focal import recover_focal_shift
+
+    pts, mask = _pinhole_maps(gen, n, h, w, noise=noise)
+    before = launch_counts()["focal_shift"]
+    focal, shift = recover_focal_shift(pts, mask, downsample_size=size)
+    assert launch_counts()["focal_shift"] == before + 1
+    pf, ps = _plain_recover(monkeypatch, pts, mask, size)
+    assert launch_counts()["focal_shift"] == before + 1
+    torch.testing.assert_close(focal, pf, rtol=1e-5, atol=0)
+    torch.testing.assert_close(shift, ps, rtol=0, atol=1e-5)
+    if noise == 0.0:
+        torch.testing.assert_close(focal, torch.full_like(focal, 1.3), rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_focal_shift_kernel_keeps_the_degenerate_frame_rule(gen, monkeypatch):
+    """Frame 0 all masked and frame 1 with one valid pixel give focal 1 and
+    shift 0; frame 2 (its masked-out pixels at z = 0, so z + shift is 0 at
+    the first step and those denominators are clamped, their derivatives
+    gated) and frame 3 (NaN points masked out, which poison the sums as in
+    the plain solve) match the plain solve, NaN for NaN."""
+    from pi3_slam_tpu_torch.geometry.focal import recover_focal_shift
+
+    pts, mask = _pinhole_maps(gen, 4, 56, 84)
+    mask[0] = False
+    mask[1] = False
+    mask[1, 10, 10] = True  # sampled once by the 64 x 64 nearest resize
+    pts[2, ..., 2] = torch.where(mask[2], pts[2, ..., 2], torch.zeros_like(pts[2, ..., 2]))
+    pts[3, :5] = float("nan")
+    mask[3, :5] = False
+    focal, shift = recover_focal_shift(pts, mask)
+    pf, ps = _plain_recover(monkeypatch, pts, mask)
+    assert focal[:2].tolist() == [1.0, 1.0] and shift[:2].tolist() == [0.0, 0.0]
+    torch.testing.assert_close(focal, pf, rtol=1e-5, atol=0, equal_nan=True)
+    torch.testing.assert_close(shift, ps, rtol=0, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100, 1])
+def test_focal_shift_kernel_repeats_its_bits_and_never_syncs(gen, n):
+    """Two launches on the same input give the same bits (fixed-order sums,
+    no atomics), and the wrapper launches under the sync debug mode's
+    "error" (no host read, nothing that waits for the card)."""
+    from pi3_slam_tpu_torch.geometry.maps import normalized_view_plane_uv
+    from pi3_slam_tpu_torch.ops.focal_shift import solve_shift
+
+    pts, mask = _pinhole_maps(gen, n, 64, 64, noise=0.03)
+    points = pts.reshape(n, -1, 3)
+    uv = normalized_view_plane_uv(64, 64, device="cuda").reshape(-1, 2)
+    weight = mask.reshape(n, -1).float()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = solve_shift(points, uv, weight)
+        second = solve_shift(points, uv, weight)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_focal_shift_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    from pi3_slam_tpu_torch.ops.focal_shift import MAX_POINTS, solve_shift
+
+    points = torch.rand(2, 100, 3, device="cuda", generator=gen)
+    uv, weight = torch.rand(100, 2, device="cuda"), torch.ones(2, 100, device="cuda")
+    before = launch_counts()["focal_shift"]
+    with pytest.raises(TypeError, match="float32"):
+        solve_shift(points.to(torch.bfloat16), uv, weight)
+    with pytest.raises(ValueError, match="points a frame"):
+        big = MAX_POINTS + 1
+        solve_shift(torch.rand(1, big, 3, device="cuda"), torch.rand(big, 2, device="cuda"),
+                    torch.ones(1, big, device="cuda"))
+    with pytest.raises(ValueError, match=r"\(F, M, 3\)"):
+        solve_shift(points, uv[:50], weight)
+    assert launch_counts()["focal_shift"] == before
+    focal, shift = solve_shift(points[:0], uv, weight[:0])  # no frame: no launch
+    assert focal.shape == shift.shape == (0,) and launch_counts()["focal_shift"] == before
+
+
+@pytest.mark.cuda
+def test_a_chunk_with_moge_2_launches_the_focal_shift_kernel_twice(tmp_path):
+    """The creator on the card with a tiny Pi3 and a random MoGe-2 npz: each
+    chunk's record counts two focal_shift launches, the chunk step's
+    intrinsics over its frames and MoGe-2's shift on its first frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the focal / shift kernel)")
+    from pi3_slam_tpu_torch.create_offline_chunks import create_chunks
+    from pi3_slam_tpu_torch.models.convert import (
+        init_moge_params, moge_vits_config, save_params_npz)
+
+    moge = str(tmp_path / "moge.npz")
+    save_params_npz(moge, init_moge_params(0, moge_vits_config()))
+    argv = [a for a in _port_checkpoint_and_frames(tmp_path, 112) if a != "--no-metric-depth"]
+    records = create_chunks(argv + ["--moge-path", moge, "--device", "cuda"])
+    assert len(records) >= 2
+    assert [r["launches"]["focal_shift"] for r in records] == [2] * len(records)
