@@ -5,7 +5,10 @@ observation refinement), on the GPU by default.
     python -m pi3_slam_tpu_torch.create_offline_chunks --images <dir> \\
         --output <out> --chunk-length 100 --overlap 20 --max-kp 400 --moge-path moge.npz
 
-Same flags as the JAX package's ``create_offline_chunks.py``. ``--device
+Same flags as the JAX package's ``create_offline_chunks.py``, plus ``--model``
+(``pi3``, the default, or ``vggt``: VGGT-1B on the same chunk path, with its
+own intrinsics and a chunk-quantile confidence mask).
+``--device
 cuda`` (the default) needs a CUDA device; ``--device cpu`` is the explicit CPU
 mode. The device mesh of ``--data-parallel-chunks``, ``--tensor-parallel``
 and ``--sequence-parallel`` is laid over the devices there are: every visible
@@ -47,8 +50,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--images", required=True,
                         help="Folder with images, a glob pattern, or a text file listing image paths")
+    parser.add_argument("--model", default="pi3", choices=["pi3", "vggt"],
+                        help="The geometry model: Pi3 (default), or VGGT-1B (random weights from "
+                             "seed 0, no checkpoint yet; one device, exact global attention; its "
+                             "own intrinsics). The confidence mask: Pi3 keeps sigmoid(conf) > "
+                             "0.1; VGGT, whose depth confidence is 1 + exp(x) >= 1, drops the "
+                             "chunk's lowest 25%% (VGGT-SLAM's --conf_threshold 25)")
     parser.add_argument("--model-path", default=None,
-                        help="Pi3 weights (.npz, the JAX package's checkpoint format); omit for random init")
+                        help="Pi3 weights (.npz, the JAX package's checkpoint format); omit for "
+                             "random init. Not taken with --model vggt")
     parser.add_argument("--output", default="output_chunks", help="Output directory")
     parser.add_argument("--chunk-length", type=int, default=50)
     parser.add_argument("--overlap", type=int, default=5)
@@ -132,6 +142,7 @@ def create_chunks(argv=None, devices: list | None = None) -> list[dict]:
         overlap=args.overlap,
         pixel_limit=args.pixel_limit,
         device=args.device,
+        model=args.model,
         checkpoint_path=args.model_path,
         compute_dtype=args.compute_dtype,
         global_kv_merge=args.global_kv_merge,

@@ -34,6 +34,10 @@ trees and this port's ``Pi3`` and ``MoGe`` modules.
   No v1 checkpoint is in the repository and the JAX package has no v1 init:
   :func:`random_moge_v1_state_dict` draws one from a numpy seed over the
   port's module, in the reference naming, for tests and smoke runs.
+* :func:`init_vggt_params` draws a VGGT-1B state dict (``models/vggt.py``,
+  which has no JAX counterpart) from a numpy seed over the port's module, and
+  :func:`build_vggt` makes the module from it: the trunk in the compute
+  dtype, the heads in fp32. No VGGT checkpoint is in the repository.
 * :func:`cross_block_state_from_jax` and :func:`init_cross_block_params` do
   the same for the cross-attention block (``models/cross_attention.py``);
   no cross-block checkpoint is in the repository, so runs use the random
@@ -54,6 +58,7 @@ from .dinov2 import DinoV2Config
 from .moge_model import ConvStackConfig, MoGe, MoGeConfig
 from .moge_v1 import MoGeV1, MoGeV1Config
 from .pi3 import Pi3, Pi3Config
+from .vggt import VGGT, VGGTConfig
 
 # JAX block leaf -> port parameter name (kernels are transposed)
 _BLOCK_LEAVES = {
@@ -1097,3 +1102,66 @@ def init_cross_block_params(
         for ls in ("ls1", "ls_y", "ls2"):
             tree[ls] = np.full((dim,), layerscale, np.float32)
     return tree
+
+
+# VGGT's ConvTranspose2d leaves: stride = kernel, so each output pixel sees
+# the input channels once (fan-in = in channels)
+_VGGT_TRANSPOSED = re.compile(r"_head\.resize_layers\.[01]\.weight$")
+
+
+def _vggt_leaf_rule(name: str, shape: Tuple[int, ...]) -> Tuple[str, float]:
+    """(kind, value) of a VGGT leaf: ('const', v), ('uniform', std) or
+    ('normal', std). Biases 0, norm scales 1, LayerScale 0.01 in the
+    aggregator and the camera trunk (VGGT's init_values) and 1 in DINOv2
+    (VGGT builds it with init_values 1.0), the aggregator's camera and
+    register tokens normal at std 1e-6 (VGGT's init), DINOv2's tokens uniform
+    at 1e-6, the empty pose encoding 0, convolutions uniform with the fan-in's
+    std, everything else uniform at std 0.02 (the port's Pi3 init)."""
+    parts = name.split(".")
+    last, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
+    if last == "bias" or last == "empty_pose_tokens":
+        return "const", 0.0
+    if last == "weight" and "norm" in parent:
+        return "const", 1.0
+    if last in ("ls1", "ls2"):
+        return "const", 1.0 if name.startswith("encoder.") else 0.01
+    if last in ("camera_token", "register_token"):
+        return "normal", 1e-6
+    if last in ("cls_token", "register_tokens"):
+        return "uniform", 1e-6
+    if len(shape) == 4:
+        fan_in = shape[0] if _VGGT_TRANSPOSED.search(name) else shape[1] * shape[2] * shape[3]
+        return "uniform", fan_in ** -0.5
+    return "uniform", 0.02
+
+
+def init_vggt_params(seed: int, cfg: VGGTConfig = VGGTConfig()) -> Dict[str, np.ndarray]:
+    """A random VGGT state dict (float32 numpy, the port's names), drawn
+    from ``np.random.default_rng(seed)`` leaf by leaf in the module's order
+    by :func:`_vggt_leaf_rule`. Values only matter for tests and smoke runs."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, p in VGGT(cfg, device="meta").named_parameters():
+        kind, value = _vggt_leaf_rule(name, tuple(p.shape))
+        if kind == "const":
+            out[name] = np.full(p.shape, value, np.float32)
+        elif kind == "normal":
+            out[name] = rng.standard_normal(p.shape, dtype=np.float32) * np.float32(value)
+        else:
+            out[name] = _trunc(rng, tuple(p.shape), std=value)
+    return out
+
+
+def build_vggt(cfg: VGGTConfig, state: Dict[str, Any], device: torch.device,
+               dtype: torch.dtype) -> VGGT:
+    """A ``VGGT`` holding ``state`` (tensors or numpy arrays) on ``device``:
+    the encoder and the aggregator's blocks in ``dtype`` (the trunk), the
+    heads and the special tokens in fp32."""
+    model = VGGT(cfg, device="meta")
+    state = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(v)
+             for k, v in state.items()}
+    model.load_state_dict(state, strict=True, assign=True)
+    model = _contiguous(model.to(device=device, dtype=torch.float32)).eval()
+    for trunk in (model.encoder, model.frame_blocks, model.global_blocks):
+        trunk.to(dtype)
+    return model

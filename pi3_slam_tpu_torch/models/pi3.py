@@ -95,6 +95,10 @@ class CameraHead(nn.Module):
 
 
 class Pi3(nn.Module):
+    name = "pi3"
+    # confidence_mask's threshold where the creator's config leaves it unset
+    default_conf_threshold = 0.1
+
     def __init__(self, cfg: Pi3Config = Pi3Config(), device=None):
         super().__init__()
         self.cfg = cfg
@@ -226,3 +230,8 @@ class Pi3(nn.Module):
             "conf": conf,
             "camera_poses": camera_poses,
         }
+
+    @staticmethod
+    def confidence_mask(conf: torch.Tensor, threshold: float) -> torch.Tensor:
+        """conf (N, H, W) raw confidence logits -> sigmoid(conf) > threshold."""
+        return torch.sigmoid(conf) > threshold

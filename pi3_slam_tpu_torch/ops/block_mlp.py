@@ -68,6 +68,15 @@ def check_kernel_operands(
     return fp32
 
 
+def kernel_vector(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A bias, norm scale or LayerScale as the kernels read it: fp32,
+    contiguous, on a 16-byte aligned base (their vector loads fault on any
+    other), copied where it is not; a view into a flat state buffer may lie
+    at any offset."""
+    t = t.to(device=dev, dtype=torch.float32).contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 @functools.cache
 def _kernel(name: str):
     fn = getattr(load_library("block_mlp"), name)
@@ -107,7 +116,7 @@ def block_mlp(
     def vec(t: torch.Tensor | None, n: int) -> torch.Tensor:
         if t is None:
             return torch.ones(n, device=dev, dtype=torch.float32)
-        return t.to(device=dev, dtype=torch.float32).contiguous()
+        return kernel_vector(t, dev)
 
     params = [vec(norm_weight, c), vec(norm_bias, c), w1, vec(fc1_bias, hidden), w2,
               vec(fc2_bias, c), vec(ls, c)]

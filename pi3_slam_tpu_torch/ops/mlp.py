@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check_launch, count_launch, is_fp32, load_library
-from .block_mlp import check_kernel_operands
+from .block_mlp import check_kernel_operands, kernel_vector
 
 
 def mlp_kernel_supported(c: int, hidden: int) -> bool:
@@ -75,8 +75,7 @@ def mlp(
     w1 = fc1_weight.to(device=dev, dtype=x.dtype).contiguous()
     w2 = fc2_weight.to(device=dev, dtype=x.dtype).contiguous()
     fp32 = check_kernel_operands(x, w1, w2, "mlp")
-    b1 = fc1_bias.to(device=dev, dtype=torch.float32).contiguous()
-    b2 = fc2_bias.to(device=dev, dtype=torch.float32).contiguous()
+    b1, b2 = kernel_vector(fc1_bias, dev), kernel_vector(fc2_bias, dev)
     m = x.numel() // c
     hid = torch.empty((m, hidden), device=dev, dtype=x.dtype)
     out = torch.empty_like(x)

@@ -46,6 +46,7 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..data import ChunkDataset, PrefetchLoader, calculate_target_size
 from ..data.undistortion import create_undistorter
@@ -54,9 +55,17 @@ from ..geometry.focal import estimate_camera_parameters
 from ..geometry.maps import depth_edge
 from ..geometry.transforms import se3_inverse
 from ..io.npz import save_npz
-from ..models.convert import build_pi3, init_pi3_params, load_pi3_checkpoint, pi3_state_from_jax
+from ..models.convert import (
+    build_pi3,
+    build_vggt,
+    init_pi3_params,
+    init_vggt_params,
+    load_pi3_checkpoint,
+    pi3_state_from_jax,
+)
 from ..models.moge import MISSING_CHECKPOINT, MoGeRunner
 from ..models.pi3 import Pi3, Pi3Config
+from ..models.vggt import VGGTConfig
 from ..ops import launch_counts
 from ..ops.correlation import rgb_to_gray, zncc_refine_observations
 from ..ops.interpolate import grid_sample_frames
@@ -192,8 +201,14 @@ class _Interval:
         return self.begin.elapsed_time(self.end) / 1e3 if self.cuda else self.seconds
 
 
+def camera_from_intrinsics(K: torch.Tensor) -> dict:
+    """The step's camera dict of a model's own intrinsics (N, 3, 3)."""
+    return {"intrinsics": K, "fx": K[:, 0, 0], "fy": K[:, 1, 1], "cx": K[:, 0, 2],
+            "cy": K[:, 1, 2]}
+
+
 def make_chunk_step(
-    model: Pi3,
+    model: nn.Module,
     conf_threshold: float,
     edge_rtol: float,
     estimate_intrinsics: bool,
@@ -205,7 +220,12 @@ def make_chunk_step(
     (N, K, 2), cand) -> dict of device tensors. ``refine_obs`` =
     (max_obs, patch_radius, search_radius, min_zncc) adds the refined
     observation fan (``cand``: the chunk's :func:`_fan_table` on the device)
-    and a ``_refine`` interval (its device time) to the outputs."""
+    and a ``_refine`` interval (its device time) to the outputs.
+
+    The model decides what its confidence means (``model.confidence_mask``:
+    Pi3's ``sigmoid(conf) > conf_threshold``, VGGT's chunk quantile) and,
+    where its forward returns ``intrinsics`` (VGGT), gives the intrinsics;
+    else they are estimated from the local points (Pi3)."""
 
     @torch.no_grad()
     def step(images: torch.Tensor, keypoints: torch.Tensor,
@@ -218,7 +238,7 @@ def make_chunk_step(
             conf = out["conf"][0]  # (N, H, W, 1)
             poses = out["camera_poses"][0]  # (N, 4, 4)
 
-            conf_mask = torch.sigmoid(conf[..., 0]) > conf_threshold
+            conf_mask = model.confidence_mask(conf[..., 0], conf_threshold)
             non_edge = ~depth_edge(local[..., 2], rtol=edge_rtol)
             masks = conf_mask & non_edge  # (N, H, W)
 
@@ -237,8 +257,11 @@ def make_chunk_step(
                 "mask0": masks[0],
             }
             cam = None
-            if estimate_intrinsics:
+            if "intrinsics" in out:
+                cam = camera_from_intrinsics(out["intrinsics"][0])
+            elif estimate_intrinsics:
                 cam = estimate_camera_parameters(local, conf)
+            if estimate_intrinsics:
                 result["intrinsics"] = cam["intrinsics"]
             if refine_obs is not None:
                 # on the unscaled geometry: the metric scale is applied on the host
@@ -412,10 +435,51 @@ def device_timeline(trace_path: str) -> Dict[str, float]:
             "idle_share": 1.0 - busy_ms / window_ms if window_ms > 0 else 1.0}
 
 
-def load_models(config, pi3_config: Pi3Config | None, device: torch.device):
-    """The Pi3 model (the checkpoint's, else random weights from seed 0) and
-    the MoGe-2 runner (None when metric depth is off or its checkpoint was not
-    given) of a creator or online config. Returns (model, pi3_config, moge)."""
+MODELS = ("pi3", "vggt")
+
+
+def _load_vggt(config, vggt_config: VGGTConfig | None, device: torch.device):
+    """VGGT-1B with random weights from seed 0 (no VGGT checkpoint is in the
+    repository yet); exact global attention only."""
+    if config.checkpoint_path:
+        raise ValueError("--model vggt takes no --model-path: no VGGT checkpoint converter "
+                         "exists yet (random weights only)")
+    if config.global_kv_merge > 1:
+        raise ValueError("--model vggt runs exact global attention: --global-kv-merge must be 1")
+    vggt_config = vggt_config or VGGTConfig()
+    print("Random VGGT weights (geometry will be noise)")
+    return build_vggt(vggt_config, init_vggt_params(0, vggt_config), device,
+                      compute_dtype(config.compute_dtype)), vggt_config
+
+
+def load_models(config, pi3_config: Pi3Config | VGGTConfig | None, device: torch.device):
+    """The model of ``config.model`` ('pi3': the checkpoint's weights, else
+    random ones from seed 0; 'vggt': random ones from seed 0) and the MoGe-2
+    runner (None when metric depth is off or its checkpoint was not given) of
+    a creator config, or of an online config (which has no ``model``: Pi3).
+    ``pi3_config``: the model's configuration (a ``Pi3Config`` or
+    ``VGGTConfig``), None for the default. Returns (model, model config,
+    moge)."""
+    name = getattr(config, "model", "pi3")
+    if name not in MODELS:
+        raise ValueError(f"--model {name!r}: choose one of {MODELS}")
+    if name == "vggt":
+        model, pi3_config = _load_vggt(config, pi3_config, device)
+    else:
+        model, pi3_config = _load_pi3(config, pi3_config, device)
+    # only a checkpoint that was not given is skipped (the JAX creator's
+    # message); any other failure to load or run MoGe raises
+    moge = None
+    if config.use_metric_depth:
+        if config.moge_checkpoint_path is None:
+            print(f"MoGe unavailable ({MISSING_CHECKPOINT}); continuing without metric depth")
+        else:
+            moge = MoGeRunner(config.moge_checkpoint_path, device)
+    return model, pi3_config, moge
+
+
+def _load_pi3(config, pi3_config: Pi3Config | None, device: torch.device):
+    """Pi3 from the config's checkpoint, else random weights from seed 0."""
     ckpt_cfg = None
     if config.checkpoint_path:
         print(f"Loading Pi3 weights: {config.checkpoint_path}")
@@ -428,16 +492,7 @@ def load_models(config, pi3_config: Pi3Config | None, device: torch.device):
         tree = init_pi3_params(0, pi3_config)
     model = build_pi3(pi3_config, pi3_state_from_jax(tree), device,
                       compute_dtype(config.compute_dtype))
-    del tree
-    # only a checkpoint that was not given is skipped (the JAX creator's
-    # message); any other failure to load or run MoGe raises
-    moge = None
-    if config.use_metric_depth:
-        if config.moge_checkpoint_path is None:
-            print(f"MoGe unavailable ({MISSING_CHECKPOINT}); continuing without metric depth")
-        else:
-            moge = MoGeRunner(config.moge_checkpoint_path, device)
-    return model, pi3_config, moge
+    return model, pi3_config
 
 
 def metric_scale(moge_depth: np.ndarray | None, host: Dict) -> float | None:
@@ -555,7 +610,8 @@ class OfflineChunkCreator:
         # the creator's stages: totals, and the recorder's spans where it is on
         self.timing = TimingStats()
         step_kw = dict(
-            conf_threshold=config.conf_threshold,
+            conf_threshold=(self.model.default_conf_threshold if config.conf_threshold is None
+                            else config.conf_threshold),
             edge_rtol=config.depth_edge_rtol,
             estimate_intrinsics=config.estimate_camera_params,
             return_dense=config.keypoint_type == "none" or config.save_dense,
@@ -564,6 +620,10 @@ class OfflineChunkCreator:
         )
         self.mesh = setup_mesh(config, mesh_devices(self.device) if devices is None else devices,
                                "device mesh")
+        if self.mesh is not None and self.model.name != "pi3":
+            raise ValueError(f"--model {self.model.name} runs on one device: the device mesh "
+                             "(--data-parallel-chunks, --tensor-parallel, --sequence-parallel) "
+                             "shards Pi3 only")
         if self.mesh is None:
             self._step = make_chunk_step(self.model, **step_kw)
             self._group_step = None
@@ -745,7 +805,7 @@ class OfflineChunkCreator:
 
         Returns one record per chunk, in chunk order: ``path`` and
         ``num_frames``, and for a chunk computed in this call (not skipped by
-        ``resume``) also ``infer_s`` (upload to host copy, ALIKED included),
+        ``resume``) also ``model`` (the model's name: 'pi3', 'vggt'), ``infer_s`` (upload to host copy, ALIKED included),
         ``fps``, ``launches`` (kernel launches of the chunk, by wrapper name;
         all 0 on the CPU), ``metric_scale`` (None without MoGe or with too few
         valid depth pairs), ``aliked_s`` (ALIKED's seconds to its host copy;
@@ -794,9 +854,9 @@ class OfflineChunkCreator:
         def save(batch, result, group=None):
             record = entry(batch, group)
             m = result.pop("_metrics")
-            record.update(infer_s=m["infer_s"], fps=m["fps"], launches=m["launches"],
-                          metric_scale=m["metric_scale"], aliked_s=m["aliked_s"],
-                          refine_s=m["refine_s"])
+            record.update(model=self.model.name, infer_s=m["infer_s"], fps=m["fps"],
+                          launches=m["launches"], metric_scale=m["metric_scale"],
+                          aliked_s=m["aliked_s"], refine_s=m["refine_s"])
             totals["frames"] += m["num_frames"]
             totals["s"] += m["infer_s"]
             if m["num_frames"] == cfg.chunk_length:

@@ -17,7 +17,8 @@ class OfflineCreatorConfig:
     overlap: int = 10
     pixel_limit: int = 255000 // 2
     device: str = "cuda"
-    # model
+    # model: 'pi3', or 'vggt' (VGGT-1B, random weights only; one device)
+    model: str = "pi3"
     checkpoint_path: Optional[str] = None  # Pi3 .npz; None = random init (seed 0)
     compute_dtype: str = "bfloat16"
     # global-attention k/v merge over groups of frames (Pi3Config.global_kv_merge;
@@ -41,7 +42,10 @@ class OfflineCreatorConfig:
     cam_dist_path: Optional[str] = None  # calibration JSON for undistortion
     # loader
     num_loader_workers: int = 2
-    conf_threshold: float = 0.1
+    # Pi3: the sigmoid(conf) cutoff; VGGT: the share of the chunk's lowest
+    # depth confidences dropped. None: the model's default_conf_threshold
+    # (Pi3 0.1; VGGT 0.25, VGGT-SLAM's --conf_threshold 25)
+    conf_threshold: Optional[float] = None
     depth_edge_rtol: float = 0.03
     # npz deflate level: 'default' (zlib 6), 'fast' (zlib 1), 'none' (STORED)
     chunk_compression: str = "default"

@@ -40,6 +40,7 @@ def test_defaults_match_except_device():
     jax_args = vars(jax_cli.build_parser().parse_args(["--images", "x"]))
     ours = vars(torch_cli.build_parser().parse_args(["--images", "x"]))
     assert ours.pop("device") == "cuda"
+    assert ours.pop("model") == "pi3"  # the port's --model (pi3 or vggt); the JAX CLI runs Pi3
     jax_args.pop("device")
     assert ours == jax_args
 

@@ -590,6 +590,46 @@ def test_gemm_entries_refuse_a_misaligned_x(gen, entry):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("entry", ["block_mlp", "mlp"])
+def test_gemm_entries_take_vectors_off_a_16_byte_base(gen, entry, dtype):
+    """Every bias, norm scale and LayerScale one float into its buffer (4
+    bytes off a 16-byte boundary, as a drawn state's views can lie): the
+    wrapper copies them, so the kernel's vector loads do not fault, and the
+    output equals that of aligned copies bit for bit, in one launch."""
+    c, hidden, rows = 128, 512, 70
+    x = _randn(gen, 1, rows, c).to(dtype)
+
+    def off(*vectors):  # each a view one float into a buffer of its own
+        views = [torch.cat([v.new_zeros(1), v])[1:] for v in vectors]
+        assert all(t.data_ptr() % 16 == 4 for t in views)
+        return views
+
+    w1 = _randn(gen, hidden, c, scale=0.05).to(dtype)
+    w2 = _randn(gen, c, hidden, scale=0.05).to(dtype)
+    # fp32, as the models hold them (a bf16 vector is copied by its cast to fp32 anyway)
+    b1, b2 = _randn(gen, hidden, scale=0.1).float(), _randn(gen, c, scale=0.1).float()
+    if entry == "mlp":
+        def run(b1, b2):
+            return mlp(x, w1, b1, w2, b2)
+        vectors = (b1, b2)
+    else:
+        norm_w = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        norm_b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        ls = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+
+        def run(norm_w, norm_b, b1, b2, ls):
+            return block_mlp(x, norm_w, norm_b, w1, b1, w2, b2, ls=ls)
+        vectors = (norm_w, norm_b, b1, b2, ls)
+    want = run(*vectors)
+    before = launch_counts()[entry] + launch_counts()[f"{entry}_fp32"]
+    got = run(*off(*vectors))
+    torch.cuda.synchronize()
+    assert launch_counts()[entry] + launch_counts()[f"{entry}_fp32"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_mlp_outside_kernel_widths_runs_plain_on_the_card(gen):
     x = _randn(gen, 2, 50, 320)
     args = (_randn(gen, 1280, 320, scale=0.05), _randn(gen, 1280, scale=0.1),
@@ -1408,3 +1448,96 @@ def test_a_chunk_with_moge_2_launches_the_focal_shift_kernel_twice(tmp_path):
     records = create_chunks(argv + ["--moge-path", moge, "--device", "cuda"])
     assert len(records) >= 2
     assert [r["launches"]["focal_shift"] for r in records] == [2] * len(records)
+
+
+# ----- VGGT-1B (models/vggt.py): the fp32 heads at full width, the cell's chunk -----
+
+def _vggt_head_pair(kind: str, seed: int = 5):
+    """(port head, plain head, the configuration's model dict) of VGGT-1B's
+    ``kind`` head ('depth_head', 'point_head', 'camera_head') at full width on
+    the card, one set of weights drawn by the benchmark's VGGT rules."""
+    from portbench import manifest
+    from portbench.reference import vggt as ref
+    from portbench.vggt_weights import draw
+    from pi3_slam_tpu_torch.models import vggt
+
+    model = manifest.config("vggt1b-moge2")["model"]
+    cfg = vggt.VGGTConfig.from_dict({k: v for k, v in model.items() if k != "global_kv_merge"})
+    if kind == "camera_head":
+        plain, port = ref.CameraHead(model), vggt.CameraHead(cfg, device="meta")
+    else:
+        out = 2 if kind == "depth_head" else 4
+        plain, port = ref.DPTHead(model, out), vggt.DPTHead(cfg, out, device="meta")
+    state = draw(torch.nn.ModuleDict({kind: plain}), seed, "cuda", torch.float32)
+    state = {k.split(".", 1)[1]: v.clone() for k, v in state.items()}
+    plain.load_state_dict(state, strict=True, assign=True)
+    port.load_state_dict({k: v.clone() for k, v in state.items()}, strict=True, assign=True)
+    return port.eval(), plain, model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["depth_head", "point_head", "camera_head"])
+@torch.no_grad()
+def test_vggt_fp32_heads_at_full_width_hold_to_fp32_where_tf32_does_not(gen, kind):
+    """VGGT-1B's DPT heads (four frames at 392 x 518, 28 x 37 patches) and
+    camera head (16 frames, four adaLN rounds over four blocks at 2048)
+    against the plain fp32 reference on the same fp32 inputs: within the fp32
+    bounds of ``ops/compare`` (1e-4 max, 1e-5 relative L2), which the
+    reference itself run in TF32 (cuDNN's and cuBLAS's default lower
+    precision) fails."""
+    from portbench.reference import vggt as ref
+    from portbench.reference.pi3 import allow_tf32
+    from pi3_slam_tpu_torch.device import select_device
+
+    select_device("cuda")  # TF32 off, as every entry point sets it
+    port, plain, model = _vggt_head_pair(kind)
+    if kind == "camera_head":
+        x = torch.randn(1, 16, 2048, generator=gen, device="cuda")
+        got = port(x)
+        run = lambda: ref.camera(plain, model, x)  # noqa: E731
+    else:
+        x = [torch.randn(4, 28 * 37 + 5, 2048, generator=gen, device="cuda") for _ in range(4)]
+        got = port(x, (28, 37), (392, 518), 5)
+        run = lambda: ref.dpt(plain, x, (28, 37), (392, 518), 5)  # noqa: E731
+    with allow_tf32(False):
+        want = run()
+    with allow_tf32(True):
+        tf32 = run()
+    c, t = compare(got, want, **FP32), compare(tf32, want, **FP32)
+    print(f"vggt {kind}: port {c}; reference in TF32 {t}")
+    assert c.rejects_wrong, c
+    assert c.ok, c
+    assert not t.ok, t
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_a_vggt1b_moge2_forward_on_a_16_frame_chunk_completes_with_finite_outputs(gen):
+    """The cell's configuration whole (weights drawn on the card from a seed,
+    the trunk in bf16, the heads in fp32) through the chunk step on 16
+    frames at 392 x 518, and MoGe-2 on the first: every stored output finite,
+    confidences at least 1, intrinsics positive (infinite where a field of
+    view sits at ReLU's 0)."""
+    from portbench import manifest
+    from portbench.families import vggt as family
+    from portbench.reference.chunk import grid_keypoints
+    from pi3_slam_tpu_torch.device import select_device
+    from pi3_slam_tpu_torch.slam.chunk_creator import make_chunk_step
+
+    dev = select_device("cuda")
+    config = manifest.config("vggt1b-moge2")
+    model, _, moge = family.build_program(config, 2**31 + 27, dev)
+    step = make_chunk_step(model, config["step"]["conf_threshold"],
+                           config["step"]["depth_edge_rtol"], estimate_intrinsics=True)
+    images = torch.randint(0, 256, (16, 3, 392, 518), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    kps = torch.from_numpy(grid_keypoints(392, 518, 400))[None].expand(16, -1, -1).cuda()
+    out = step(images, kps)
+    depth = moge.infer_depth_async(images[0])
+    for key in ("points_kp", "local_points_kp", "conf_kp", "camera_poses", "depth0"):
+        assert torch.isfinite(out[key]).all(), key
+    assert out["points_kp"].shape == (16, kps.shape[1], 3)
+    assert float(out["conf_kp"].min()) >= 1.0
+    K = out["intrinsics"]
+    assert K.shape == (16, 3, 3) and bool((K[:, 0, 0] > 0).all() and (K[:, 1, 1] > 0).all())
+    assert depth.shape == (392, 518) and bool(torch.isfinite(depth).any())
